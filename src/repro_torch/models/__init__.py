@@ -1,0 +1,10 @@
+"""Model zoo of the port: the dense decoder architectures (attn / local + SwiGLU)."""
+from .config import SHAPES, ArchConfig, MLAConfig, MoEConfig, ShapeConfig
+from .model import (Model, ModelOutput, decode_step, forward, init_caches,
+                    init_params, prefill, segments)
+
+__all__ = [
+    "SHAPES", "ArchConfig", "MLAConfig", "MoEConfig", "Model", "ModelOutput",
+    "ShapeConfig", "decode_step", "forward", "init_caches", "init_params",
+    "prefill", "segments",
+]

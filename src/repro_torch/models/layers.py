@@ -1,0 +1,118 @@
+"""Functional building blocks of the port (parameters are dicts of tensors).
+
+Each function mirrors `repro.models.layers` and keeps its cast points: `dot`
+returns float32 whatever the operand dtype, each caller casts back to the
+activation dtype, and `unembed` does not, so logits are float32 even for a
+bf16 model.  Initialisers draw from an explicit `torch.Generator` with the
+JAX initialisers' scales; the draws are the port's own, not JAX's bits.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+
+def dot(x, w):
+    """x (..., d_in) @ w (d_in, d_out) with a float32 result."""
+    if x.dtype == torch.float32 and w.dtype == torch.float32:
+        return torch.matmul(x, w)
+    if x.is_cuda:  # half-precision product, f32 accumulation and f32 output
+        y = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=torch.float32)
+        return y.reshape(*x.shape[:-1], w.shape[-1])
+    return torch.matmul(x.float(), w.float())
+
+
+def normal_init(generator, shape, scale, dtype):
+    x = torch.randn(shape, generator=generator, device=generator.device,
+                    dtype=torch.float32)
+    return (x * scale).to(dtype)
+
+
+# --- norms --------------------------------------------------------------------
+
+
+def init_rmsnorm(d, dtype, device):
+    return {"scale": torch.ones((d,), dtype=dtype, device=device)}
+
+
+def rmsnorm(p, x, eps=1e-6):
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    out = xf * torch.rsqrt(var + eps) * p["scale"].float()
+    return out.to(x.dtype)
+
+
+# --- FFN ------------------------------------------------------------------------
+
+
+def init_swiglu(generator, d, d_ff, dtype):
+    s_in, s_ff = d ** -0.5, d_ff ** -0.5
+    return {
+        "w_gate": normal_init(generator, (d, d_ff), s_in, dtype),
+        "w_up": normal_init(generator, (d, d_ff), s_in, dtype),
+        "w_down": normal_init(generator, (d_ff, d), s_ff, dtype),
+    }
+
+
+def swiglu(p, x):
+    g = dot(x, p["w_gate"])
+    u = dot(x, p["w_up"])
+    h = (F.silu(g) * u).to(x.dtype)
+    return dot(h, p["w_down"]).to(x.dtype)
+
+
+# --- embeddings / head -----------------------------------------------------------
+
+
+def init_embedding(generator, vocab, d, dtype):
+    return {"table": normal_init(generator, (vocab, d), d ** -0.5, dtype)}
+
+
+def embed(p, tokens):
+    return p["table"][tokens]
+
+
+def unembed(p, x):
+    """Logits (float32); when tied, p is the embedding table."""
+    return dot(x, p["table"].T) if "table" in p else dot(x, p["w"])
+
+
+def init_unembed(generator, d, vocab, dtype):
+    return {"w": normal_init(generator, (d, vocab), d ** -0.5, dtype)}
+
+
+# --- rotary position embedding ----------------------------------------------------
+
+
+def rope_freqs(head_dim: int, theta: float, device=None):
+    return theta ** (-torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                   device=device) / head_dim)
+
+
+def apply_rope(x, positions, theta: float = 10000.0):
+    """x: (B, H, S, D); positions: (B, S) int.  Rotates interleaved pairs
+    (x[..., 0::2], x[..., 1::2]), as the JAX package does."""
+    freqs = rope_freqs(x.shape[-1], theta, x.device)             # (D/2,)
+    ang = positions[:, None, :, None].float() * freqs            # (B,1,S,D/2)
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    x1, x2 = x[..., 0::2].float(), x[..., 1::2].float()
+    r1 = x1 * cos - x2 * sin
+    r2 = x2 * cos + x1 * sin
+    return torch.stack([r1, r2], dim=-1).reshape(x.shape).to(x.dtype)
+
+
+# --- misc --------------------------------------------------------------------------
+
+
+def init_linear(generator, d_in, d_out, dtype, bias=False):
+    p = {"w": normal_init(generator, (d_in, d_out), d_in ** -0.5, dtype)}
+    if bias:
+        p["b"] = torch.zeros((d_out,), dtype=dtype, device=generator.device)
+    return p
+
+
+def linear(p, x):
+    y = dot(x, p["w"])
+    if "b" in p:
+        y = y + p["b"].float()
+    return y.to(x.dtype)

@@ -1,0 +1,227 @@
+"""Model assembly of the port: the decoder stack, prefill and decode steps.
+
+The JAX package scans each *segment* (whole pattern periods plus a remainder,
+see `segments`) over parameters stacked on a leading reps axis.  The port
+keeps one `Block` per layer in layer order, `for rep in range(reps): for
+kind in period`, and runs them in a Python loop; caches are one dict per
+layer.  `segments` stays, since it defines that order (and `interop` reads
+JAX parameters with it).
+
+Block kinds ported so far: "attn" and "local" with a SwiGLU FFN.  The others
+raise `NotImplementedError` naming the ROADMAP item that ports them.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+from torch import nn
+
+from .._device import resolve_device
+from . import attention, layers
+from .config import ArchConfig
+
+_NOT_PORTED = {
+    "mla": "ROADMAP A5 (other attention variants: MLA)",
+    "rglru": "ROADMAP A6 (recurrent archs: RG-LRU, kernel B4)",
+    "rwkv6": "ROADMAP A6 (recurrent archs: RWKV-6, kernel B5)",
+    "moe": "ROADMAP A4 (MoE and the expert-parallel all-to-all)",
+    "gelu": "ROADMAP A5 (other attention variants: whisper)",
+    "enc_dec": "ROADMAP A5 (other attention variants: whisper encoder-decoder)",
+    "frontend": "ROADMAP A5 (other attention variants: patch/audio frontends)",
+}
+
+
+def _not_ported(what: str):
+    return NotImplementedError(f"{what!r} is not ported to PyTorch yet: "
+                               f"{_NOT_PORTED[what]}")
+
+
+def check_supported(cfg: ArchConfig) -> None:
+    """Raise NotImplementedError for any part of `cfg` the port lacks."""
+    for kind in cfg.pattern:
+        if kind not in ("attn", "local"):
+            raise _not_ported(kind)
+    if cfg.ffn != "swiglu":
+        raise _not_ported(cfg.ffn)
+    if cfg.enc_dec:
+        raise _not_ported("enc_dec")
+    if cfg.frontend != "none":
+        raise _not_ported("frontend")
+
+
+# --- layer segmentation ----------------------------------------------------------
+
+
+def segments(cfg: ArchConfig) -> list[tuple[tuple[str, ...], int]]:
+    """[(period kinds, repetitions)] covering cfg.num_layers."""
+    p = len(cfg.pattern)
+    full, rem = divmod(cfg.num_layers, p)
+    out = []
+    if full:
+        out.append((tuple(cfg.pattern), full))
+    if rem:
+        out.append((tuple(cfg.pattern[:rem]), 1))
+    return out
+
+
+# --- parameters -------------------------------------------------------------------
+
+
+def _frozen(params: dict) -> nn.ParameterDict:
+    return nn.ParameterDict({k: nn.Parameter(t, requires_grad=False)
+                             for k, t in params.items()})
+
+
+class Block(nn.Module):
+    """One layer: norm1, mix (attention), norm2, ffn — each a ParameterDict.
+
+    Indexing by name (`block["mix"]`) mirrors the JAX parameter dicts."""
+
+    def __init__(self, kind: str, params: dict):
+        super().__init__()
+        self.kind = kind
+        for name, sub in params.items():
+            self.add_module(name, _frozen(sub))
+
+    def __getitem__(self, name: str) -> nn.ParameterDict:
+        return getattr(self, name)
+
+
+class Model(nn.Module):
+    """Parameters of a decoder-only model, with its blocks in layer order."""
+
+    def __init__(self, cfg: ArchConfig, embed: dict, unembed: dict | None,
+                 final_norm: dict, blocks: list[dict]):
+        super().__init__()
+        check_supported(cfg)
+        if len(blocks) != cfg.num_layers:
+            raise ValueError(f"{len(blocks)} blocks for {cfg.num_layers} layers")
+        self.cfg = cfg
+        self.embed = _frozen(embed)
+        self.unembed = None if unembed is None else _frozen(unembed)
+        self.final_norm = _frozen(final_norm)
+        self.blocks = nn.ModuleList(
+            Block(kind, p) for kind, p in zip(cfg.layer_kinds, blocks, strict=True))
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed["table"].device
+
+
+def init_block(cfg: ArchConfig, generator, kind: str, dtype) -> dict:
+    if kind not in ("attn", "local"):
+        raise _not_ported(kind)
+    dev = generator.device
+    return {
+        "norm1": layers.init_rmsnorm(cfg.d_model, dtype, dev),
+        "mix": attention.init_attention(cfg, generator, dtype),
+        "norm2": layers.init_rmsnorm(cfg.d_model, dtype, dev),
+        "ffn": layers.init_swiglu(generator, cfg.d_model, cfg.d_ff, dtype),
+    }
+
+
+def init_params(cfg: ArchConfig, generator: torch.Generator,
+                device: str | torch.device | None = None) -> Model:
+    """Random parameters with the JAX initialisers' scales, drawn from
+    `generator`, which must live on `device` (default: `cuda`)."""
+    dev = resolve_device(device)
+    if generator.device.type != dev.type:
+        raise ValueError(f"generator on {generator.device}, parameters on {dev}")
+    check_supported(cfg)
+    dtype = getattr(torch, cfg.dtype)
+    embed = layers.init_embedding(generator, cfg.vocab_size, cfg.d_model, dtype)
+    unembed = (None if cfg.tied_embeddings else
+               layers.init_unembed(generator, cfg.d_model, cfg.vocab_size, dtype))
+    final_norm = layers.init_rmsnorm(cfg.d_model, dtype, generator.device)
+    blocks = [init_block(cfg, generator, kind, dtype) for kind in cfg.layer_kinds]
+    return Model(cfg, embed, unembed, final_norm, blocks)
+
+
+# --- caches -------------------------------------------------------------------------
+
+
+def init_block_cache(cfg: ArchConfig, kind: str, batch: int, max_seq: int,
+                     dtype, device) -> dict:
+    if kind not in ("attn", "local"):
+        raise _not_ported(kind)
+    return {"mix": attention.init_attn_cache(cfg, batch, max_seq, kind, dtype,
+                                             device)}
+
+
+def init_caches(cfg: ArchConfig, batch: int, max_seq: int,
+                device: str | torch.device | None = None) -> list[dict]:
+    """One cache per layer, in layer order."""
+    dev = resolve_device(device)
+    dtype = getattr(torch, cfg.dtype)
+    return [init_block_cache(cfg, kind, batch, max_seq, dtype, dev)
+            for kind in cfg.layer_kinds]
+
+
+# --- stack apply --------------------------------------------------------------------
+
+
+def apply_block(cfg: ArchConfig, p: Block, kind: str, x, positions, *, cache=None):
+    """Returns (x, cache); the cache is updated in place.  (The JAX version
+    also returns an auxiliary loss, which only MoE blocks make.)"""
+    h = layers.rmsnorm(p["norm1"], x)
+    mix_cache = None if cache is None else cache["mix"]
+    y, _ = attention.attention_block(cfg, p["mix"], h, positions, kind=kind,
+                                     cache=mix_cache)
+    x = x + y
+    h = layers.rmsnorm(p["norm2"], x)
+    return x + layers.swiglu(p["ffn"], h), cache
+
+
+# --- public entry points ----------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class ModelOutput:
+    logits: torch.Tensor
+    caches: list[dict] | None
+    aux_loss: torch.Tensor
+
+
+def forward(cfg: ArchConfig, params: Model, batch: dict, *, caches=None,
+            mode: str = "train") -> ModelOutput:
+    """batch: tokens (B, S) on the model's device.  Logits are float32."""
+    tok = batch["tokens"].long()
+    x = layers.embed(params.embed, tok) * (cfg.d_model ** 0.5)
+    x = x.to(getattr(torch, cfg.dtype))
+    b, s = tok.shape
+    if caches is not None and mode == "decode":
+        # single-token step: positions come from the cache pointer
+        positions = torch.full((b, s), _cache_pos(caches), dtype=torch.int32,
+                               device=x.device)
+    else:
+        positions = torch.arange(s, dtype=torch.int32, device=x.device).expand(b, s)
+    for i, block in enumerate(params.blocks):
+        x, _ = apply_block(cfg, block, block.kind, x, positions,
+                           cache=None if caches is None else caches[i])
+    x = layers.rmsnorm(params.final_norm, x)
+    head = params.embed if cfg.tied_embeddings else params.unembed
+    return ModelOutput(logits=layers.unembed(head, x), caches=caches,
+                       aux_loss=torch.zeros((), dtype=torch.float32, device=x.device))
+
+
+def _cache_pos(caches) -> int:
+    """Current decode position from the first attention cache (all layers of
+    the ported kinds hold one, and all advance together)."""
+    return caches[0]["mix"]["pos"]
+
+
+def prefill(cfg: ArchConfig, params: Model, batch: dict, max_seq: int):
+    """Run the prompt, build caches.  Returns (last-token logits, caches)."""
+    b = batch["tokens"].shape[0]
+    caches = init_caches(cfg, b, max_seq, params.device)
+    out = forward(cfg, params, batch, caches=caches, mode="prefill")
+    return out.logits[:, -1, :], out.caches
+
+
+def decode_step(cfg: ArchConfig, params: Model, token, caches):
+    """token: (B, 1) int.  Returns (logits (B, vocab), caches), the caches
+    advanced in place."""
+    out = forward(cfg, params, {"tokens": token}, caches=caches, mode="decode")
+    return out.logits[:, -1, :], out.caches
+

@@ -1,0 +1,143 @@
+"""Port parity: flash attention's plain PyTorch versions vs the JAX package.
+
+The same numpy inputs (from a seed) go through the JAX oracle / the JAX Pallas
+kernel in interpret mode and through the port.  Bounds are the reference's
+own (tests/test_kernels.py): 5e-5 in f32, 5e-2 in bf16, lse 1e-5 in f32.
+Cases that need the card carry the `cuda` marker and skip without one; they
+import no JAX, so on a machine with a card and no JAX they run with
+`python -m pytest -m cuda tests/test_torch_flash_attention.py`.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.kernels.flash_attention import kernel, ops, ref  # noqa: E402
+
+FLASH_CASES = [
+    # b, hq, hkv, sq, sk, d, causal, window  (tests/test_kernels.py FLASH_CASES)
+    (2, 4, 2, 128, 128, 64, True, None),     # GQA causal
+    (1, 2, 1, 100, 100, 32, True, None),     # ragged seq
+    (1, 4, 4, 96, 96, 16, True, 32),         # sliding window
+    (1, 4, 2, 160, 160, 32, True, 64),       # GQA + window
+    (1, 2, 2, 64, 64, 16, False, None),      # bidirectional (encoder)
+    (1, 8, 2, 8, 200, 32, True, None),       # chunked decode sq << sk
+    (1, 1, 1, 64, 64, 128, True, None),      # wide head dim
+    (1, 4, 4, 72, 72, 80, True, None),       # stablelm-3b head dim 80, ragged
+]
+DTYPES = ("float32", "bfloat16")
+
+
+def tol(dtype):
+    return ({"atol": 5e-2, "rtol": 5e-2} if dtype == "bfloat16"
+            else {"atol": 5e-5, "rtol": 5e-5})
+
+
+def _arrays(case, seed):
+    b, hq, hkv, sq, sk, d = case[:6]
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal(s).astype(np.float32)
+            for s in ((b, hq, sq, d), (b, hkv, sk, d), (b, hkv, sk, d))]
+
+
+def _torch_inputs(case, dtype, seed=0):
+    return [torch.from_numpy(a).to(getattr(torch, dtype)) for a in _arrays(case, seed)]
+
+
+def _both_inputs(case, dtype, seed=0):
+    """(JAX arrays, torch tensors) from the same numpy values; both sides
+    round f32 to nearest-even bf16."""
+    jnp = pytest.importorskip("jax.numpy")
+    return ([jnp.asarray(a, getattr(jnp, dtype)) for a in _arrays(case, seed)],
+            _torch_inputs(case, dtype, seed))
+
+
+def _np(x):
+    return x.float().numpy() if isinstance(x, torch.Tensor) else np.asarray(x, np.float32)
+
+
+@pytest.mark.parametrize("case", FLASH_CASES)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_plain_attention_matches_jax_ref(case, dtype):
+    from repro.kernels.flash_attention import ref as jax_ref
+    causal, window = case[6], case[7]
+    (jq, jk, jv), (tq, tk, tv) = _both_inputs(case, dtype)
+    want = jax_ref.attention(jq, jk, jv, causal=causal, window=window)
+    got = ref.attention(tq, tk, tv, causal=causal, window=window)
+    assert got.dtype == tq.dtype and got.shape == tq.shape
+    np.testing.assert_allclose(_np(got), _np(want), **tol(dtype))
+
+
+@pytest.mark.parametrize("case", FLASH_CASES)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_plain_fwd_lse_matches_jax_kernel(case, dtype):
+    """The port's plain version of the kernel vs the Pallas kernel (interpret)."""
+    d, causal, window = case[5], case[6], case[7]
+    (jq, jk, jv), (tq, tk, tv) = _both_inputs(case, dtype, seed=1)
+    from repro.kernels.flash_attention.kernel import flash_attention_fwd_lse as jax_fwd_lse
+    scale = d ** -0.5
+    want_o, want_lse = jax_fwd_lse(jq, jk, jv, scale=scale, causal=causal,
+                                   window=window, interpret=True)
+    got_o, got_lse = ref.attention_fwd_lse(tq, tk, tv, scale=scale, causal=causal,
+                                           window=window)
+    assert got_lse.dtype == torch.float32 and got_lse.shape == tq.shape[:3]
+    np.testing.assert_allclose(_np(got_o), _np(want_o), **tol(dtype))
+    if dtype == "float32":
+        np.testing.assert_allclose(_np(got_lse), _np(want_lse), atol=1e-5, rtol=1e-5)
+
+
+def test_wrapper_on_cpu_runs_plain_version_without_launch():
+    case = FLASH_CASES[0]
+    tq, tk, tv = _torch_inputs(case, "float32")
+    before = kernel.flash_attention_fwd_lse.launches
+    got = ops.flash_attention(tq, tk, tv, True, None)
+    want = ref.attention(tq, tk, tv, causal=True)
+    assert kernel.flash_attention_fwd_lse.launches == before == 0
+    np.testing.assert_allclose(_np(got), _np(want), atol=5e-5, rtol=5e-5)
+
+
+def test_flash_attention_backward_not_ported():
+    tq, tk, tv = _torch_inputs(FLASH_CASES[1], "float32")
+    tq.requires_grad_(True)
+    out = ops.flash_attention(tq, tk, tv, True, None)
+    with pytest.raises(NotImplementedError, match="training slice"):
+        out.sum().backward()
+
+
+def _need_cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel runs only on the card")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FLASH_CASES + [(1, 8, 4, 300, 300, 256, True, 100)])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_cuda_kernel_matches_plain(case, dtype):
+    _need_cuda()
+    d, causal, window = case[5], case[6], case[7]
+    tq, tk, tv = (t.cuda() for t in _torch_inputs(case, dtype, seed=2))
+    before = kernel.flash_attention_fwd_lse.launches
+    got_o, got_lse = kernel.flash_attention_fwd_lse(tq, tk, tv, scale=d ** -0.5,
+                                                    causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert kernel.flash_attention_fwd_lse.launches == before + 1
+    want_o, want_lse = ref.attention_fwd_lse(tq, tk, tv, scale=d ** -0.5,
+                                             causal=causal, window=window)
+    np.testing.assert_allclose(_np(got_o.cpu()), _np(want_o.cpu()), **tol(dtype))
+    if dtype == "float32":
+        np.testing.assert_allclose(_np(got_lse.cpu()), _np(want_lse.cpu()),
+                                   atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_wrapper_rejects_what_the_kernel_does_not_take():
+    _need_cuda()
+    q = torch.randn(1, 2, 16, 48, device="cuda")
+    with pytest.raises(ValueError, match="head dim"):
+        kernel.flash_attention_fwd_lse(q, q, q, scale=1.0, causal=True, window=None)
+    q = torch.randn(1, 16, 2, 32, device="cuda").transpose(1, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        kernel.flash_attention_fwd_lse(q, q, q, scale=1.0, causal=True, window=None)
+    q = torch.randn(1, 2, 16, 32, device="cuda", dtype=torch.float16)
+    with pytest.raises(ValueError, match="dtypes"):
+        kernel.flash_attention_fwd_lse(q, q, q, scale=1.0, causal=True, window=None)

@@ -1,0 +1,36 @@
+"""Port parity: `repro_torch.launch.serve` vs `repro.launch.serve`."""
+import dataclasses
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from _torch_parity import both_params  # noqa: E402
+
+from repro import configs as jax_configs  # noqa: E402
+from repro.launch import serve as jax_serve  # noqa: E402
+from repro_torch.launch import serve  # noqa: E402
+
+
+def _requests(mod, cfg, P, N, B, seed=3):
+    rng = np.random.default_rng(seed)
+    return [mod.Request(rid=i, prompt=rng.integers(0, cfg.vocab_size, P).astype(np.int32),
+                        max_new_tokens=N if i else N - 2)
+            for i in range(B)]
+
+
+def test_serve_tokens_equal_jax():
+    """Same converted weights and prompts: the same greedy tokens, with the
+    per-request budgets of tests/test_serve.py."""
+    cfg = dataclasses.replace(jax_configs.get("stablelm-3b").scaled_down(),
+                              dtype="float32", remat=False)
+    jp, model = both_params(cfg)
+    P, N, B = 12, 5, 3
+    want = jax_serve.serve_requests(cfg, jp, _requests(jax_serve, cfg, P, N, B),
+                                    max_seq=P + N + 1, progress=lambda *_: None)
+    got = serve.serve_requests(model.cfg, model, _requests(serve, cfg, P, N, B),
+                               max_seq=P + N + 1, progress=lambda *_: None,
+                               device="cpu")
+    assert len(got[0]) == N - 2 and all(len(got[i]) == N for i in (1, 2))
+    assert got == want
