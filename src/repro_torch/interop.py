@@ -1,8 +1,10 @@
-"""Parameters from the JAX package into the port (no JAX needed here).
+"""Parameters between the JAX package's tree layout and the port (no JAX here).
 
 `params_from_jax` takes the JAX parameter pytree already converted to numpy
 arrays (`jax.tree.map(np.asarray, params)`, done by the caller) and returns
-the port's `Model` with identical weights.  The JAX tree stacks each
+the port's `Model` with identical weights.  `tree_from_model` is its inverse:
+the port's parameters, or their gradients, as numpy arrays in the JAX tree
+layout, so the two can be compared leaf by leaf.  The JAX tree stacks each
 segment's per-period blocks on a leading reps axis; the scan runs
 `for rep in range(reps): for pos in period`, so that is the layer order here.
 Projections keep the JAX `(d_in, d_out)` layout: the port computes `x @ w`.
@@ -44,3 +46,48 @@ def params_from_jax(cfg: ArchConfig, tree: dict,
             for pos in range(len(kinds)):
                 blocks.append(_leaves(per_pos[pos], dev, rep))
     return Model(cfg, top["embed"], top.get("unembed"), top["final_norm"], blocks)
+
+
+def _numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
+def tree_from_model(model: Model, attr: str = "data") -> dict:
+    """The JAX tree layout of `model`'s parameters (attr="data") or of their
+    gradients (attr="grad") as numpy arrays; bf16 comes back as float32.
+
+    Each segment's per-period blocks are stacked on a leading reps axis, with
+    the same key names as `repro.models.init_params`."""
+    if attr not in ("data", "grad"):
+        raise ValueError(f"attr must be 'data' or 'grad', got {attr!r}")
+
+    def leaves(pdict) -> dict:
+        out = {}
+        for k, p in pdict.items():
+            t = getattr(p, attr)
+            if t is None:
+                raise ValueError(f"parameter {k!r} has no {attr}")
+            out[k] = _numpy(t)
+        return out
+
+    cfg = model.cfg
+    tree = {"embed": leaves(model.embed)}
+    if model.unembed is not None:
+        tree["unembed"] = leaves(model.unembed)
+    tree["final_norm"] = leaves(model.final_norm)
+    decoder, layer = [], 0
+    for kinds, reps in segments(cfg):
+        per_pos = [[] for _ in kinds]
+        for _rep in range(reps):
+            for pos in range(len(kinds)):
+                block = model.blocks[layer]
+                per_pos[pos].append({name: leaves(block[name])
+                                     for name, _ in block.named_children()})
+                layer += 1
+        decoder.append([{name: {k: np.stack([r[name][k] for r in reps_list])
+                                for k in reps_list[0][name]}
+                         for name in reps_list[0]}
+                        for reps_list in per_pos])
+    tree["decoder"] = decoder
+    return tree

@@ -1,10 +1,12 @@
 """Build of the port's CUDA kernels: `nvcc` into a shared library, at first use.
 
-Every `*.cu` file under `csrc/` is compiled for `sm_90a` into one shared
-library with a plain C interface, loaded with `ctypes`.  The library goes into
-`build/` at the repository root (git-ignored), under a key made from a hash of
-the sources and the flags, so an edited source rebuilds and an unchanged one
-is reused within a checkout.  A failed build raises with nvcc's output.
+Every `*.cu` file under `csrc/` is compiled for `sm_90a` into an object file,
+one `nvcc` process per source, all started together; the objects are then
+linked into one shared library with a plain C interface, loaded with
+`ctypes`.  The library goes into `build/` at the repository root
+(git-ignored), under a key made from a hash of the sources and the flags, so
+an edited source rebuilds and an unchanged one is reused within a checkout.
+A failed build raises with nvcc's output.
 """
 from __future__ import annotations
 
@@ -20,7 +22,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
 _library: ctypes.CDLL | None = None
@@ -60,16 +62,30 @@ def library() -> ctypes.CDLL:
         lib_path = out_dir / "librepro_torch_kernels.so"
         if not lib_path.exists():
             out_dir.mkdir(parents=True, exist_ok=True)
-            fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-            os.close(fd)
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, sources)]
-            proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
-            (out_dir / "nvcc.log").write_text(proc.stdout + proc.stderr)
-            if proc.returncode != 0:
-                os.unlink(tmp)
-                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                                   f"{' '.join(cmd)}\n{proc.stderr}")
-            os.replace(tmp, lib_path)
+            nvcc = _nvcc()
+            # objects in a directory of this process's own, so that ranks
+            # building at once do not write over each other's files
+            work = Path(tempfile.mkdtemp(dir=out_dir))
+            objs = [work / f"{src.stem}.o" for src in sources]
+            procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                                      stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                      text=True)
+                     for src, obj in zip(sources, objs, strict=True)]
+            logs = [(proc.args, proc.communicate()[0], proc.returncode) for proc in procs]
+            if all(rc == 0 for _, _, rc in logs):
+                link = [nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(work / lib_path.name),
+                        *map(str, objs)]
+                proc = subprocess.run(link, capture_output=True, text=True, check=False)
+                logs.append((link, proc.stdout + proc.stderr, proc.returncode))
+            (work / "nvcc.log").write_text("".join(out for _, out, _ in logs))
+            os.replace(work / "nvcc.log", out_dir / "nvcc.log")
+            failed = [(cmd, out, rc) for cmd, out, rc in logs if rc != 0]
+            if failed:
+                shutil.rmtree(work, ignore_errors=True)
+                cmd, out, rc = failed[0]
+                raise RuntimeError(f"nvcc failed ({rc}):\n{' '.join(cmd)}\n{out}")
+            os.replace(work / lib_path.name, lib_path)
+            shutil.rmtree(work, ignore_errors=True)
         _library = _bind(ctypes.CDLL(str(lib_path)))
         return _library
 
@@ -83,5 +99,11 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     fn = lib.flash_attention_fwd
     fn.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, f, i, i, i, p]
+    fn.restype = i
+    fn = lib.flash_attention_bwd_dkv
+    fn.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, f, i, i, i, p]
+    fn.restype = i
+    fn = lib.flash_attention_bwd_dq
+    fn.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, f, i, i, i, p]
     fn.restype = i
     return lib

@@ -1,29 +1,44 @@
-"""Public flash-attention op of the port (forward only in this slice).
+"""Public flash-attention op of the port: CUDA forward + CUDA backward.
 
-`flash_attention` runs the CUDA kernel for CUDA tensors and the plain version
-for CPU tensors (see kernel.py).  The backward kernels (dK/dV and dQ) belong
-to the training slice; until then differentiating through this op raises
-instead of quietly going through the plain version.
+`flash_attention` runs the CUDA kernels for CUDA tensors and their plain
+versions for CPU tensors (see kernel.py, kernel_bwd.py).  The forward saves
+q, k, v, the output and the logsumexp; the backward expands K/V to the query
+heads, runs the dK/dV and dQ kernels from the saved logsumexp, and sums dK/dV
+over each GQA group, as `repro/kernels/flash_attention/ops.py` does.  Under
+`torch.utils.checkpoint` the forward runs again inside the backward; it keeps
+no state outside `ctx`.
 """
 from __future__ import annotations
 
 import torch
 
 from .kernel import flash_attention_fwd_lse
+from .kernel_bwd import flash_attention_bwd
 
 
 class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, causal, window, scale):
-        out, _lse = flash_attention_fwd_lse(q, k, v, scale=scale, causal=causal,
-                                            window=window)
+        out, lse = flash_attention_fwd_lse(q, k, v, scale=scale, causal=causal,
+                                           window=window)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.window, ctx.scale = causal, window, scale
         return out
 
     @staticmethod
     def backward(ctx, grad_out):
-        raise NotImplementedError(
-            "flash_attention backward (dK/dV and dQ kernels) is not ported yet: "
-            "it comes with the training slice (ROADMAP queue A, training)")
+        q, k, v, out, lse = ctx.saved_tensors
+        b, hkv, sk, d = k.shape
+        group = q.shape[1] // hkv
+        k_full = k.repeat_interleave(group, dim=1) if group > 1 else k
+        v_full = v.repeat_interleave(group, dim=1) if group > 1 else v
+        dq, dk, dv = flash_attention_bwd(
+            q, k_full, v_full, out, lse, grad_out.contiguous(), scale=ctx.scale,
+            causal=ctx.causal, window=ctx.window)
+        if group > 1:  # GQA: sum gradients over the query-head group
+            dk = dk.reshape(b, hkv, group, sk, d).sum(dim=2)
+            dv = dv.reshape(b, hkv, group, sk, d).sum(dim=2)
+        return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None, None
 
 
 def flash_attention(q, k, v, causal: bool = True, window: int | None = None,
@@ -32,7 +47,7 @@ def flash_attention(q, k, v, causal: bool = True, window: int | None = None,
     """Attention with online softmax.
 
     q: (B, Hq, Sq, D); k, v: (B, Hkv, Sk, D), Hkv | Hq.  Returns (B, Hq, Sq, D).
-    `block_q`/`block_k` are kept for signature parity; the kernel picks its
+    `block_q`/`block_k` are kept for signature parity; the kernels pick their
     own tiles.
     """
     del block_q, block_k

@@ -5,6 +5,13 @@ a row with no live key).  `attention_fwd_lse` reproduces what the TPU kernel
 and the CUDA kernel compute, and is what a wrapper runs for a CPU tensor:
 masked scores are filled with the finite `NEG_INF`, the denominator is
 clamped at 1e-30, and the f32 logsumexp comes back beside the output.
+
+`attention_bwd` (with its two halves `attention_bwd_dkv` and
+`attention_bwd_dq`) is the plain version of the backward kernels, in the MHA
+layout they take, following the formulas of the TPU kernels
+(`repro/kernels/flash_attention/kernel_bwd.py`): P = exp(s scale - lse),
+zero where masked; D = rowsum(dO o O); dV = P^T dO;
+dS = P o (dO V^T - D) scale; dQ = dS K; dK = dS^T Q.
 """
 from __future__ import annotations
 
@@ -77,3 +84,45 @@ def attention_fwd_lse(q, k, v, *, scale: float, causal: bool,
     out = torch.einsum("bhqk,bhkd->bhqd", p, v.float()) / denom
     lse = (m + torch.log(denom))[..., 0]
     return out.to(q.dtype), lse
+
+
+def _bwd_probs(q, k, v, lse, do, dvec, scale, causal, window):
+    """f32 P and dS (B, H, Sq, Sk) of the MHA backward; P is 0 where masked."""
+    if q.shape[1] != k.shape[1]:
+        raise ValueError(f"the backward takes MHA: {q.shape[1]} query heads, "
+                         f"{k.shape[1]} kv heads")
+    sq, sk = q.shape[2], k.shape[2]
+    s = _scores(q, k, scale)
+    mask = attention_mask(sq, sk, causal, window, q.device)
+    p = torch.where(mask, torch.exp(s - lse[..., None]), 0.0)
+    dp = torch.einsum("bhqd,bhkd->bhqk", do.float(), v.float())
+    ds = p * (dp - dvec[..., None]) * scale
+    return p, ds
+
+
+def attention_bwd_dkv(q, k, v, do, lse, dvec, *, scale: float, causal: bool,
+                      window: int | None):
+    """Plain version of the dK/dV kernel: (dk, dv) in q's dtype."""
+    p, ds = _bwd_probs(q, k, v, lse, do, dvec, scale, causal, window)
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, do.float())
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, q.float())
+    return dk.to(q.dtype), dv.to(q.dtype)
+
+
+def attention_bwd_dq(q, k, v, do, lse, dvec, *, scale: float, causal: bool,
+                     window: int | None):
+    """Plain version of the dQ kernel: dq in q's dtype."""
+    _, ds = _bwd_probs(q, k, v, lse, do, dvec, scale, causal, window)
+    return torch.einsum("bhqk,bhkd->bhqd", ds, k.float()).to(q.dtype)
+
+
+def attention_bwd(q, k, v, o, lse, do, *, scale: float, causal: bool,
+                  window: int | None):
+    """MHA backward from the forward's (o, lse): (dq, dk, dv) in q's dtype.
+
+    q, o, do: (B, H, Sq, D); k, v: (B, H, Sk, D); lse: (B, H, Sq) f32.
+    """
+    dvec = (do.float() * o.float()).sum(-1)
+    kw = {"scale": scale, "causal": causal, "window": window}
+    dk, dv = attention_bwd_dkv(q, k, v, do, lse, dvec, **kw)
+    return attention_bwd_dq(q, k, v, do, lse, dvec, **kw), dk, dv

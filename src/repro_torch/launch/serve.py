@@ -31,12 +31,15 @@ class Request:
     out: list = dataclasses.field(default_factory=list)
 
 
+@torch.inference_mode()
 def serve_requests(cfg, model, requests: list[Request], max_seq: int,
                    progress=print, device=None) -> dict[int, list[int]]:
     """Batch all requests together (same prompt length), prefill once, decode
     until every request hits its token budget.  Returns rid -> token ids.
 
-    Runs on `device` (default `cuda`), where `model` must already live."""
+    Runs on `device` (default `cuda`), where `model` must already live, under
+    `torch.inference_mode()`: the parameters are trainable, and serving
+    builds no autograd graph."""
     dev = resolve_device(device)
     if model.device.type != dev.type:
         raise ValueError(f"model on {model.device}, serving on {dev}")

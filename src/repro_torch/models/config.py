@@ -4,11 +4,13 @@ A copy of the JAX package's schema with the same fields and defaults, so a
 config converts between the two with `dataclasses.asdict`.  The port keeps its
 own copy because the machines that run it have no JAX installed.
 
-Three runtime knobs are kept only for that field parity and are ignored here:
-`use_pallas`, `remat` and `unroll_layers`.  The JAX model runs its jnp
-attention unless `use_pallas` is set (default False); the port instead picks
-the hand-written kernel or its plain version from the *device* of the tensors:
-a CUDA tensor launches the kernel, a CPU tensor takes the plain version.
+Two runtime knobs are kept only for that field parity and are ignored here:
+`use_pallas` and `unroll_layers`.  The JAX model runs its jnp attention unless
+`use_pallas` is set (default False); the port instead picks the hand-written
+kernel or its plain version from the *device* of the tensors: a CUDA tensor
+launches the kernel, a CPU tensor takes the plain version.  `remat` and
+`remat_policy` are read by the training forward (`models/model.py`); the
+policy "dots" is not ported yet.
 
 Every assigned architecture is expressed as an `ArchConfig`; layer stacking is
 described by a repeating `pattern` of block kinds so heterogeneous stacks

@@ -12,12 +12,35 @@ import torch
 import torch.nn.functional as F
 
 
+class _DotF32(torch.autograd.Function):
+    """x (N, d_in) @ w (d_in, d_out) in half precision with f32 accumulation
+    and an f32 result, on the card.
+
+    `torch.mm(..., out_dtype=torch.float32)` has no derivative (`aten::mm.dtype`
+    raises "derivative for aten::mm is not implemented"), so the backward is
+    written here: g w^T and x^T g from f32 copies of the operands, cast to the
+    operands' dtypes, as JAX transposes a `preferred_element_type=f32` dot.
+    """
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return torch.mm(x, w, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        dx = torch.mm(g, w.float().t()).to(x.dtype) if ctx.needs_input_grad[0] else None
+        dw = torch.mm(x.float().t(), g).to(w.dtype) if ctx.needs_input_grad[1] else None
+        return dx, dw
+
+
 def dot(x, w):
     """x (..., d_in) @ w (d_in, d_out) with a float32 result."""
     if x.dtype == torch.float32 and w.dtype == torch.float32:
         return torch.matmul(x, w)
     if x.is_cuda:  # half-precision product, f32 accumulation and f32 output
-        y = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=torch.float32)
+        y = _DotF32.apply(x.reshape(-1, x.shape[-1]), w)
         return y.reshape(*x.shape[:-1], w.shape[-1])
     return torch.matmul(x.float(), w.float())
 

@@ -1,4 +1,4 @@
-"""Model assembly of the port: the decoder stack, prefill and decode steps.
+"""Model assembly of the port: the decoder stack, prefill, decode and the loss.
 
 The JAX package scans each *segment* (whole pattern periods plus a remainder,
 see `segments`) over parameters stacked on a leading reps axis.  The port
@@ -6,6 +6,12 @@ keeps one `Block` per layer in layer order, `for rep in range(reps): for
 kind in period`, and runs them in a Python loop; caches are one dict per
 layer.  `segments` stays, since it defines that order (and `interop` reads
 JAX parameters with it).
+
+Parameters are trainable `nn.Parameter`s; inference callers run under
+`torch.inference_mode()` so that no autograd graph is built.  In training
+(`mode="train"` with grad enabled) each block runs under
+`torch.utils.checkpoint` when `cfg.remat` and `cfg.remat_policy == "full"`,
+as the JAX package wraps its scan body in `jax.checkpoint`.
 
 Block kinds ported so far: "attn" and "local" with a SwiGLU FFN.  The others
 raise `NotImplementedError` naming the ROADMAP item that ports them.
@@ -16,6 +22,7 @@ import dataclasses
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .._device import resolve_device
 from . import attention, layers
@@ -68,9 +75,8 @@ def segments(cfg: ArchConfig) -> list[tuple[tuple[str, ...], int]]:
 # --- parameters -------------------------------------------------------------------
 
 
-def _frozen(params: dict) -> nn.ParameterDict:
-    return nn.ParameterDict({k: nn.Parameter(t, requires_grad=False)
-                             for k, t in params.items()})
+def _trainable(params: dict) -> nn.ParameterDict:
+    return nn.ParameterDict({k: nn.Parameter(t) for k, t in params.items()})
 
 
 class Block(nn.Module):
@@ -82,7 +88,7 @@ class Block(nn.Module):
         super().__init__()
         self.kind = kind
         for name, sub in params.items():
-            self.add_module(name, _frozen(sub))
+            self.add_module(name, _trainable(sub))
 
     def __getitem__(self, name: str) -> nn.ParameterDict:
         return getattr(self, name)
@@ -98,9 +104,9 @@ class Model(nn.Module):
         if len(blocks) != cfg.num_layers:
             raise ValueError(f"{len(blocks)} blocks for {cfg.num_layers} layers")
         self.cfg = cfg
-        self.embed = _frozen(embed)
-        self.unembed = None if unembed is None else _frozen(unembed)
-        self.final_norm = _frozen(final_norm)
+        self.embed = _trainable(embed)
+        self.unembed = None if unembed is None else _trainable(unembed)
+        self.final_norm = _trainable(final_norm)
         self.blocks = nn.ModuleList(
             Block(kind, p) for kind, p in zip(cfg.layer_kinds, blocks, strict=True))
 
@@ -196,9 +202,19 @@ def forward(cfg: ArchConfig, params: Model, batch: dict, *, caches=None,
                                device=x.device)
     else:
         positions = torch.arange(s, dtype=torch.int32, device=x.device).expand(b, s)
+    remat = (mode == "train" and cfg.remat and cfg.remat_policy != "none"
+             and torch.is_grad_enabled())
+    if remat and cfg.remat_policy != "full":
+        raise NotImplementedError(
+            f"remat_policy={cfg.remat_policy!r} is not ported to PyTorch yet: "
+            f"ROADMAP A13 (selective remat policies); use 'full' or 'none'")
     for i, block in enumerate(params.blocks):
-        x, _ = apply_block(cfg, block, block.kind, x, positions,
-                           cache=None if caches is None else caches[i])
+        cache = None if caches is None else caches[i]
+        if remat:
+            x, _ = checkpoint(apply_block, cfg, block, block.kind, x, positions,
+                              cache=cache, use_reentrant=False)
+        else:
+            x, _ = apply_block(cfg, block, block.kind, x, positions, cache=cache)
     x = layers.rmsnorm(params.final_norm, x)
     head = params.embed if cfg.tied_embeddings else params.unembed
     return ModelOutput(logits=layers.unembed(head, x), caches=caches,
@@ -225,3 +241,18 @@ def decode_step(cfg: ArchConfig, params: Model, token, caches):
     out = forward(cfg, params, {"tokens": token}, caches=caches, mode="decode")
     return out.logits[:, -1, :], out.caches
 
+
+
+def loss_fn(cfg: ArchConfig, params: Model, batch: dict, aux_weight: float = 0.01):
+    """Mean next-token NLL over the label positions with `labels >= 0`, plus
+    `aux_weight` times the auxiliary loss (0 for a dense model).  Returns
+    (loss, {"nll", "aux"}), as `repro.models.model.loss_fn`."""
+    out = forward(cfg, params, batch, mode="train")
+    labels = batch["labels"].long()
+    logits = out.logits[:, -labels.shape[1]:, :].float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.clamp_min(0)[..., None])[..., 0]
+    mask = (labels >= 0).float()
+    nll = torch.sum((logz - gold) * mask) / torch.clamp_min(mask.sum(), 1.0)
+    loss = nll + aux_weight * out.aux_loss
+    return loss, {"nll": nll, "aux": out.aux_loss}

@@ -96,14 +96,6 @@ def test_wrapper_on_cpu_runs_plain_version_without_launch():
     np.testing.assert_allclose(_np(got), _np(want), atol=5e-5, rtol=5e-5)
 
 
-def test_flash_attention_backward_not_ported():
-    tq, tk, tv = _torch_inputs(FLASH_CASES[1], "float32")
-    tq.requires_grad_(True)
-    out = ops.flash_attention(tq, tk, tv, True, None)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        out.sum().backward()
-
-
 def _need_cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel runs only on the card")

@@ -15,7 +15,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch import configs  # noqa: E402
-from repro_torch.launch import serve  # noqa: E402
+from repro_torch.launch import serve, train  # noqa: E402
 from repro_torch.models import init_params  # noqa: E402
 
 SRC = Path(__file__).resolve().parents[1] / "src"
@@ -36,6 +36,11 @@ def test_entry_points_raise_without_cuda_unless_cpu_is_asked():
     out = serve.serve_requests(cfg, model, reqs, max_seq=9, progress=lambda *_: None,
                                device="cpu")
     assert len(out[0]) == 2
+    tc = train.TrainConfig(steps=1, batch_size=2, seq_len=8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.train(tc, progress=lambda *_: None)
+    _, _, losses = train.train(tc, progress=lambda *_: None, device="cpu")
+    assert len(losses) == 1 and np.isfinite(losses[0])
 
 
 def test_port_imports_no_jax_and_no_reference_package():
@@ -52,4 +57,5 @@ def test_port_imports_no_jax_and_no_reference_package():
     proc = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
                           text=True, timeout=120, check=False)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout) >= 15  # every module of the package was imported
+    # every module of the package was imported, the training slice's included
+    assert int(proc.stdout) >= 42
