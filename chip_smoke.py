@@ -9,26 +9,38 @@ Phases, in order; any failure raises and the script exits non-zero:
   1. device  - require CUDA; print the card's name and power limit; TF32 off.
   2. build   - build the CUDA kernels from src/repro_torch/kernels/csrc with nvcc.
   3. kernels - every kernel against its plain PyTorch version on the card: the
-               forward B1 at the reference test shapes, the serving shape and
-               the training shape; the backward B2 (dK/dV) and B3 (dQ) at the
+               forward B1 at the reference test shapes, the serving shapes
+               (stablelm-3b; recurrentgemma-9b's local layers) and the
+               training shape; the backward B2 (dK/dV) and B3 (dQ) at the
                reference gradient shapes, the training shape, a GQA case on
-               several seeds and a D = 256 window case.  Each check draws its
-               inputs from a generator of its own and prints their hash.
+               several seeds and a D = 256 window case; the recurrences B4
+               (RG-LRU) and B5 (WKV-6) in f32 and bf16 at the reference test
+               shapes, from a nonzero initial state, at T = 1, at the serving
+               prefill and decode shapes, and B5 at extreme decay.  Each check
+               draws its inputs from a generator of its own and prints their
+               hash.
   4. timing  - each kernel, its plain version and one PyTorch library call
                (CUDA events), beside the card's bound, at the shape each path
-               gives it: B1 at the serving and the training shape, B2 and B3
-               at the training shape.
-  5. parity  - stablelm-3b at full width cut to 4 layers, f32: the same weights
-               on the card (kernel) and on the CPU (plain version) give the
-               same prefill and decode logits.
+               gives it: B1 at the serving shapes and the training shape, B2
+               and B3 at the training shape, B4 and B5 at the serving prefill
+               and decode shapes (no single PyTorch call computes either
+               recurrence: their library time is null).
+  5. parity  - at full width, f32, depth cut: stablelm-3b (4 layers),
+               recurrentgemma-9b (one pattern period: rglru, rglru, local) and
+               rwkv6-3b (2 layers): the same weights on the card (kernels) and
+               on the CPU (plain versions) give the same prefill and decode
+               logits.
   6. train parity - stablelm-3b at full width cut to 2 layers, f32, 2 x 128
                tokens: the same weights on the card (B1, B2, B3) and on the CPU
                (plain versions) give the same loss and gradients.
-  7. serve   - stablelm-3b at its full published config (32 layers, bf16,
-               random weights from a seed) answers 4 requests of 512-token
-               prompts with 32 new tokens each through
-               `repro_torch.launch.serve.serve_requests`; the kernel launch
-               counts of that run are read and checked.
+  7. serve   - stablelm-3b, recurrentgemma-9b and rwkv6-3b, each at its full
+               published config (bf16, random weights from a seed), answer 4
+               requests of 512-token prompts with 32 new tokens each through
+               `repro_torch.launch.serve.serve_requests`, one model at a time;
+               the kernel launch counts of each run, in prefill and in decode,
+               are read and checked (B1 once per attention layer in prefill,
+               B4 / B5 once per recurrent layer in prefill and in every decode
+               step).
   8. train (the main path) - stablelm-3b at its full published config, bf16,
                full remat, batch 8 x 512, grad_sync "bridge": 1 warm-up step
                and 3 timed steps through `repro_torch.launch.train.train`; the
@@ -42,9 +54,10 @@ Phases, in order; any failure raises and the script exits non-zero:
                "bridge"; the losses must agree with each other and with the
                main path's.  With one card it says that it did not run.
 Then it prints the kernels' JSON line (one entry per kernel and path, each
-with the numbers of the shape that path gives it), the card's name and power
-limit, and as its last line {"ok": true, "device": {...}}.  Imports nothing
-of JAX.
+with the launches of that path's run and the numbers of the shape that path
+gives it; a served model's prefill and decode are two paths), the card's name
+and power limit, and as its last line {"ok": true, "device": {...}}.  Imports
+nothing of JAX.
 """
 from __future__ import annotations
 
@@ -74,16 +87,23 @@ from repro_torch.kernels.flash_attention import kernel as flash_kernel  # noqa: 
 from repro_torch.kernels.flash_attention import kernel_bwd as flash_bwd  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as flash_ops  # noqa: E402
 from repro_torch.kernels.flash_attention import ref as flash_ref  # noqa: E402
+from repro_torch.kernels.rg_lru import kernel as lru_kernel  # noqa: E402
+from repro_torch.kernels.rg_lru import ref as lru_ref  # noqa: E402
+from repro_torch.kernels.wkv6 import kernel as wkv_kernel  # noqa: E402
+from repro_torch.kernels.wkv6 import ref as wkv_ref  # noqa: E402
 from repro_torch.launch import train as train_mod  # noqa: E402
 from repro_torch.launch.serve import Request, serve_requests  # noqa: E402
 from repro_torch.models import decode_step, forward, init_params, prefill  # noqa: E402
 from repro_torch.data import SyntheticLM  # noqa: E402
 from repro_torch.models.model import loss_fn  # noqa: E402
 
-# Published peaks of one H100 SXM (NVIDIA data sheet, dense): HBM3 bytes/s and
-# bf16 tensor-core FLOP/s.  They assume the full 700 W power limit.
+# Published peaks of one H100 SXM (NVIDIA data sheet, dense): HBM3 bytes/s,
+# bf16 tensor-core FLOP/s and f32 FLOP/s outside the tensor cores.  They
+# assume the full 700 W power limit.
 H100_HBM_BYTES_S = 3.35e12
 H100_BF16_FLOP_S = 989e12
+H100_F32_FLOP_S = 67e12
+PEAK_FLOP_S = {torch.bfloat16: H100_BF16_FLOP_S, torch.float32: H100_F32_FLOP_S}
 
 # b, hq, hkv, sq, sk, d, causal, window: the reference's kernel test shapes
 # (tests/test_kernels.py FLASH_CASES) ...
@@ -102,6 +122,8 @@ FLASH_CASES = [
 SERVE_CASE = (4, 32, 32, 512, 512, 80, True, None)
 TRAIN_FWD_CASE = (8, 32, 32, 512, 512, 80, True, None)
 WIDE_CASE = (1, 8, 4, 300, 300, 256, True, 100)
+# recurrentgemma-9b's local layers in prefill: 16 query heads of 256, MQA, window 2048
+GRIFFIN_CASE = (4, 16, 1, 512, 512, 256, True, 2048)
 TOL = {torch.float32: 5e-5, torch.bfloat16: 5e-2}  # tests/test_kernels.py bounds
 LSE_TOL = {torch.float32: 1e-5,  # f32 lse, same source
            # both sides compute lse in f32 from the same bf16 inputs
@@ -135,6 +157,34 @@ TRAIN_STEPS = 4          # 1 warm-up + 3 timed
 LOSS_RTOL = 2e-4         # bridge vs gspmd (tests/_distributed_worker.py)
 MULTI_SIZES_MB = (1, 256)  # all-reduce payloads of the multi-card phase
 MULTI_STEPS = 2            # training steps per grad-sync mode there
+
+# B4 (RG-LRU): b, t, d, whether an initial state h0 is given.  The reference's
+# test shapes (tests/test_kernels.py) and a nonzero h0 ...
+LRU_CASES = [(2, 100, 48, False), (1, 256, 128, False), (3, 17, 8, False),
+             (1, 1, 16, False), (2, 100, 48, True)]
+# ... and recurrentgemma-9b serving 4 prompts of 512 (width 4096): prefill and
+# a decode step (T = 1), both from the cache's state.  The model runs B4 on f32.
+LRU_PREFILL = (4, 512, 4096, True)
+LRU_DECODE = (4, 1, 4096, True)
+# B5 (WKV-6): b, h, t, dk, dv, whether an initial state s0 is given.  The
+# reference's test shapes and a nonzero s0 ...
+WKV_CASES = [(2, 3, 50, 16, 16, False), (1, 2, 64, 32, 32, False),
+             (1, 1, 7, 8, 8, False), (2, 2, 33, 64, 64, False), (2, 3, 50, 16, 16, True)]
+# ... and rwkv6-3b serving 4 prompts of 512 (40 heads of 64): prefill and a
+# decode step, from the cache's state.  The model runs B5 on bf16 r/k/v/log_w.
+WKV_PREFILL = (4, 40, 512, 64, 64, True)
+WKV_DECODE = (4, 40, 1, 64, 64, True)
+WKV_EXTREME = (1, 1, 64, 16, 16, False)   # log_w = -20 (test_wkv6_extreme_decay_stable)
+# the reference's bounds (tests/test_kernels.py): B4 y and h_last; B5 y (the
+# state, f32 from the same inputs on both sides, at 5e-4 in both dtypes)
+LRU_TOL = {torch.float32: 5e-5, torch.bfloat16: 5e-2}
+WKV_TOL = {torch.float32: 5e-4, torch.bfloat16: 5e-2}
+WKV_STATE_TOL = 5e-4
+EXTREME_TOL = 1e-4
+PATH_DTYPE = {"rg_lru_fwd": torch.float32, "wkv6_fwd": torch.bfloat16}
+# card vs CPU model parity: arch, layers kept (full width otherwise)
+PARITY_ARCHS = (("stablelm-3b", 4), ("recurrentgemma-9b", 3), ("rwkv6-3b", 2))
+SERVE_ARCHS = ("stablelm-3b", "recurrentgemma-9b", "rwkv6-3b")
 
 
 def phase(name: str):
@@ -183,7 +233,7 @@ def check_kernels() -> dict:
     serving and the training shape, keyed by the case."""
     errs = {}
     cases = [(c, dt) for dt in (torch.float32, torch.bfloat16) for c in FLASH_CASES]
-    cases += [(c, dt) for c in (SERVE_CASE, TRAIN_FWD_CASE, WIDE_CASE)
+    cases += [(c, dt) for c in (SERVE_CASE, TRAIN_FWD_CASE, WIDE_CASE, GRIFFIN_CASE)
               for dt in (torch.bfloat16, torch.float32)]
     for case, dtype in cases:
         d, causal, window = case[5], case[6], case[7]
@@ -221,10 +271,13 @@ def time_ms(fn, iters=20, warmup=3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(moved_bytes: int, flops: int) -> tuple[float, str]:
-    """(least ms, "bytes" | "operations") on the published H100 SXM peaks."""
+def bound(moved_bytes: int, flops: int,
+          flop_s: float = H100_BF16_FLOP_S) -> tuple[float, str]:
+    """(least ms, "bytes" | "operations") on the published H100 SXM peaks:
+    bytes over the HBM rate, operations over `flop_s`, the peak of the
+    inputs' type."""
     t_bytes = moved_bytes / H100_HBM_BYTES_S * 1e3
-    t_ops = flops / H100_BF16_FLOP_S * 1e3
+    t_ops = flops / flop_s * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -238,8 +291,10 @@ def time_flash(case) -> dict:
             q, k, v, scale=scale, causal=causal, window=window),
         "plain_ms": lambda: flash_ref.attention_fwd_lse(
             q, k, v, scale=scale, causal=causal, window=window),
+        # SDPA has no sliding window: the yardstick only where the window
+        # covers every causal key (recurrentgemma's 2048 at 512 tokens)
         "library_ms": lambda: torch.nn.functional.scaled_dot_product_attention(
-            q, k, v, is_causal=causal, scale=scale),
+            q, k, v, is_causal=causal, scale=scale, enable_gqa=hq != hkv),
     }
     runs = {key: [] for key in fns}
     for _ in range(3):  # in turns, median of three
@@ -252,9 +307,7 @@ def time_flash(case) -> dict:
     moved = (q.numel() * 2 + k.numel() + v.numel()) * elem + b * hq * sq * 4
     live = int(flash_ref.attention_mask(sq, sk, causal, window).sum())
     flops = 4 * d * live * b * hq
-    t_bytes, t_ops = moved / H100_HBM_BYTES_S * 1e3, flops / H100_BF16_FLOP_S * 1e3
-    times["bound_ms"] = max(t_bytes, t_ops)
-    times["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    times["bound_ms"], times["bound_by"] = bound(moved, flops)
     print(f"flash timing {case} bf16: kernel_ms {times['ms']:.4f} "
           f"plain_ms {times['plain_ms']:.4f} library_ms {times['library_ms']:.4f} "
           f"bound_ms {times['bound_ms']:.4f} (by {times['bound_by']}: {moved} bytes, "
@@ -264,12 +317,16 @@ def time_flash(case) -> dict:
 
 
 @torch.inference_mode()
-def check_model_parity():
-    """Same f32 weights on the card and on the CPU: logits within MODEL_TOL."""
-    cfg = configs.get("stablelm-3b")
-    cfg = dataclasses.replace(cfg, num_layers=4, dtype="float32")
-    cpu_model = init_params(cfg, torch.Generator().manual_seed(SEED), device="cpu")
-    gpu_model = copy.deepcopy(cpu_model).to("cuda")
+def check_model_parity(arch: str, num_layers: int) -> float:
+    """Same f32 weights on the card and on the CPU: logits within MODEL_TOL.
+    `arch` at its full width, cut to `num_layers`."""
+    cfg = dataclasses.replace(configs.get(arch), num_layers=num_layers, dtype="float32")
+    if arch == "stablelm-3b":
+        cpu_model = init_params(cfg, torch.Generator().manual_seed(SEED), device="cpu")
+        gpu_model = copy.deepcopy(cpu_model).to("cuda")
+    else:  # drawn on the card: a 256k x 4096 f32 table is slow to draw on the host
+        gpu_model = init_params(cfg, torch.Generator(device="cuda").manual_seed(SEED), "cuda")
+        cpu_model = copy.deepcopy(gpu_model).to("cpu")
     tokens = torch.randint(0, cfg.vocab_size, (1, 131),
                            generator=torch.Generator().manual_seed(SEED + 1))
     prompt, max_seq = tokens[:, :128], 136
@@ -285,14 +342,32 @@ def check_model_parity():
     for name, want, got in steps:
         err, ok = max_err(got.cpu(), want, MODEL_TOL, MODEL_TOL)
         worst = max(worst, err)
-        print(f"model parity {name}: max|err| {err:.3e} (tol {MODEL_TOL})")
+        print(f"model parity {arch} ({num_layers} layers, f32) {name}: max|err| {err:.3e} "
+              f"(tol {MODEL_TOL})")
         if not ok or not torch.isfinite(got).all():
-            raise AssertionError(f"card and CPU logits disagree at {name}")
+            raise AssertionError(f"card and CPU logits of {arch} disagree at {name}")
     return worst
 
 
-def serve_main_path() -> dict:
-    cfg = configs.get("stablelm-3b")
+def expected_serve_launches(cfg, new_tokens: int) -> tuple[dict, dict]:
+    """Kernel launches of one served run: (prefill, decode).  B1 once per
+    attention layer in prefill (decode attends in plain PyTorch, as the
+    reference does); B4 / B5 once per recurrent layer in prefill and in each
+    of the new_tokens - 1 decode steps; no backward kernel."""
+    kinds = cfg.layer_kinds
+    per_pass = {"flash_attention_fwd": sum(k in ("attn", "local") for k in kinds),
+                "flash_attention_bwd_dkv": 0, "flash_attention_bwd_dq": 0,
+                "rg_lru_fwd": kinds.count("rglru"), "wkv6_fwd": kinds.count("rwkv6")}
+    decode = {k: 0 if k.startswith("flash") else v * (new_tokens - 1)
+              for k, v in per_pass.items()}
+    return per_pass, decode
+
+
+def serve_path(arch: str) -> dict:
+    """`arch` at its full published config answers 4 x (512 + 32) tokens
+    through `serve_requests`.  Returns the launch counts of the run, split
+    into prefill and decode."""
+    cfg = configs.get(arch)
     batch, prompt_len, new_tokens = 4, 512, 32
     max_seq = prompt_len + new_tokens + 1
     model = init_params(cfg, torch.Generator(device="cuda").manual_seed(SEED), "cuda")
@@ -301,9 +376,11 @@ def serve_main_path() -> dict:
                             dtype=torch.int32)
     reqs = [Request(rid=i, prompt=prompts[i].numpy(), max_new_tokens=new_tokens)
             for i in range(batch)]
-    messages = []
+    messages, at_prefill = [], {}
 
     def progress(msg):
+        if not messages:  # prefill is done (and synchronised): its launches so far
+            at_prefill.update(read_launches())
         messages.append(msg)
         print(msg, flush=True)
 
@@ -312,14 +389,14 @@ def serve_main_path() -> dict:
     reset_launches()
     out = serve_requests(cfg, model, reqs, max_seq=max_seq, progress=progress,
                          device="cuda")
-    counts = read_launches()
-    launches = counts["flash_attention_fwd"]
+    total = read_launches()
     peak = torch.cuda.max_memory_allocated()
-    if counts["flash_attention_bwd_dkv"] or counts["flash_attention_bwd_dq"]:
-        raise AssertionError(f"backward kernels launched while serving: {counts}")
-    if launches != cfg.num_layers:
-        raise AssertionError(f"{launches} flash launches in the served run, "
-                             f"expected {cfg.num_layers} (one per layer in prefill)")
+    launches = {"prefill": at_prefill,
+                "decode": {k: total[k] - at_prefill[k] for k in total}}
+    want_prefill, want_decode = expected_serve_launches(cfg, new_tokens)
+    if launches["prefill"] != want_prefill or launches["decode"] != want_decode:
+        raise AssertionError(f"{arch}: launches in the served run {launches}, expected "
+                             f"prefill {want_prefill}, decode {want_decode}")
     if any(len(out[i]) != new_tokens for i in range(batch)):
         raise AssertionError(f"token budgets not met: {[len(t) for t in out.values()]}")
     gen = torch.tensor([out[i] for i in range(batch)], dtype=torch.int32)
@@ -338,12 +415,12 @@ def serve_main_path() -> dict:
 
     prefill_s = float(re.search(r"prefill: .* in ([0-9.]+)s", messages[0]).group(1))
     decode_tps = float(re.search(r"\(([0-9.]+) tok/s\)", messages[1]).group(1))
-    print(f"serve stablelm-3b full width, {batch} x ({prompt_len} + {new_tokens}): "
+    print(f"serve {arch} full config, {batch} x ({prompt_len} + {new_tokens}): "
           f"prefill {prefill_s:.3f} s = {batch * prompt_len / prefill_s:.1f} tok/s, "
           f"decode {decode_tps:.1f} tok/s, peak memory {peak / 2**30:.3f} GiB "
           f"({peak} bytes), greedy agreement with full forward {agree:.1f}%, "
-          f"flash launches {launches}")
-    return {"flash_attention_fwd": launches}
+          f"launches prefill {launches['prefill']}, decode {launches['decode']}")
+    return launches
 
 
 def bwd_inputs(case, dtype):
@@ -475,6 +552,144 @@ def time_bwd() -> dict:
     return times
 
 
+def lru_inputs(case, dtype):
+    """a, b (in `dtype`) and h0 (f32 or None) of a B4 case on the card."""
+    b, t, d, with_h0 = case
+    gen = case_generator("lru", case)
+    a = (torch.rand((b, t, d), generator=gen, device="cuda") * 0.79 + 0.2).to(dtype)
+    x = torch.randn((b, t, d), generator=gen, device="cuda").to(dtype)
+    h0 = torch.randn((b, d), generator=gen, device="cuda") if with_h0 else None
+    return a, x, h0
+
+
+def wkv_inputs(case, dtype):
+    """r, k, v, log_w (in `dtype`), u and s0 (f32 or None) of a B5 case on the card."""
+    b, h, t, dk, dv, with_s0 = case
+    gen = case_generator("wkv", case)
+    r, k = (torch.randn((b, h, t, dk), generator=gen, device="cuda") for _ in range(2))
+    v = torch.randn((b, h, t, dv), generator=gen, device="cuda")
+    log_w = -torch.exp(torch.randn((b, h, t, dk), generator=gen, device="cuda"))
+    u = torch.randn((h, dk), generator=gen, device="cuda")
+    s0 = torch.randn((b, h, dk, dv), generator=gen, device="cuda") if with_s0 else None
+    return (*(x.to(dtype) for x in (r, k, v, log_w)), u, s0)
+
+
+def check_recurrent_kernels() -> dict:
+    """B4 and B5 vs their plain versions on the card, in f32 and bf16; returns
+    the errors at the serving shapes in the dtype the model runs them in."""
+    errs = {}
+    dtypes = (torch.float32, torch.bfloat16)
+    for case, dtype in [(c, dt) for c in LRU_CASES + [LRU_DECODE, LRU_PREFILL] for dt in dtypes]:
+        a, x, h0 = lru_inputs(case, dtype)
+        y, h = lru_kernel.rg_lru_fwd(a, x, h0)
+        torch.cuda.synchronize()
+        want_y, want_h = lru_ref.rg_lru_scan(a, x, h0)
+        tol = LRU_TOL[dtype]
+        (ey, ok_y), (eh, ok_h) = max_err(y, want_y, tol, tol), max_err(h, want_h, tol, tol)
+        line = (f"rg_lru {case} {str(dtype)[6:]} inputs {input_hash(a, x, *([h0] if case[3] else []))}: "
+                f"y max|err| {ey:.3e}, h_last max|err| {eh:.3e} (tol {tol} + {tol}|want|)")
+        print(line)
+        if not (ok_y and ok_h) or y.shape != a.shape or y.dtype != a.dtype \
+                or not torch.isfinite(y).all():
+            raise AssertionError(f"B4 disagrees with its plain version: {line}")
+        if case in (LRU_PREFILL, LRU_DECODE) and dtype == PATH_DTYPE["rg_lru_fwd"]:
+            errs[("rg_lru_fwd", case)] = max(ey, eh)
+    for case, dtype in [(c, dt) for c in WKV_CASES + [WKV_DECODE, WKV_PREFILL] for dt in dtypes]:
+        r, k, v, log_w, u, s0 = wkv_inputs(case, dtype)
+        y, s = wkv_kernel.wkv6_fwd(r, k, v, log_w, u, s0)
+        torch.cuda.synchronize()
+        want_y, want_s = wkv_ref.wkv6_scan(r, k, v, torch.exp(log_w.float()), u, s0)
+        tol = WKV_TOL[dtype]
+        (ey, ok_y) = max_err(y, want_y, tol, tol)
+        (es, ok_s) = max_err(s, want_s, WKV_STATE_TOL, WKV_STATE_TOL)
+        line = (f"wkv6 {case} {str(dtype)[6:]} inputs "
+                f"{input_hash(r, k, v, log_w, u, *([s0] if case[5] else []))}: y max|err| "
+                f"{ey:.3e} (tol {tol} + {tol}|want|), state max|err| {es:.3e} (tol "
+                f"{WKV_STATE_TOL} + {WKV_STATE_TOL}|want|)")
+        print(line)
+        if not (ok_y and ok_s) or y.shape != v.shape or y.dtype != r.dtype \
+                or not torch.isfinite(y).all():
+            raise AssertionError(f"B5 disagrees with its plain version: {line}")
+        if case in (WKV_PREFILL, WKV_DECODE) and dtype == PATH_DTYPE["wkv6_fwd"]:
+            errs[("wkv6_fwd", case)] = max(ey, es)
+    # extreme decay: every step forgets almost all (log_w = -20), f32
+    r, k, v, _, _, _ = wkv_inputs(WKV_EXTREME, torch.float32)
+    log_w = torch.full_like(r, -20.0)
+    u = torch.ones((r.shape[1], r.shape[3]), device="cuda")
+    y, _ = wkv_kernel.wkv6_fwd(r, k, v, log_w, u)
+    torch.cuda.synchronize()
+    want_y, _ = wkv_ref.wkv6_scan(r, k, v, torch.exp(log_w), u)
+    err, ok = max_err(y, want_y, EXTREME_TOL, EXTREME_TOL)
+    line = (f"wkv6 {WKV_EXTREME} f32 log_w = -20 inputs {input_hash(r, k, v)}: y max|err| "
+            f"{err:.3e} (tol {EXTREME_TOL} + {EXTREME_TOL}|want|), finite "
+            f"{bool(torch.isfinite(y).all())}")
+    print(line)
+    if not ok or not torch.isfinite(y).all():
+        raise AssertionError(f"B5 at extreme decay: {line}")
+    return errs
+
+
+def wkv_work(r, v, s0) -> tuple[int, int, int]:
+    """(bytes, FLOPs, exps) B5 needs for these inputs: r, k, v, log_w, u and
+    s0 read once, y and the state written once; the chunked form's operations
+    (a multiply-add counts 2) and its exponentials, chunk by chunk."""
+    b, h, t, dk = r.shape
+    dv = v.shape[-1]
+    elem = r.element_size()
+    moved = (3 * r.numel() + v.numel()) * elem + h * dk * 4 + v.numel() * elem \
+        + (2 if s0 is not None else 1) * b * h * dk * dv * 4
+    flops = exps = 0
+    for t0 in range(0, t, 64):
+        n = min(64, t - t0)
+        pairs = n * (n - 1) // 2
+        flops += (n * dk                          # cumulative sum of log_w
+                  + 3 * (pairs + n) * dk          # A: r k e, and the bonus diagonal
+                  + 2 * (pairs + n) * dv          # A @ V
+                  + 2 * n * dk                    # r e^{c}, k e^{c_last - c}
+                  + 2 * n * dk * dv               # (r e^{c}) @ S
+                  + dk * dv * (1 + 2 * n))        # S update
+        exps += pairs * dk + 2 * n * dk + dk
+    return moved, flops * b * h, exps * b * h
+
+
+def time_recurrent() -> dict:
+    """B4 and B5 at the serving prefill and decode shapes, in the dtype the
+    model runs them in: kernel and plain version (CUDA events), beside the
+    bound.  No single PyTorch call computes either recurrence, so there is no
+    library time."""
+    times = {}
+    for name, case in (("rg_lru_fwd", LRU_PREFILL), ("rg_lru_fwd", LRU_DECODE),
+                       ("wkv6_fwd", WKV_PREFILL), ("wkv6_fwd", WKV_DECODE)):
+        dtype = PATH_DTYPE[name]
+        if name == "rg_lru_fwd":
+            a, x, h0 = lru_inputs(case, dtype)
+            fns = {"ms": lambda: lru_kernel.rg_lru_fwd(a, x, h0),
+                   "plain_ms": lambda: lru_ref.rg_lru_scan(a, x, h0)}
+            moved = (3 * a.numel()) * a.element_size() + 2 * h0.numel() * 4
+            flops, extra = 2 * a.numel(), ""
+        else:
+            r, k, v, log_w, u, s0 = wkv_inputs(case, dtype)
+            fns = {"ms": lambda: wkv_kernel.wkv6_fwd(r, k, v, log_w, u, s0),
+                   "plain_ms": lambda: wkv_ref.wkv6_scan(r, k, v, torch.exp(log_w.float()),
+                                                         u, s0)}
+            moved, flops, exps = wkv_work(r, v, s0)
+            extra = f", {exps} exps"
+        runs = {key: [] for key in fns}
+        for _ in range(3):  # in turns, median of three
+            for key, fn in fns.items():
+                runs[key].append(time_ms(fn, iters=10 if key == "plain_ms" else 20))
+        t = {key: sorted(v)[1] for key, v in runs.items()}
+        t["bound_ms"], t["bound_by"] = bound(moved, flops, PEAK_FLOP_S[dtype])
+        t["library_ms"] = None
+        times[(name, case)] = t
+        print(f"{name} timing {case} {str(dtype)[6:]}: kernel_ms {t['ms']:.4f} plain_ms "
+              f"{t['plain_ms']:.4f} library_ms none (no PyTorch call computes the "
+              f"recurrence) bound_ms {t['bound_ms']:.4f} (by {t['bound_by']}: {moved} bytes, "
+              f"{flops} FLOP{extra}; peak {PEAK_FLOP_S[dtype]:.3g} FLOP/s for "
+              f"{str(dtype)[6:]})")
+    return times
+
+
 def check_train_parity():
     """Same f32 weights on the card (B1, B2, B3) and on the CPU (plain
     versions): loss and every gradient within the stated bounds."""
@@ -507,6 +722,8 @@ LAUNCH_COUNTERS = {
     "flash_attention_fwd": flash_kernel.flash_attention_fwd_lse,
     "flash_attention_bwd_dkv": flash_bwd.flash_attention_bwd_dkv,
     "flash_attention_bwd_dq": flash_bwd.flash_attention_bwd_dq,
+    "rg_lru_fwd": lru_kernel.rg_lru_fwd,
+    "wkv6_fwd": wkv_kernel.wkv6_fwd,
 }
 
 
@@ -542,7 +759,8 @@ def train_main_path() -> tuple[dict, list[float]]:
     peak = torch.cuda.max_memory_allocated()
     per_step = {"flash_attention_fwd": 2 * cfg.num_layers,   # forward + remat recompute
                 "flash_attention_bwd_dkv": cfg.num_layers,
-                "flash_attention_bwd_dq": cfg.num_layers}
+                "flash_attention_bwd_dq": cfg.num_layers,
+                "rg_lru_fwd": 0, "wkv6_fwd": 0}
     want = {k: v * TRAIN_STEPS for k, v in per_step.items()}
     if launches != want:
         raise AssertionError(f"launches in the training run {launches}, expected {want}")
@@ -732,15 +950,23 @@ def main() -> None:
     phase("3 kernels vs plain")
     fwd_errs = check_kernels()
     bwd_errs = check_bwd_kernels()
+    rec_errs = check_recurrent_kernels()
     phase("4 kernel timing")
-    fwd_times = {case: time_flash(case) for case in (TRAIN_FWD_CASE, SERVE_CASE)}
+    fwd_times = {case: time_flash(case) for case in (TRAIN_FWD_CASE, SERVE_CASE, GRIFFIN_CASE)}
     bwd_times = time_bwd()
+    rec_times = time_recurrent()
     phase("5 model parity card vs cpu")
-    check_model_parity()
+    for arch, num_layers in PARITY_ARCHS:
+        check_model_parity(arch, num_layers)
+        gc.collect()
     phase("6 train parity card vs cpu")
     check_train_parity()
     phase("7 serve")
-    serve_launches = serve_main_path()
+    serve_launches = {}
+    for arch in SERVE_ARCHS:  # one model at a time: each is freed before the next
+        serve_launches[arch] = serve_path(arch)
+        gc.collect()
+        torch.cuda.empty_cache()
     phase("8 train (main path)")
     train_launches, train_losses = train_main_path()
     phase("9 multi-card")
@@ -751,17 +977,31 @@ def main() -> None:
     else:
         print(f"multi-card phase: not run ({count} device)")
 
-    sources = {"flash_attention_fwd": ("flash_attention_fwd.cu", "kernel.py:35"),
-               "flash_attention_bwd_dkv": ("flash_attention_bwd.cu", "kernel_bwd.py:48"),
-               "flash_attention_bwd_dq": ("flash_attention_bwd.cu", "kernel_bwd.py:92")}
+    sources = {"flash_attention_fwd": ("flash_attention_fwd.cu", "flash_attention/kernel.py:35"),
+               "flash_attention_bwd_dkv": ("flash_attention_bwd.cu", "flash_attention/kernel_bwd.py:48"),
+               "flash_attention_bwd_dq": ("flash_attention_bwd.cu", "flash_attention/kernel_bwd.py:92"),
+               "rg_lru_fwd": ("rg_lru.cu", "rg_lru/kernel.py:25"),
+               "wkv6_fwd": ("wkv6.cu", "wkv6/kernel.py:34")}
     # one entry per kernel and path: launches of that path's run, error and
     # times at the shape that path gives the kernel
-    entries = [("train", "flash_attention_fwd", TRAIN_FWD_CASE, train_launches,
-                fwd_errs[TRAIN_FWD_CASE], fwd_times[TRAIN_FWD_CASE]),
-               *(("train", name, TRAIN_CASE, train_launches, bwd_errs[name], bwd_times[name])
-                 for name in ("flash_attention_bwd_dkv", "flash_attention_bwd_dq")),
-               ("serve", "flash_attention_fwd", SERVE_CASE, serve_launches,
-                fwd_errs[SERVE_CASE], fwd_times[SERVE_CASE])]
+    griffin, rwkv = serve_launches["recurrentgemma-9b"], serve_launches["rwkv6-3b"]
+    stablelm = serve_launches["stablelm-3b"]
+    entries = [
+        ("train stablelm-3b", "flash_attention_fwd", TRAIN_FWD_CASE, train_launches,
+         fwd_errs[TRAIN_FWD_CASE], fwd_times[TRAIN_FWD_CASE]),
+        *(("train stablelm-3b", name, TRAIN_CASE, train_launches, bwd_errs[name],
+           bwd_times[name]) for name in ("flash_attention_bwd_dkv", "flash_attention_bwd_dq")),
+        ("serve stablelm-3b prefill", "flash_attention_fwd", SERVE_CASE, stablelm["prefill"],
+         fwd_errs[SERVE_CASE], fwd_times[SERVE_CASE]),
+        ("serve recurrentgemma-9b prefill", "flash_attention_fwd", GRIFFIN_CASE,
+         griffin["prefill"], fwd_errs[GRIFFIN_CASE], fwd_times[GRIFFIN_CASE]),
+        *((f"serve recurrentgemma-9b {part}", "rg_lru_fwd", case, griffin[part],
+           rec_errs[("rg_lru_fwd", case)], rec_times[("rg_lru_fwd", case)])
+          for part, case in (("prefill", LRU_PREFILL), ("decode", LRU_DECODE))),
+        *((f"serve rwkv6-3b {part}", "wkv6_fwd", case, rwkv[part],
+           rec_errs[("wkv6_fwd", case)], rec_times[("wkv6_fwd", case)])
+          for part, case in (("prefill", WKV_PREFILL), ("decode", WKV_DECODE))),
+    ]
     print(f"launches: serve {serve_launches}, train {train_launches}")
     kernels = [{
         "name": name,
@@ -769,7 +1009,7 @@ def main() -> None:
         "shape": list(case),
         "route": "cuda",
         "source": f"src/repro_torch/kernels/csrc/{sources[name][0]}",
-        "replaces": f"src/repro/kernels/flash_attention/{sources[name][1]}",
+        "replaces": f"src/repro/kernels/{sources[name][1]}",
         "launches": launches[name],
         "max_abs_err": err,
         **times,

@@ -13,6 +13,8 @@ from repro_torch.models.config import SHAPES, ArchConfig, ShapeConfig
 
 ARCHS: tuple[str, ...] = (
     "gemma3-4b",
+    "recurrentgemma-9b",
+    "rwkv6-3b",
     "stablelm-3b",
 )
 

@@ -106,4 +106,10 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     fn = lib.flash_attention_bwd_dq
     fn.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, f, i, i, i, p]
     fn.restype = i
+    fn = lib.rg_lru_fwd
+    fn.argtypes = [p, p, p, p, p, i, i, i, i, p]
+    fn.restype = i
+    fn = lib.wkv6_fwd
+    fn.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i, p]
+    fn.restype = i
     return lib

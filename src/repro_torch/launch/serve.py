@@ -8,6 +8,8 @@ Run on the card (random weights from a seed, scaled-down config):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch stablelm-3b
 Run on the CPU with the plain versions of the kernels:
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu
+`--arch` takes any id of `repro_torch.configs.ARCHS`; the recurrent archs
+(rwkv6-3b, recurrentgemma-9b) keep their recurrent states in the caches.
 """
 from __future__ import annotations
 

@@ -1,4 +1,5 @@
-"""Model zoo of the port: the dense decoder architectures (attn / local + SwiGLU)."""
+"""Model zoo of the port: decoder-only stacks of attention (attn / local),
+RG-LRU and RWKV-6 blocks."""
 from .config import SHAPES, ArchConfig, MLAConfig, MoEConfig, ShapeConfig
 from .model import (Model, ModelOutput, decode_step, forward, init_caches,
                     init_params, prefill, segments)

@@ -13,8 +13,9 @@ Parameters are trainable `nn.Parameter`s; inference callers run under
 `torch.utils.checkpoint` when `cfg.remat` and `cfg.remat_policy == "full"`,
 as the JAX package wraps its scan body in `jax.checkpoint`.
 
-Block kinds ported so far: "attn" and "local" with a SwiGLU FFN.  The others
-raise `NotImplementedError` naming the ROADMAP item that ports them.
+Block kinds ported so far: "attn" and "local" with a SwiGLU FFN, "rglru"
+(recurrentgemma) with a SwiGLU FFN, and "rwkv6" with its RWKV channel mix.
+The others raise `NotImplementedError` naming the ROADMAP item that ports them.
 """
 from __future__ import annotations
 
@@ -25,18 +26,19 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from .._device import resolve_device
-from . import attention, layers
+from . import attention, layers, recurrent
 from .config import ArchConfig
 
 _NOT_PORTED = {
     "mla": "ROADMAP A5 (other attention variants: MLA)",
-    "rglru": "ROADMAP A6 (recurrent archs: RG-LRU, kernel B4)",
-    "rwkv6": "ROADMAP A6 (recurrent archs: RWKV-6, kernel B5)",
     "moe": "ROADMAP A4 (MoE and the expert-parallel all-to-all)",
     "gelu": "ROADMAP A5 (other attention variants: whisper)",
     "enc_dec": "ROADMAP A5 (other attention variants: whisper encoder-decoder)",
     "frontend": "ROADMAP A5 (other attention variants: patch/audio frontends)",
 }
+
+
+_KINDS = ("attn", "local", "rglru", "rwkv6")
 
 
 def _not_ported(what: str):
@@ -47,7 +49,7 @@ def _not_ported(what: str):
 def check_supported(cfg: ArchConfig) -> None:
     """Raise NotImplementedError for any part of `cfg` the port lacks."""
     for kind in cfg.pattern:
-        if kind not in ("attn", "local"):
+        if kind not in _KINDS:
             raise _not_ported(kind)
     if cfg.ffn != "swiglu":
         raise _not_ported(cfg.ffn)
@@ -116,15 +118,22 @@ class Model(nn.Module):
 
 
 def init_block(cfg: ArchConfig, generator, kind: str, dtype) -> dict:
-    if kind not in ("attn", "local"):
+    if kind not in _KINDS:
         raise _not_ported(kind)
     dev = generator.device
-    return {
-        "norm1": layers.init_rmsnorm(cfg.d_model, dtype, dev),
-        "mix": attention.init_attention(cfg, generator, dtype),
-        "norm2": layers.init_rmsnorm(cfg.d_model, dtype, dev),
-        "ffn": layers.init_swiglu(generator, cfg.d_model, cfg.d_ff, dtype),
-    }
+    p = {"norm1": layers.init_rmsnorm(cfg.d_model, dtype, dev)}
+    if kind == "rglru":
+        p["mix"] = recurrent.init_rglru(cfg, generator, dtype)
+    elif kind == "rwkv6":
+        p["mix"] = recurrent.init_rwkv6(cfg, generator, dtype)
+    else:
+        p["mix"] = attention.init_attention(cfg, generator, dtype)
+    p["norm2"] = layers.init_rmsnorm(cfg.d_model, dtype, dev)
+    if kind == "rwkv6":
+        p["ffn"] = recurrent.init_rwkv_cmix(cfg, generator, dtype)
+    else:
+        p["ffn"] = layers.init_swiglu(generator, cfg.d_model, cfg.d_ff, dtype)
+    return p
 
 
 def init_params(cfg: ArchConfig, generator: torch.Generator,
@@ -149,7 +158,12 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
 
 def init_block_cache(cfg: ArchConfig, kind: str, batch: int, max_seq: int,
                      dtype, device) -> dict:
-    if kind not in ("attn", "local"):
+    if kind == "rglru":
+        return {"mix": recurrent.init_rglru_state(cfg, batch, dtype, device)}
+    if kind == "rwkv6":
+        return {"mix": recurrent.init_rwkv6_state(cfg, batch, dtype, device),
+                "cmix": torch.zeros((batch, cfg.d_model), dtype=dtype, device=device)}
+    if kind not in _KINDS:
         raise _not_ported(kind)
     return {"mix": attention.init_attn_cache(cfg, batch, max_seq, kind, dtype,
                                              device)}
@@ -168,15 +182,30 @@ def init_caches(cfg: ArchConfig, batch: int, max_seq: int,
 
 
 def apply_block(cfg: ArchConfig, p: Block, kind: str, x, positions, *, cache=None):
-    """Returns (x, cache); the cache is updated in place.  (The JAX version
-    also returns an auxiliary loss, which only MoE blocks make.)"""
+    """Returns (x, cache); the cache is updated in place: attention caches by
+    the attention block, recurrent states here.  (The JAX version also
+    returns an auxiliary loss, which only MoE blocks make.)"""
     h = layers.rmsnorm(p["norm1"], x)
     mix_cache = None if cache is None else cache["mix"]
-    y, _ = attention.attention_block(cfg, p["mix"], h, positions, kind=kind,
-                                     cache=mix_cache)
+    if kind == "rglru":
+        y, new_mix = recurrent.rglru_block(cfg, p["mix"], h, state=mix_cache)
+    elif kind == "rwkv6":
+        y, new_mix = recurrent.rwkv6_block(cfg, p["mix"], h, state=mix_cache)
+    else:
+        y, new_mix = attention.attention_block(cfg, p["mix"], h, positions, kind=kind,
+                                               cache=mix_cache)
     x = x + y
     h = layers.rmsnorm(p["norm2"], x)
-    return x + layers.swiglu(p["ffn"], h), cache
+    if kind == "rwkv6":
+        y, new_cmix = recurrent.rwkv_cmix(cfg, p["ffn"], h,
+                                          state=None if cache is None else cache["cmix"])
+    else:
+        y = layers.swiglu(p["ffn"], h)
+    if cache is not None:
+        cache["mix"] = new_mix
+        if kind == "rwkv6":
+            cache["cmix"] = new_cmix
+    return x + y, cache
 
 
 # --- public entry points ----------------------------------------------------------------
@@ -222,9 +251,15 @@ def forward(cfg: ArchConfig, params: Model, batch: dict, *, caches=None,
 
 
 def _cache_pos(caches) -> int:
-    """Current decode position from the first attention cache (all layers of
-    the ported kinds hold one, and all advance together)."""
-    return caches[0]["mix"]["pos"]
+    """Current decode position from the first attention cache found (all
+    attention caches advance together).
+
+    Pure-recurrent stacks (rwkv6) have no positional cache, and no use for
+    positions (token shift only), so 0 is returned."""
+    for c in caches:
+        if "pos" in c["mix"]:
+            return c["mix"]["pos"]
+    return 0
 
 
 def prefill(cfg: ArchConfig, params: Model, batch: dict, max_seq: int):

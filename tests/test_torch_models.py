@@ -153,9 +153,18 @@ def test_sliding_window_ring_buffer_decode_matches_jax():
 def test_unported_kinds_raise():
     from repro_torch.models import init_params
     from repro_torch.models.config import ArchConfig
-    cfg = ArchConfig(name="x", family="ssm", num_layers=2, d_model=32, num_heads=1,
-                     num_kv_heads=1, d_ff=64, vocab_size=16, pattern=("rwkv6",),
+    cfg = ArchConfig(name="x", family="moe", num_layers=2, d_model=32, num_heads=1,
+                     num_kv_heads=1, d_ff=64, vocab_size=16, pattern=("mla",),
                      dtype="float32")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         init_params(cfg, torch.Generator(), device="cpu")
 
+
+
+@pytest.mark.parametrize("arch", ["gemma3-4b", "recurrentgemma-9b", "rwkv6-3b", "stablelm-3b"])
+def test_port_configs_equal_the_reference(arch):
+    """Each config module of the port is a copy of the reference's: the same
+    fields, field by field, and the arch is registered in `ARCHS`."""
+    from repro_torch import configs
+    assert arch in configs.ARCHS
+    assert dataclasses.asdict(configs.get(arch)) == dataclasses.asdict(jax_configs.get(arch))

@@ -34,3 +34,20 @@ def test_serve_tokens_equal_jax():
                                device="cpu")
     assert len(got[0]) == N - 2 and all(len(got[i]) == N for i in (1, 2))
     assert got == want
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-3b", "recurrentgemma-9b"])
+def test_serve_tokens_equal_jax_recurrent(arch):
+    """The recurrent archs (states in the caches, B4/B5's plain versions on
+    the CPU): the same greedy tokens as `repro.launch.serve`."""
+    cfg = dataclasses.replace(jax_configs.get(arch).scaled_down(), dtype="float32",
+                              remat=False)
+    jp, model = both_params(cfg)
+    P, N, B = 12, 5, 3
+    want = jax_serve.serve_requests(cfg, jp, _requests(jax_serve, cfg, P, N, B),
+                                    max_seq=P + N + 1, progress=lambda *_: None)
+    got = serve.serve_requests(model.cfg, model, _requests(serve, cfg, P, N, B),
+                               max_seq=P + N + 1, progress=lambda *_: None,
+                               device="cpu")
+    assert len(got[0]) == N - 2 and all(len(got[i]) == N for i in (1, 2))
+    assert got == want
