@@ -7,24 +7,34 @@ Run from the root of a checkout, on a machine with a CUDA card:
 
 Phases, in order; any failure raises and the script exits non-zero:
   1. device  - require CUDA; print the card's name and power limit; TF32 off.
-  2. build   - build the CUDA kernels from src/repro_torch/kernels/csrc with nvcc.
+  2. build   - build the CUDA kernels from src/repro_torch/kernels/csrc with nvcc;
+               print each kernel's registers and spills from ptxas.
   3. kernels - every kernel against its plain PyTorch version on the card: the
                forward B1 at the reference test shapes, the serving shapes
                (stablelm-3b; recurrentgemma-9b's local layers) and the
-               training shape; the backward B2 (dK/dV) and B3 (dQ) at the
-               reference gradient shapes, the training shape, a GQA case on
-               several seeds and a D = 256 window case; the recurrences B4
+               training shape, and ragged shapes; the backward B2 (dK/dV)
+               and B3 (dQ) at the reference gradient shapes, the training
+               shape, ragged shapes, a GQA case on several seeds and a
+               D = 256 window case (B1 and B2 in bf16 run their tensor-core
+               variants, in f32 their CUDA-core ones); the recurrences B4
                (RG-LRU) and B5 (WKV-6) in f32 and bf16 at the reference test
                shapes, from a nonzero initial state, at T = 1, at the serving
                prefill and decode shapes, and B5 at extreme decay.  Each check
                draws its inputs from a generator of its own and prints their
                hash.
   4. timing  - each kernel, its plain version and one PyTorch library call
-               (CUDA events), beside the card's bound, at the shape each path
-               gives it: B1 at the serving shapes and the training shape, B2
-               and B3 at the training shape, B4 and B5 at the serving prefill
-               and decode shapes (no single PyTorch call computes either
-               recurrence: their library time is null).
+               (CUDA events around queued calls: `ms`, where a wrapper's host
+               work counts wherever it outlasts its kernel), and each kernel
+               again with the card held busy while its launches are queued
+               (`device_ms`: device time only), beside the card's bound, at
+               the shape each path gives it: B1 at the serving
+               shapes and the training shape, B2 and B3 at the training
+               shape, B4 and B5 at the serving prefill and decode shapes (no
+               single PyTorch call computes either recurrence: their library
+               time is null).  The attention yardstick is timed, both ways,
+               under each SDPA backend that runs at the shape (flash, cuDNN,
+               efficient); the fastest is the library time (`library_ms`,
+               `library_device_ms`), and its backend is recorded.
   5. parity  - at full width, f32, depth cut: stablelm-3b (4 layers),
                recurrentgemma-9b (one pattern period: rglru, rglru, local) and
                rwkv6-3b (2 layers): the same weights on the card (kernels) and
@@ -39,13 +49,14 @@ Phases, in order; any failure raises and the script exits non-zero:
                `repro_torch.launch.serve.serve_requests`, one model at a time;
                the kernel launch counts of each run, in prefill and in decode,
                are read and checked (B1 once per attention layer in prefill,
-               B4 / B5 once per recurrent layer in prefill and in every decode
-               step).
+               each in the tensor-core variant; B4 / B5 once per recurrent
+               layer in prefill and in every decode step).
   8. train (the main path) - stablelm-3b at its full published config, bf16,
                full remat, batch 8 x 512, grad_sync "bridge": 1 warm-up step
                and 3 timed steps through `repro_torch.launch.train.train`; the
                launch counts of that run are read and checked (B1 64, B2 32,
-               B3 32 per step).
+               B3 32 per step; every B1 and B2 launch in the tensor-core
+               variant).
   9. multi-card - only with two or more cards: torchrun starts min(4, count)
                NCCL ranks (this script with --rank), which run the Bruck, ring
                and Bridge all-reduce against dist.all_reduce, time the shift
@@ -124,6 +135,9 @@ TRAIN_FWD_CASE = (8, 32, 32, 512, 512, 80, True, None)
 WIDE_CASE = (1, 8, 4, 300, 300, 256, True, 100)
 # recurrentgemma-9b's local layers in prefill: 16 query heads of 256, MQA, window 2048
 GRIFFIN_CASE = (4, 16, 1, 512, 512, 256, True, 2048)
+# ragged Sq and Sk (not multiples of 16 or 64): Sq < Sk under GQA, and MQA
+# with a window
+RAGGED_CASES = [(1, 4, 2, 72, 300, 80, True, None), (2, 4, 1, 300, 300, 80, True, 100)]
 TOL = {torch.float32: 5e-5, torch.bfloat16: 5e-2}  # tests/test_kernels.py bounds
 LSE_TOL = {torch.float32: 1e-5,  # f32 lse, same source
            # both sides compute lse in f32 from the same bf16 inputs
@@ -145,9 +159,13 @@ TRAIN_CASE = (8, 32, 512, 512, 80, True, None)
 WIDE_BWD_CASE = (1, 8, 300, 300, 256, True, 100)
 GQA_CASE = (1, 8, 2, 160, 160, 32, True, 64)      # through the op: b, hq, hkv, s, s, d, ...
 GQA_SEEDS = range(5)
-# f32: the reference's gradient bound (tests/test_kernels.py).  bf16: both sides
-# compute in f32 from the same bf16 inputs and round to bf16 (spacing 2^-8
-# relative), so they may differ by one bf16 step: 2e-2 + 2e-2 |want|.
+# ragged Sq and Sk: Sq < Sk causal, Sq > Sk bidirectional
+BWD_RAGGED_CASES = [(1, 4, 72, 300, 80, True, None), (1, 2, 100, 72, 80, False, None)]
+# f32: the reference's gradient bound (tests/test_kernels.py); both sides run in
+# f32.  bf16: 2e-2 + 2e-2 |want|.  Both sides round their outputs to bf16
+# (spacing 2^-8 relative), so they may differ by one bf16 step; and B2's
+# tensor-core variant rounds P and dS to bf16 before the dV and dK products,
+# which the plain version takes in f32 (B1's rounds P before P.V, inside TOL).
 BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 # card vs CPU training parity, f32 through 2 full-width layers: loss rtol and
 # the per-leaf relative error ||got - want|| / ||want|| of every gradient
@@ -185,10 +203,26 @@ PATH_DTYPE = {"rg_lru_fwd": torch.float32, "wkv6_fwd": torch.bfloat16}
 # card vs CPU model parity: arch, layers kept (full width otherwise)
 PARITY_ARCHS = (("stablelm-3b", 4), ("recurrentgemma-9b", 3), ("rwkv6-3b", 2))
 SERVE_ARCHS = ("stablelm-3b", "recurrentgemma-9b", "rwkv6-3b")
+# the SDPA backends tried for the attention yardstick (torch.nn.attention.SDPBackend)
+SDPA_BACKENDS = ("FLASH_ATTENTION", "CUDNN_ATTENTION", "EFFICIENT_ATTENTION")
 
 
 def phase(name: str):
     print(f"== {name}", flush=True)
+
+
+def print_ptxas(log: str) -> None:
+    """One line per compiled kernel: its (mangled) name, registers and spills,
+    from ptxas's -v report."""
+    name = stack = None
+    for line in log.splitlines():
+        if m := re.search(r"Function properties for (\S+)", line):
+            name = m.group(1)
+        elif "spill" in line:
+            stack = line.strip()
+        elif (m := re.search(r"Used (\d+) registers", line)) and name:
+            print(f"  {name}: {m.group(1)} registers; {stack}")
+            name = stack = None
 
 
 def nvidia_smi() -> str:
@@ -233,7 +267,8 @@ def check_kernels() -> dict:
     serving and the training shape, keyed by the case."""
     errs = {}
     cases = [(c, dt) for dt in (torch.float32, torch.bfloat16) for c in FLASH_CASES]
-    cases += [(c, dt) for c in (SERVE_CASE, TRAIN_FWD_CASE, WIDE_CASE, GRIFFIN_CASE)
+    cases += [(c, dt) for c in (SERVE_CASE, TRAIN_FWD_CASE, WIDE_CASE, GRIFFIN_CASE,
+                                *RAGGED_CASES)
               for dt in (torch.bfloat16, torch.float32)]
     for case, dtype in cases:
         d, causal, window = case[5], case[6], case[7]
@@ -257,12 +292,19 @@ def check_kernels() -> dict:
     return errs
 
 
-def time_ms(fn, iters=20, warmup=3) -> float:
+def time_ms(fn, iters=20, warmup=3, hold=False) -> float:
+    """ms of one call of `fn`, from CUDA events around `iters` queued calls.
+    Without `hold` (`ms`) the card waits for the host wherever a call's Python
+    and launch work outlasts its kernel, so that host time counts.  With
+    `hold` (`device_ms`) a sleep kernel holds the card while the calls are
+    queued, so they run back to back and only device time counts."""
     for _ in range(warmup):
         fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    if hold:
+        torch.cuda._sleep(50_000_000)  # ~25 ms of clock cycles
     start.record()
     for _ in range(iters):
         fn()
@@ -281,26 +323,98 @@ def bound(moved_bytes: int, flops: int,
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def sdpa_backends(fn) -> list[str]:
+    """The SDPA_BACKENDS under which `fn` (a call of SDPA, or one forward and
+    backward) runs at its shape."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    ok = []
+    for name in SDPA_BACKENDS:
+        try:
+            with sdpa_kernel(getattr(SDPBackend, name)):
+                fn()
+            torch.cuda.synchronize()
+            ok.append(name)
+        except RuntimeError as exc:  # this backend has no kernel for the shape
+            print(f"  SDPA backend {name} does not run here: {str(exc).splitlines()[0][:120]}")
+    if not ok:
+        raise AssertionError("no SDPA backend runs at this shape")
+    return ok
+
+
+def time_under(backend: str | None, fn, iters: int, hold: bool) -> float:
+    """time_ms of `fn`, under the SDPA backend `backend` if one is given."""
+    if backend is None:
+        return time_ms(fn, iters=iters, hold=hold)
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    with sdpa_kernel(getattr(SDPBackend, backend)):
+        return time_ms(fn, iters=iters, hold=hold)
+
+
+def time_in_turns(fns: dict, backends: dict, iters: dict) -> dict:
+    """Median of three in turns of each fn's time; `backends` maps a key to
+    the SDPA backend it runs under.  A key that ends in "device_ms" (or a
+    tuple key whose last part does) is timed with the card held (device time
+    only)."""
+    runs = {key: [] for key in fns}
+    for _ in range(3):
+        for key, fn in fns.items():
+            hold = (key[-1] if isinstance(key, tuple) else key).endswith("device_ms")
+            runs[key].append(time_under(backends.get(key), fn, iters.get(key, 20), hold))
+    return {key: sorted(v)[1] for key, v in runs.items()}
+
+
+def sdpa_fns(fns: dict, backends: dict, names, fn) -> None:
+    """Adds `fn` under each SDPA backend of `names` to `fns` (keys "sdpa NAME"
+    and "sdpa NAME device_ms") and its backend to `backends`."""
+    for name in names:
+        for key in (f"sdpa {name}", f"sdpa {name} device_ms"):
+            fns[key], backends[key] = fn, name
+
+
+def pick_library(times: dict) -> None:
+    """Moves the per-backend SDPA times of `times` into library_ms (the
+    fastest backend's `ms`), library_backend, library_device_ms (the fastest
+    backend's device time) and the per-backend dicts."""
+    dev = {key[5:-10]: times.pop(key) for key in list(times)
+           if key.startswith("sdpa ") and key.endswith(" device_ms")}
+    by = {key[5:]: times.pop(key) for key in list(times) if key.startswith("sdpa ")}
+    best = min(by, key=by.get)
+    times["library_ms"], times["library_backend"] = by[best], best
+    times["library_ms_by_backend"] = by
+    times["library_device_ms"] = min(dev.values())
+    times["library_device_ms_by_backend"] = dev
+
+
+def library_text(times: dict) -> str:
+    """The SDPA yardstick of `times`, both ways, with each backend's time."""
+    def rounded(by):
+        return {name: round(t, 4) for name, t in by.items()}
+    return (f"library_ms {times['library_ms']:.4f} ({times['library_backend']}; by backend "
+            f"{rounded(times['library_ms_by_backend'])}) library_device_ms "
+            f"{times['library_device_ms']:.4f} (by backend "
+            f"{rounded(times['library_device_ms_by_backend'])})")
+
+
 def time_flash(case) -> dict:
-    """B1 at `case`, bf16: kernel, plain, library, bound."""
+    """B1 at `case`, bf16: kernel, plain, library (each SDPA backend), bound."""
     b, hq, hkv, sq, sk, d, causal, window = case
     q, k, v = (t.to(torch.bfloat16) for t in flash_inputs(case))
     scale = d ** -0.5
+    # SDPA has no sliding window: the yardstick only where the window
+    # covers every causal key (recurrentgemma's 2048 at 512 tokens)
+    sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
+        q, k, v, is_causal=causal, scale=scale, enable_gqa=hq != hkv)
     fns = {
         "ms": lambda: flash_kernel.flash_attention_fwd_lse(
             q, k, v, scale=scale, causal=causal, window=window),
         "plain_ms": lambda: flash_ref.attention_fwd_lse(
             q, k, v, scale=scale, causal=causal, window=window),
-        # SDPA has no sliding window: the yardstick only where the window
-        # covers every causal key (recurrentgemma's 2048 at 512 tokens)
-        "library_ms": lambda: torch.nn.functional.scaled_dot_product_attention(
-            q, k, v, is_causal=causal, scale=scale, enable_gqa=hq != hkv),
     }
-    runs = {key: [] for key in fns}
-    for _ in range(3):  # in turns, median of three
-        for key, fn in fns.items():
-            runs[key].append(time_ms(fn))
-    times = {key: sorted(v)[1] for key, v in runs.items()}
+    fns["device_ms"] = fns["ms"]
+    backends = {}
+    sdpa_fns(fns, backends, sdpa_backends(sdpa), sdpa)
+    times = time_in_turns(fns, backends, {})
+    pick_library(times)
     # bound: each input read once and each output written once, against the
     # live (query, key) pairs of this mask at 4 D FLOPs each (QK^T and PV)
     elem = q.element_size()
@@ -309,9 +423,9 @@ def time_flash(case) -> dict:
     flops = 4 * d * live * b * hq
     times["bound_ms"], times["bound_by"] = bound(moved, flops)
     print(f"flash timing {case} bf16: kernel_ms {times['ms']:.4f} "
-          f"plain_ms {times['plain_ms']:.4f} library_ms {times['library_ms']:.4f} "
-          f"bound_ms {times['bound_ms']:.4f} (by {times['bound_by']}: {moved} bytes, "
-          f"{flops} FLOP; H100 SXM peaks {H100_HBM_BYTES_S:.3g} B/s, "
+          f"device_ms {times['device_ms']:.4f} plain_ms {times['plain_ms']:.4f} "
+          f"{library_text(times)} bound_ms {times['bound_ms']:.4f} "
+          f"(by {times['bound_by']}: {moved} bytes, {flops} FLOP; H100 SXM peaks {H100_HBM_BYTES_S:.3g} B/s, "
           f"{H100_BF16_FLOP_S:.3g} FLOP/s)")
     return times
 
@@ -390,6 +504,7 @@ def serve_path(arch: str) -> dict:
     out = serve_requests(cfg, model, reqs, max_seq=max_seq, progress=progress,
                          device="cuda")
     total = read_launches()
+    check_tensor_core_launches(f"serve {arch}")
     peak = torch.cuda.max_memory_allocated()
     launches = {"prefill": at_prefill,
                 "decode": {k: total[k] - at_prefill[k] for k in total}}
@@ -436,12 +551,22 @@ def bwd_inputs(case, dtype):
     return q, k, v, do, o, lse, dvec
 
 
+def attention_f64(q, k, v, causal: bool, window: int | None):
+    """Masked softmax attention on f64 CPU tensors, GQA expanded: the truth
+    that both f32 sides of the GQA gradient check are printed against."""
+    group = q.shape[1] // k.shape[1]
+    k, v = (t.repeat_interleave(group, dim=1) for t in (k, v))
+    s = torch.einsum("bhqd,bhkd->bhqk", q, k) * q.shape[-1] ** -0.5
+    mask = flash_ref.attention_mask(q.shape[2], k.shape[2], causal, window)
+    return torch.einsum("bhqk,bhkd->bhqd", s.masked_fill(~mask, float("-inf")).softmax(-1), v)
+
+
 def check_bwd_kernels() -> dict:
     """B2 and B3 vs their plain versions on the card; returns their errors at
     the training shape in bf16 (the main path's dtype)."""
     errs = {}
     cases = [(c, dt) for dt in (torch.float32, torch.bfloat16)
-             for c in BWD_CASES + [TRAIN_CASE, WIDE_BWD_CASE]]
+             for c in BWD_CASES + [TRAIN_CASE, WIDE_BWD_CASE, *BWD_RAGGED_CASES]]
     for case, dtype in cases:
         d, causal, window = case[4], case[5], case[6]
         q, k, v, do, o, lse, dvec = bwd_inputs(case, dtype)
@@ -465,7 +590,8 @@ def check_bwd_kernels() -> dict:
             errs = {"flash_attention_bwd_dkv": max(results["dk"][0], results["dv"][0]),
                     "flash_attention_bwd_dq": results["dq"][0]}
     # GQA through the op (K/V expanded, dK/dV group-summed): card vs CPU, f32,
-    # on several seeds
+    # on several seeds; both sides are also printed against an f64 truth, so
+    # that a jump of the card-vs-CPU error shows which side moved
     b, hq, hkv, sq, sk, d, causal, window = GQA_CASE
     tol = BWD_TOL[torch.float32]
     for seed in GQA_SEEDS:
@@ -477,9 +603,15 @@ def check_bwd_kernels() -> dict:
             tq, tk, tv = (t.to(dev).requires_grad_() for t in (q, k, v))
             out = flash_ops.flash_attention(tq, tk, tv, causal, window)
             grads.append(torch.autograd.grad((out * g.to(dev)).sum(), (tq, tk, tv)))
-        results = {}
-        for name, got, again, want in zip(("dq", "dk", "dv"), *grads, strict=True):
+        tq, tk, tv = (t.to("cpu", torch.float64).requires_grad_() for t in (q, k, v))
+        out = attention_f64(tq, tk, tv, causal, window)
+        truth = torch.autograd.grad((out * g.to("cpu", torch.float64)).sum(), (tq, tk, tv))
+        results, vs_f64 = {}, []
+        for name, got, again, want, exact in zip(("dq", "dk", "dv"), *grads, truth,
+                                                 strict=True):
             results[name] = max_err(got.cpu(), want, tol, tol)
+            vs_f64.append(f"{name} card {(got.cpu().double() - exact).abs().max().item():.3e} "
+                          f"cpu {(want.double() - exact).abs().max().item():.3e}")
             # no atomics and a fixed order of every sum: a second run is bit-identical
             if not torch.equal(got, again):
                 raise AssertionError(f"GQA gradient {name} differs between two runs "
@@ -487,7 +619,7 @@ def check_bwd_kernels() -> dict:
         line = (f"flash op grad GQA {GQA_CASE} f32 card vs cpu, seed {seed} inputs "
                 f"{input_hash(q, k, v, g)}: "
                 + ", ".join(f"{n} max|err| {e:.3e}" for n, (e, _) in results.items())
-                + f" (tol {tol} + {tol}|want|)")
+                + f" (tol {tol} + {tol}|want|); against f64: " + ", ".join(vs_f64))
         print(line)
         if not all(ok for _, ok in results.values()):
             raise AssertionError(f"GQA gradient disagrees between card and CPU: {line}")
@@ -510,26 +642,37 @@ def time_bwd() -> dict:
     q, k, v, do, o, lse, dvec = bwd_inputs(TRAIN_CASE, torch.bfloat16)
     kw = {"scale": d ** -0.5, "causal": causal, "window": window}
     # the library yardstick: the backward of PyTorch's fused attention on the
-    # same inputs (dq, dk and dv together), timed only for comparison
+    # same inputs (dq, dk and dv together) under each SDPA backend that runs
+    # here, timed only for comparison
     lq, lk, lv = (t.detach().requires_grad_() for t in (q, k, v))
-    lout = torch.nn.functional.scaled_dot_product_attention(
-        lq, lk, lv, is_causal=causal, scale=d ** -0.5)
+
+    def library_fn(backend):
+        from torch.nn.attention import SDPBackend, sdpa_kernel
+        with sdpa_kernel(getattr(SDPBackend, backend)):
+            lout = torch.nn.functional.scaled_dot_product_attention(
+                lq, lk, lv, is_causal=causal, scale=d ** -0.5)
+        return lambda: torch.autograd.grad(lout, (lq, lk, lv), do, retain_graph=True)
+
+    library = {name: library_fn(name) for name in sdpa_backends(
+        lambda: torch.autograd.grad(torch.nn.functional.scaled_dot_product_attention(
+            lq, lk, lv, is_causal=causal, scale=d ** -0.5), (lq, lk, lv), do))}
     fns = {
         "flash_attention_bwd_dkv": {
             "ms": lambda: flash_bwd.flash_attention_bwd_dkv(q, k, v, do, lse, dvec, **kw),
+            "device_ms": lambda: flash_bwd.flash_attention_bwd_dkv(q, k, v, do, lse, dvec, **kw),
             "plain_ms": lambda: flash_ref.attention_bwd_dkv(q, k, v, do, lse, dvec, **kw)},
         "flash_attention_bwd_dq": {
             "ms": lambda: flash_bwd.flash_attention_bwd_dq(q, k, v, do, lse, dvec, **kw),
+            "device_ms": lambda: flash_bwd.flash_attention_bwd_dq(q, k, v, do, lse, dvec, **kw),
             "plain_ms": lambda: flash_ref.attention_bwd_dq(q, k, v, do, lse, dvec, **kw)},
     }
-    library = lambda: torch.autograd.grad(lout, (lq, lk, lv), do, retain_graph=True)  # noqa: E731
-    runs = {(name, key): [] for name, f in fns.items() for key in f}
-    runs["library"] = []
-    for _ in range(3):  # in turns, median of three
-        for (name, key) in list(runs)[:-1]:
-            runs[(name, key)].append(time_ms(fns[name][key], iters=10))
-        runs["library"].append(time_ms(library, iters=10))
-    library_ms = sorted(runs["library"])[1]
+    flat = {(name, key): fn for name, f in fns.items() for key, fn in f.items()}
+    backends = {}
+    for name, fn in library.items():
+        sdpa_fns(flat, backends, [name], fn)
+    med = time_in_turns(flat, backends, {key: 10 for key in flat})
+    lib = {key: med.pop(key) for key in list(med) if isinstance(key, str)}
+    pick_library(lib)
     # bound: inputs read once and outputs written once; the operations on the
     # live (query, key) pairs: B2 QK^T, dO V^T, P^T dO, dS^T Q (8 D each),
     # B3 QK^T, dO V^T, dS K (6 D each)
@@ -542,12 +685,13 @@ def time_bwd() -> dict:
     for name in fns:
         moved, flops = work[name]
         bound_ms, by = bound(moved, flops)
-        times[name] = {"ms": sorted(runs[(name, "ms")])[1],
-                       "plain_ms": sorted(runs[(name, "plain_ms")])[1],
-                       "bound_ms": bound_ms, "bound_by": by, "library_ms": library_ms}
+        times[name] = {"ms": med[(name, "ms")], "device_ms": med[(name, "device_ms")],
+                       "plain_ms": med[(name, "plain_ms")],
+                       "bound_ms": bound_ms, "bound_by": by, **lib}
         t = times[name]
-        print(f"{name} timing {TRAIN_CASE} bf16: kernel_ms {t['ms']:.4f} plain_ms "
-              f"{t['plain_ms']:.4f} library_ms {library_ms:.4f} (SDPA backward, dq dk dv) "
+        print(f"{name} timing {TRAIN_CASE} bf16: kernel_ms {t['ms']:.4f} device_ms "
+              f"{t['device_ms']:.4f} plain_ms "
+              f"{t['plain_ms']:.4f} SDPA backward (dq dk dv): {library_text(t)} "
               f"bound_ms {bound_ms:.4f} (by {by}: {moved} bytes, {flops} FLOP)")
     return times
 
@@ -674,15 +818,13 @@ def time_recurrent() -> dict:
                                                          u, s0)}
             moved, flops, exps = wkv_work(r, v, s0)
             extra = f", {exps} exps"
-        runs = {key: [] for key in fns}
-        for _ in range(3):  # in turns, median of three
-            for key, fn in fns.items():
-                runs[key].append(time_ms(fn, iters=10 if key == "plain_ms" else 20))
-        t = {key: sorted(v)[1] for key, v in runs.items()}
+        fns["device_ms"] = fns["ms"]
+        t = time_in_turns(fns, {}, {"plain_ms": 10})
         t["bound_ms"], t["bound_by"] = bound(moved, flops, PEAK_FLOP_S[dtype])
         t["library_ms"] = None
         times[(name, case)] = t
-        print(f"{name} timing {case} {str(dtype)[6:]}: kernel_ms {t['ms']:.4f} plain_ms "
+        print(f"{name} timing {case} {str(dtype)[6:]}: kernel_ms {t['ms']:.4f} device_ms "
+              f"{t['device_ms']:.4f} plain_ms "
               f"{t['plain_ms']:.4f} library_ms none (no PyTorch call computes the "
               f"recurrence) bound_ms {t['bound_ms']:.4f} (by {t['bound_by']}: {moved} bytes, "
               f"{flops} FLOP{extra}; peak {PEAK_FLOP_S[dtype]:.3g} FLOP/s for "
@@ -727,13 +869,29 @@ LAUNCH_COUNTERS = {
 }
 
 
+# the kernels with a tensor-core (bf16) variant, counted apart in launches_tc
+TC_COUNTERS = ("flash_attention_fwd", "flash_attention_bwd_dkv")
+
+
 def reset_launches() -> None:
-    for fn in LAUNCH_COUNTERS.values():
+    for name, fn in LAUNCH_COUNTERS.items():
         fn.launches = 0
+        if name in TC_COUNTERS:
+            fn.launches_tc = 0
 
 
 def read_launches() -> dict:
     return {name: fn.launches for name, fn in LAUNCH_COUNTERS.items()}
+
+
+def check_tensor_core_launches(path: str) -> None:
+    """On a bf16 path every launch of B1 and B2 is of the tensor-core variant."""
+    counts = {name: (LAUNCH_COUNTERS[name].launches, LAUNCH_COUNTERS[name].launches_tc)
+              for name in TC_COUNTERS}
+    print(f"{path}: (launches, of which tensor-core) {counts}")
+    if any(total != tc for total, tc in counts.values()):
+        raise AssertionError(f"{path}: a bf16 launch of B1 or B2 missed the tensor-core "
+                             f"variant: {counts}")
 
 
 def train_main_path() -> tuple[dict, list[float]]:
@@ -756,6 +914,7 @@ def train_main_path() -> tuple[dict, list[float]]:
     reset_launches()
     _, _, losses = train_mod.train(tc, progress=progress, device="cuda")
     launches = read_launches()
+    check_tensor_core_launches("train stablelm-3b")
     peak = torch.cuda.max_memory_allocated()
     per_step = {"flash_attention_fwd": 2 * cfg.num_layers,   # forward + remat recompute
                 "flash_attention_bwd_dkv": cfg.num_layers,
@@ -943,9 +1102,7 @@ def main() -> None:
     t0 = time.perf_counter()
     _build.library()
     print(f"build: {time.perf_counter() - t0:.1f} s")
-    for line in _build.build_log().splitlines():
-        if "registers" in line or "spill" in line:
-            print("  " + line.strip())
+    print_ptxas(_build.build_log())
 
     phase("3 kernels vs plain")
     fwd_errs = check_kernels()

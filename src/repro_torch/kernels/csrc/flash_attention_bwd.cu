@@ -3,7 +3,8 @@
 // Two kernels replace the two TPU kernels of
 // src/repro/kernels/flash_attention/kernel_bwd.py, which
 // `flash_attention_bwd` launches there:
-//   flash_bwd_dkv_kernel  <- _bwd_dkv_kernel  (dK, dV for one key tile)
+//   flash_bwd_dkv_tc_kernel (bf16), flash_bwd_dkv_kernel (f32)
+//                         <- _bwd_dkv_kernel  (dK, dV for one key tile)
 //   flash_bwd_dq_kernel   <- _bwd_dq_kernel   (dQ for one query tile)
 // Both take the MHA layout (B*H, S, D): GQA expansion of K/V and the group
 // sum of dK/dV stay in the op (kernels/flash_attention/ops.py), as in the
@@ -14,21 +15,55 @@
 //   dS_ij = P_ij (dO_i . v_j - D_i) scale
 //   dK_j  = sum_i dS_ij q_i        dQ_i = sum_j dS_ij k_j
 //
-// What bounds them on the H100.  At the training shape (B*H = 256, S = 512,
-// D = 80, causal, bf16) the two kernels together need ~14 GFLOP on the live
-// (query, key) pairs against ~100 MB of inputs and outputs: a tensor-core
-// pair would be bound by memory at a few tens of microseconds.  These first
-// kernels do their arithmetic in f32 on the CUDA cores from shared memory, so
-// their own limit is the FMA rate and the shared-memory reads feeding it.
-// `wgmma`, TMA and a fused one-pass design are later work.
+// Two variants of the dK/dV kernel, chosen by the inputs' dtype (never by
+// failure): bf16 (the trained model's type) runs flash_bwd_dkv_tc_kernel on
+// the tensor cores; f32 (the card-vs-CPU parity checks) runs
+// flash_bwd_dkv_kernel on the CUDA cores.  The dQ kernel has the CUDA-core
+// design for both dtypes.
 //
-// Design.  8 warps per CTA.  A CTA owns a tile of rows (64, or 32 at D = 256
-// so that shared memory stays under the 227 KB a block can have): the dK/dV
-// kernel owns key rows and loops over the query tiles the mask leaves live;
-// the dQ kernel owns query rows and loops over the live key tiles.  The TPU
-// kernels' pl.when tile skipping becomes those loop bounds, taken from causal,
-// window and off = sk - sq.  Each warp owns R = rows / 8 of the owned rows,
-// and its lanes own output columns lane + 32 c (so head dim 80 needs no
+// What bounds them on the H100.  At the training shape (B*H = 256, S = 512,
+// D = 80, causal, bf16) the dK/dV kernel needs 8 D FLOPs per live (query,
+// key) pair, 21.5 GFLOP, against ~127 MB of inputs and outputs: 0.038 ms at
+// 3.35 TB/s, so the bytes bound it, while the FLOPs take 0.022 ms at the
+// tensor cores' 989 TFLOP/s and at least 0.32 ms on the CUDA cores (67
+// TFLOP/s in f32), which is why its bf16 variant runs on the tensor cores.
+// `mma.sync` rather than `wgmma`: see flash_attention_fwd.cu.
+// The dQ kernel needs 6 D FLOPs a pair against ~106 MB.
+//
+// dK/dV, bf16 design (tensor cores, after FlashAttention-2).  One CTA per
+// (b*h, 64-key tile), 4 warps, each owning 16 keys; under a causal mask the
+// first key tiles, which the most queries attend, start first.  The CTA
+// streams the live query tiles of 32 rows: Q, dO, lse and dvec are
+// double-buffered in shared memory with cp.async (the next tile's copy flies
+// while this one is computed; rows past sq are zero-filled by the copies'
+// source size), rows padded to D + 8 elements so that ldmatrix reads are free
+// of bank conflicts.  K and V of the owned keys stay in shared memory and are
+// read by ldmatrix per query tile (the accumulators take the registers).  Per
+// warp and query tile, with mma.m16n8k16.bf16 into f32:
+//   S^T = K Q^T;  P^T = exp(S^T scale - lse), 0 where masked (ex2.approx);
+//   dV += P^T dO  (P^T rounded to bf16 in registers as the A operand, dO by ldmatrix.trans);
+//   dP^T = V dO^T;  dS^T = P^T (dP^T - dvec) scale;
+//   dK += dS^T Q  (dS^T rounded to bf16 in registers, Q by ldmatrix.trans).
+// Every product is warp-local: no cross-warp reduction, no atomics, and every
+// sum runs in a fixed order, so two runs give the same bits.  Up to D = 80 one
+// pass accumulates dK and dV together (166 registers at D = 80: three CTAs an
+// SM); from D = 128 on, one pass accumulates dV and a second one dK, each
+// recomputing P^T, so that at D = 256 one 16 x 256 f32 accumulator (128
+// registers) lives at a time and the kernel stays under 255 registers without
+// spills.  Rounding P^T and dS^T to bf16 before their products is the one
+// numerical difference from the TPU kernel, which multiplies them in f32.
+// Shared memory: K, V and two stages of Q and dO tiles, (2 * 64 + 4 * 32) x
+// (D + 8) bf16, and 128 floats: 45 KB at D = 80 and 133 KB at D = 256.
+// Inputs must be 16-byte aligned (the wrapper checks).
+//
+// f32 variant of dK/dV and the dQ kernel (the first design of the port,
+// unchanged).  8 warps per CTA.  A CTA owns a tile of rows (64, or 32 at
+// D = 256 so that shared memory stays under the 227 KB a block can have): the
+// dK/dV kernel owns key rows and loops over the query tiles the mask leaves
+// live; the dQ kernel owns query rows and loops over the live key tiles.  The
+// TPU kernels' pl.when tile skipping becomes those loop bounds, taken from
+// causal, window and off = sk - sq.  Each warp owns R = rows / 8 of the owned
+// rows, and its lanes own output columns lane + 32 c (so head dim 80 needs no
 // padding), accumulating in f32 registers.  The streamed tile is 64 rows
 // wide, lane j taking rows j and j + 32; its rows are stored in shared
 // memory padded to D + 1 floats so that a warp reading one column hits 32
@@ -40,6 +75,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "tensor_core.cuh"
 
 namespace {
 
@@ -88,13 +125,14 @@ __device__ __forceinline__ void load_rows(float* dst, const T* src, int r0, int 
   }
 }
 
-// dK, dV of one key tile.  grid = (ceil(sk / BK), B*H).
-template <typename T, int D>
+// dK, dV of one key tile, f32.  grid = (ceil(sk / BK), B*H).
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                     const T* __restrict__ dout, const float* __restrict__ lse,
-                     const float* __restrict__ dvec, T* __restrict__ dk, T* __restrict__ dv,
-                     int sq, int sk, float scale, bool causal, bool use_window, int window) {
+flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, const float* __restrict__ dout,
+                     const float* __restrict__ lse, const float* __restrict__ dvec,
+                     float* __restrict__ dk, float* __restrict__ dv, int sq, int sk, float scale,
+                     bool causal, bool use_window, int window) {
   constexpr int BK = owned_rows<D>();
   constexpr int R = BK / kWarps;       // key rows per warp
   constexpr int P = D + 1;             // padded stride of streamed rows
@@ -109,16 +147,16 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
 
   const int bh = blockIdx.y;
   const int k0 = blockIdx.x * BK;
-  const T* q_g = q + static_cast<int64_t>(bh) * sq * D;
-  const T* do_g = dout + static_cast<int64_t>(bh) * sq * D;
+  const float* q_g = q + static_cast<int64_t>(bh) * sq * D;
+  const float* do_g = dout + static_cast<int64_t>(bh) * sq * D;
   const float* lse_g = lse + static_cast<int64_t>(bh) * sq;
   const float* dvec_g = dvec + static_cast<int64_t>(bh) * sq;
   const int off = sk - sq;
   const int lane = threadIdx.x % 32;
   const int row0 = (threadIdx.x / 32) * R;
 
-  load_rows<T, D>(k_s, k + static_cast<int64_t>(bh) * sk * D, k0, BK, sk, D);
-  load_rows<T, D>(v_s, v + static_cast<int64_t>(bh) * sk * D, k0, BK, sk, D);
+  load_rows<float, D>(k_s, k + static_cast<int64_t>(bh) * sk * D, k0, BK, sk, D);
+  load_rows<float, D>(v_s, v + static_cast<int64_t>(bh) * sk * D, k0, BK, sk, D);
 
   // Queries that attend some key of this tile: [q_lo, q_hi).
   const int k_last = min(k0 + BK, sk) - 1;
@@ -137,8 +175,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
   const int qt_begin = q_lo < q_hi ? (q_lo / kStream) * kStream : q_hi;
   for (int qt = qt_begin; qt < q_hi; qt += kStream) {
     __syncthreads();  // K/V written; the previous query tile consumed
-    load_rows<T, D>(q_s, q_g, qt, kStream, sq, P);
-    load_rows<T, D>(do_s, do_g, qt, kStream, sq, P);
+    load_rows<float, D>(q_s, q_g, qt, kStream, sq, P);
+    load_rows<float, D>(do_s, do_g, qt, kStream, sq, P);
     for (int i = threadIdx.x; i < kStream; i += kThreads) {
       const bool in = qt + i < sq;
       lse_s[i] = in ? lse_g[qt + i] : 0.f;
@@ -215,8 +253,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
     for (int c = 0; c < C; ++c) {
       const int col = lane + 32 * c;
       if (col < D) {
-        dk[base + col] = from_float<T>(dk_acc[i][c]);
-        dv[base + col] = from_float<T>(dv_acc[i][c]);
+        dk[base + col] = dk_acc[i][c];
+        dv[base + col] = dv_acc[i][c];
       }
     }
   }
@@ -358,17 +396,19 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <typename T, int D>
+// The f32 dK/dV kernel's launch (bf16::launch_dkv launches the bf16 one).
+template <int D>
 cudaError_t launch_dkv(const Args& a, void* dk, void* dv) {
   const size_t smem = sizeof(float) * smem_floats<D>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkv_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+      flash_bwd_dkv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const dim3 grid((a.sk + owned_rows<D>() - 1) / owned_rows<D>(), a.bh);
-  flash_bwd_dkv_kernel<T, D><<<grid, kThreads, smem, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-      static_cast<const T*>(a.dout), a.lse, a.dvec, static_cast<T*>(dk), static_cast<T*>(dv),
-      a.sq, a.sk, a.scale, a.causal != 0, a.use_window != 0, a.window);
+  flash_bwd_dkv_kernel<D><<<grid, kThreads, smem, a.stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<const float*>(a.dout), a.lse, a.dvec,
+      static_cast<float*>(dk), static_cast<float*>(dv), a.sq, a.sk, a.scale, a.causal != 0,
+      a.use_window != 0, a.window);
   return cudaGetLastError();
 }
 
@@ -386,26 +426,297 @@ cudaError_t launch_dq(const Args& a, void* dq) {
   return cudaGetLastError();
 }
 
-// Calls LAUNCH<T, D>(args...) for the runtime head dim d.
-#define DISPATCH_HEAD_DIM(LAUNCH, T, d, ...)        \
-  switch (d) {                                      \
-    case 16: return LAUNCH<T, 16>(__VA_ARGS__);     \
-    case 32: return LAUNCH<T, 32>(__VA_ARGS__);     \
-    case 64: return LAUNCH<T, 64>(__VA_ARGS__);     \
-    case 80: return LAUNCH<T, 80>(__VA_ARGS__);     \
-    case 128: return LAUNCH<T, 128>(__VA_ARGS__);   \
-    case 256: return LAUNCH<T, 256>(__VA_ARGS__);   \
-    default: return cudaErrorInvalidValue;          \
+// Returns the expression after d, with the constant D set to the runtime head dim d.
+#define DISPATCH_HEAD_DIM(d, ...)                                \
+  switch (d) {                                                   \
+    case 16: { constexpr int D = 16; return __VA_ARGS__; }       \
+    case 32: { constexpr int D = 32; return __VA_ARGS__; }       \
+    case 64: { constexpr int D = 64; return __VA_ARGS__; }       \
+    case 80: { constexpr int D = 80; return __VA_ARGS__; }       \
+    case 128: { constexpr int D = 128; return __VA_ARGS__; }     \
+    case 256: { constexpr int D = 256; return __VA_ARGS__; }     \
+    default: return cudaErrorInvalidValue;                       \
   }
 
 template <typename T>
-cudaError_t dkv(const Args& a, int d, void* dk, void* dv) {
-  DISPATCH_HEAD_DIM(launch_dkv, T, d, a, dk, dv)
+cudaError_t dq(const Args& a, int d, void* out) {
+  DISPATCH_HEAD_DIM(d, launch_dq<T, D>(a, out))
 }
 
-template <typename T>
-cudaError_t dq(const Args& a, int d, void* out) {
-  DISPATCH_HEAD_DIM(launch_dq, T, d, a, out)
+// ---- dK/dV, bf16 variant: tensor cores ----------------------------------------
+
+namespace bf16 {
+
+using T = __nv_bfloat16;
+constexpr int kWarps = 4;
+constexpr int kThreads = kWarps * 32;
+constexpr int kBlockK = 16 * kWarps;  // 16 owned keys per warp
+// Rows of a streamed query tile.  32 keeps S^T and dP^T at 16 registers each,
+// so that at D = 80 the kernel needs 166 registers (three CTAs an SM) and at
+// D = 256 the pass for dK, with its 16 x 256 f32 accumulator (128
+// registers), stays under 255 without spills.
+constexpr int kBlockQ = 32;
+constexpr float kLog2e = 1.4426950408889634f;
+
+// K and V tiles, then two stages of (Q, dO) tiles, rows padded to D + 8
+// elements, then two stages of (lse, dvec).
+template <int D>
+constexpr size_t smem_bytes() {
+  return sizeof(T) * static_cast<size_t>((2 * kBlockK + 4 * kBlockQ) * (D + 8)) +
+         sizeof(float) * 4 * kBlockQ;
+}
+
+// One pass over the live query tiles of key tile k0: accumulates dV (kDV)
+// and/or dK (kDK) for the warp's 16 keys and writes them.  Every product is
+// warp-local and every sum runs in a fixed order.
+template <int D, bool kDV, bool kDK>
+__device__ __forceinline__ void dkv_pass(unsigned char* smem, const T* q_g, const T* k_g,
+                                         const T* v_g, const T* do_g, const float* lse_g,
+                                         const float* dvec_g, T* dk_g, T* dv_g, int k0, int sq,
+                                         int sk, float scale, bool causal, bool use_window,
+                                         int window) {
+  constexpr int kStride = D + 8;
+  constexpr int kTile = kBlockQ * kStride;  // a query tile
+  constexpr int kSlices = D / 16;
+  constexpr int kQueryTiles = kBlockQ / 8;  // n-tiles of S^T
+  T* k_s = reinterpret_cast<T*>(smem);
+  T* v_s = k_s + kBlockK * kStride;
+  T* q_s = v_s + kBlockK * kStride;     // stage s at q_s + 2 s kTile
+  T* do_s = q_s + kTile;                // stage s at do_s + 2 s kTile
+  float* lse_s = reinterpret_cast<float*>(q_s + 4 * kTile);  // stage s at lse_s + 2 s kBlockQ
+  float* dvec_s = lse_s + kBlockQ;                           // stage s at dvec_s + 2 s kBlockQ
+
+  const int off = sk - sq;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4;
+  const int t4 = lane % 4;
+  const int wkey = warp * 16;           // this warp's first key in the tile
+
+  // Queries that attend some key of this tile: [q_lo, q_hi).
+  const int k_last = min(k0 + kBlockK, sk) - 1;
+  int q_lo = 0;
+  int q_hi = sq;
+  if (causal) q_lo = max(q_lo, k0 - off);
+  if (use_window) q_hi = min(q_hi, k_last - off + window);
+  const int qt_begin = q_lo < q_hi ? (q_lo / kBlockQ) * kBlockQ : q_hi;
+  const int n_tiles = (q_hi - qt_begin + kBlockQ - 1) / kBlockQ;
+
+  // Q, dO, lse and dvec of query tile qt into `stage` (rows past sq read as 0)
+  auto load_query_tile = [&](int stage, int qt) {
+    tc::load_tile_async<D, kBlockQ, kThreads>(q_s + 2 * stage * kTile, q_g, qt, sq);
+    tc::load_tile_async<D, kBlockQ, kThreads>(do_s + 2 * stage * kTile, do_g, qt, sq);
+    // lse by threads [0, kBlockQ), dvec by threads [64, 64 + kBlockQ)
+    const int tid = static_cast<int>(threadIdx.x);
+    const int i = tid % 64;
+    const bool in = qt + i < sq;
+    if (i >= kBlockQ) return;
+    if (tid < 64) {
+      tc::cp_async4(lse_s + 2 * stage * kBlockQ + i, lse_g + (in ? qt + i : 0), in ? 4 : 0);
+    } else if (kDK) {
+      tc::cp_async4(dvec_s + 2 * stage * kBlockQ + i, dvec_g + (in ? qt + i : 0), in ? 4 : 0);
+    }
+  };
+
+  if (n_tiles > 0) {
+    tc::load_tile_async<D, kBlockK, kThreads>(k_s, k_g, k0, sk);
+    if (kDK) tc::load_tile_async<D, kBlockK, kThreads>(v_s, v_g, k0, sk);
+    load_query_tile(0, qt_begin);
+    tc::cp_async_commit();
+  }
+
+  float dv_acc[kDV ? 2 * kSlices : 1][4];
+  float dk_acc[kDK ? 2 * kSlices : 1][4];
+#pragma unroll
+  for (int j = 0; j < (kDV ? 2 * kSlices : 1); ++j) {
+    dv_acc[j][0] = dv_acc[j][1] = dv_acc[j][2] = dv_acc[j][3] = 0.f;
+  }
+#pragma unroll
+  for (int j = 0; j < (kDK ? 2 * kSlices : 1); ++j) {
+    dk_acc[j][0] = dk_acc[j][1] = dk_acc[j][2] = dk_acc[j][3] = 0.f;
+  }
+  const bool warp_live = k0 + wkey < sk;  // some key of this warp exists
+  const T* k_frag = k_s + (wkey + lane % 16) * kStride + (lane / 16) * 8;
+  const T* v_frag = v_s + (wkey + lane % 16) * kStride + (lane / 16) * 8;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int qt = qt_begin + t * kBlockQ;
+    const int stage = t & 1;
+    if (t + 1 < n_tiles) {  // the next tile's copy flies while this one is computed
+      load_query_tile(stage ^ 1, qt + kBlockQ);
+      tc::cp_async_commit();
+      tc::cp_async_wait<1>();
+    } else {
+      tc::cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (warp_live) {
+      const T* qs = q_s + 2 * stage * kTile;
+      const T* dos = do_s + 2 * stage * kTile;
+      const float* lses = lse_s + 2 * stage * kBlockQ;
+      const float* dvecs = dvec_s + 2 * stage * kBlockQ;
+      // S^T = K Q^T and (for dK) dP^T = V dO^T: 16 keys x kBlockQ queries,
+      // n-tile j holds queries qt + 8 j ..
+      float st[kQueryTiles][4], dpt[kDK ? kQueryTiles : 1][4];
+#pragma unroll
+      for (int j = 0; j < kQueryTiles; ++j) st[j][0] = st[j][1] = st[j][2] = st[j][3] = 0.f;
+#pragma unroll
+      for (int j = 0; j < (kDK ? kQueryTiles : 1); ++j) {
+        dpt[j][0] = dpt[j][1] = dpt[j][2] = dpt[j][3] = 0.f;
+      }
+#pragma unroll
+      for (int kk = 0; kk < kSlices; ++kk) {
+        const int b_off = (lane % 8 + (lane / 16) * 8) * kStride + kk * 16 + ((lane / 8) % 2) * 8;
+        uint32_t a[4];
+        tc::ldmatrix_x4(a, k_frag + kk * 16);
+#pragma unroll
+        for (int np = 0; np < kQueryTiles / 2; ++np) {
+          uint32_t b[4];
+          tc::ldmatrix_x4(b, qs + np * 16 * kStride + b_off);
+          tc::mma_bf16(st[2 * np], a, b[0], b[1]);
+          tc::mma_bf16(st[2 * np + 1], a, b[2], b[3]);
+        }
+        if constexpr (kDK) {
+          tc::ldmatrix_x4(a, v_frag + kk * 16);
+#pragma unroll
+          for (int np = 0; np < kQueryTiles / 2; ++np) {
+            uint32_t b[4];
+            tc::ldmatrix_x4(b, dos + np * 16 * kStride + b_off);
+            tc::mma_bf16(dpt[2 * np], a, b[0], b[1]);
+            tc::mma_bf16(dpt[2 * np + 1], a, b[2], b[3]);
+          }
+        }
+      }
+      // P^T = exp(S^T scale - lse), 0 where masked (per element, only on a
+      // tile that the mask or a ragged edge cuts); dS^T = P^T (dP^T - dvec) scale
+      const bool cut = qt + kBlockQ > sq || k0 + kBlockK > sk ||
+                       (causal && k0 + kBlockK - 1 > qt + off) ||
+                       (use_window && k0 <= qt + kBlockQ - 1 + off - window);
+#pragma unroll
+      for (int j = 0; j < kQueryTiles; ++j) {
+        const float2 lse2 = *reinterpret_cast<const float2*>(lses + 8 * j + 2 * t4);
+        const float2 dvec2 = *reinterpret_cast<const float2*>(dvecs + 8 * j + 2 * t4);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          bool live = true;
+          if (cut) {
+            const int kpos = k0 + wkey + g + 8 * (e / 2);
+            const int qpos = qt + 8 * j + 2 * t4 + (e % 2);
+            live = qpos < sq && kpos < sk;
+            if (causal) live = live && kpos <= qpos + off;
+            if (use_window) live = live && kpos > qpos + off - window;
+          }
+          const float p =
+              live ? tc::ex2((st[j][e] * scale - (e % 2 ? lse2.y : lse2.x)) * kLog2e) : 0.f;
+          st[j][e] = p;
+          if constexpr (kDK) dpt[j][e] = p * (dpt[j][e] - (e % 2 ? dvec2.y : dvec2.x)) * scale;
+        }
+      }
+      // dV += P^T dO and dK += dS^T Q: P^T and dS^T rounded to bf16 in
+      // registers are the A operands; dO and Q through ldmatrix.trans
+#pragma unroll
+      for (int kk = 0; kk < kQueryTiles / 2; ++kk) {  // queries 16 kk .. 16 kk + 15
+        const int b_off = (kk * 16 + lane % 8 + ((lane / 8) % 2) * 8) * kStride + (lane / 16) * 8;
+        uint32_t a[4];
+        if constexpr (kDV) {
+          tc::c_to_a(a, st[2 * kk], st[2 * kk + 1]);
+#pragma unroll
+          for (int dp = 0; dp < kSlices; ++dp) {
+            uint32_t b[4];
+            tc::ldmatrix_x4_trans(b, dos + b_off + dp * 16);
+            tc::mma_bf16(dv_acc[2 * dp], a, b[0], b[1]);
+            tc::mma_bf16(dv_acc[2 * dp + 1], a, b[2], b[3]);
+          }
+        }
+        if constexpr (kDK) {
+          tc::c_to_a(a, dpt[2 * kk], dpt[2 * kk + 1]);
+#pragma unroll
+          for (int dp = 0; dp < kSlices; ++dp) {
+            uint32_t b[4];
+            tc::ldmatrix_x4_trans(b, qs + b_off + dp * 16);
+            tc::mma_bf16(dk_acc[2 * dp], a, b[0], b[1]);
+            tc::mma_bf16(dk_acc[2 * dp + 1], a, b[2], b[3]);
+          }
+        }
+      }
+    }
+    __syncthreads();  // this stage is read out before the copy after next overwrites it
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int kpos = k0 + wkey + g + 8 * r;
+    if (kpos >= sk) continue;
+    const int64_t base = static_cast<int64_t>(kpos) * D + 2 * t4;
+#pragma unroll
+    for (int j = 0; j < 2 * kSlices; ++j) {
+      if constexpr (kDV) {
+        *reinterpret_cast<__nv_bfloat162*>(dv_g + base + 8 * j) =
+            __floats2bfloat162_rn(dv_acc[j][2 * r], dv_acc[j][2 * r + 1]);
+      }
+      if constexpr (kDK) {
+        *reinterpret_cast<__nv_bfloat162*>(dk_g + base + 8 * j) =
+            __floats2bfloat162_rn(dk_acc[j][2 * r], dk_acc[j][2 * r + 1]);
+      }
+    }
+  }
+}
+
+// dK, dV of one 64-key tile.  grid = (B*H, ceil(sk / 64)): under a causal mask
+// the first key tiles, which the most queries attend, start first.  Up to
+// D = 80 one pass accumulates both; from D = 128 on, dV and then dK each take
+// a pass over the query tiles (recomputing P^T), so that one f32 accumulator
+// of 16 x D lives at a time and the kernel stays under 255 registers.
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dkv_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                        const T* __restrict__ v, const T* __restrict__ dout,
+                        const float* __restrict__ lse, const float* __restrict__ dvec,
+                        T* __restrict__ dk, T* __restrict__ dv, int sq, int sk, float scale,
+                        bool causal, bool use_window, int window) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int64_t bh = blockIdx.x;
+  const int k0 = blockIdx.y * kBlockK;
+  const T* q_g = q + bh * sq * D;
+  const T* k_g = k + bh * sk * D;
+  const T* v_g = v + bh * sk * D;
+  const T* do_g = dout + bh * sq * D;
+  const float* lse_g = lse + bh * sq;
+  const float* dvec_g = dvec + bh * sq;
+  T* dk_g = dk + bh * sk * D;
+  T* dv_g = dv + bh * sk * D;
+  if constexpr (D <= 80) {
+    dkv_pass<D, true, true>(smem, q_g, k_g, v_g, do_g, lse_g, dvec_g, dk_g, dv_g, k0, sq, sk,
+                            scale, causal, use_window, window);
+  } else {
+    dkv_pass<D, true, false>(smem, q_g, k_g, v_g, do_g, lse_g, dvec_g, dk_g, dv_g, k0, sq, sk,
+                             scale, causal, use_window, window);
+    __syncthreads();
+    dkv_pass<D, false, true>(smem, q_g, k_g, v_g, do_g, lse_g, dvec_g, dk_g, dv_g, k0, sq, sk,
+                             scale, causal, use_window, window);
+  }
+}
+
+template <int D>
+cudaError_t launch_dkv(const Args& a, void* dk, void* dv) {
+  constexpr size_t smem = smem_bytes<D>();
+  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkv_tc_kernel<D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const dim3 grid(a.bh, (a.sk + kBlockK - 1) / kBlockK);
+  flash_bwd_dkv_tc_kernel<D><<<grid, kThreads, smem, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
+      static_cast<const T*>(a.dout), a.lse, a.dvec, static_cast<T*>(dk), static_cast<T*>(dv),
+      a.sq, a.sk, a.scale, a.causal != 0, a.use_window != 0, a.window);
+  return cudaGetLastError();
+}
+
+}  // namespace bf16
+
+// dK, dV of the variant of the inputs' dtype at the runtime head dim d.
+cudaError_t dkv(const Args& a, int d, int is_bf16, void* dk, void* dv) {
+  DISPATCH_HEAD_DIM(d, is_bf16 ? bf16::launch_dkv<D>(a, dk, dv) : launch_dkv<D>(a, dk, dv))
 }
 
 }  // namespace
@@ -420,7 +731,7 @@ extern "C" int flash_attention_bwd_dkv(const void* q, const void* k, const void*
                                        int window, void* stream) {
   const Args a{q, k, v, dout, static_cast<const float*>(lse), static_cast<const float*>(dvec),
                bh, sq, sk, scale, causal, use_window, window, static_cast<cudaStream_t>(stream)};
-  return is_bf16 ? dkv<__nv_bfloat16>(a, d, dk, dv) : dkv<float>(a, d, dk, dv);
+  return dkv(a, d, is_bf16, dk, dv);
 }
 
 // As above; writes dq (BH, Sq, D) in the input type.

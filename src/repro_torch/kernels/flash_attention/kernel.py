@@ -5,6 +5,14 @@ The kernel (`csrc/flash_attention_fwd.cu`) replaces the TPU kernel
 or raises; on a CPU tensor it runs the plain version `ref.attention_fwd_lse`,
 which computes the same function.  There is no fallback from one to the other.
 
+The kernel has two variants, picked by the inputs' dtype.  bf16 inputs run on
+the tensor cores: P is rounded to bf16 before the P.V product, whose sums
+stay in f32, and the softmax denominator is summed from the unrounded P.
+That rounding is the one numerical difference from the TPU kernel and from
+the plain version, which multiply P in f32.  f32 inputs run the CUDA-core
+variant, all in f32.  `launches` counts every launch, `launches_tc` the
+tensor-core ones.
+
 The TPU version padded Sq and Sk to its 512-wide VMEM blocks; the CUDA kernel
 picks its own 64 x 64 tiles and masks the ragged edge itself, so `block_q` and
 `block_k` are accepted for signature parity and not used.
@@ -17,6 +25,13 @@ from . import ref
 
 HEAD_DIMS = (16, 32, 64, 80, 128, 256)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def check_aligned(*tensors):
+    """The tensor-core variants copy 16-byte chunks: bf16 data must start on a
+    16-byte boundary (a fresh allocation does; a view with an offset may not)."""
+    if tensors[0].dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError("bf16 inputs must start on a 16-byte boundary")
 
 
 def flash_attention_fwd_lse(q, k, v, *, scale: float, causal: bool,
@@ -47,6 +62,7 @@ def flash_attention_fwd_lse(q, k, v, *, scale: float, causal: bool,
         raise ValueError("empty batch, head or sequence dimension")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("q, k, v must be contiguous")
+    check_aligned(q, k, v)
 
     from .._build import library  # builds with nvcc on first use
 
@@ -61,7 +77,9 @@ def flash_attention_fwd_lse(q, k, v, *, scale: float, causal: bool,
     if err:
         raise RuntimeError(f"flash_attention_fwd launch failed: cudaError {err}")
     flash_attention_fwd_lse.launches += 1
+    flash_attention_fwd_lse.launches_tc += q.dtype == torch.bfloat16
     return out, lse
 
 
-flash_attention_fwd_lse.launches = 0   # kernel launches; never counts a CPU call
+flash_attention_fwd_lse.launches = 0     # kernel launches; never counts a CPU call
+flash_attention_fwd_lse.launches_tc = 0  # of which the tensor-core (bf16) variant

@@ -9,13 +9,21 @@ function.  There is no fallback from one to the other.
 
 D = rowsum(dO o O) is a reduction outside the kernels, as in the JAX package
 (`kernel_bwd.py:163` there); here it is one torch op.
+
+The dK/dV kernel has two variants, picked by the inputs' dtype.  bf16 inputs
+run on the tensor cores: P and dS are rounded to bf16 before the dV = P^T dO
+and dK = dS^T Q products, whose sums stay in f32.  That rounding is the one
+numerical difference from the TPU kernel and from the plain version, which
+multiply them in f32.  f32 inputs run the CUDA-core variant, all in f32, as
+the dQ kernel does for both dtypes.  `launches` counts every launch of a
+wrapper, `flash_attention_bwd_dkv.launches_tc` the tensor-core ones.
 """
 from __future__ import annotations
 
 import torch
 
 from . import ref
-from .kernel import _DTYPES, HEAD_DIMS
+from .kernel import _DTYPES, HEAD_DIMS, check_aligned
 
 
 def _check(q, k, v, do, lse, dvec):
@@ -59,6 +67,7 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, dvec, *, scale: float,
         return ref.attention_bwd_dkv(q, k, v, do, lse, dvec, scale=scale,
                                      causal=causal, window=window)
     _check(q, k, v, do, lse, dvec)
+    check_aligned(q, k, v, do)
     from .._build import library  # builds with nvcc on first use
 
     dk, dv = torch.empty_like(k), torch.empty_like(v)
@@ -69,6 +78,7 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, dvec, *, scale: float,
     if err:
         raise RuntimeError(f"flash_attention_bwd_dkv launch failed: cudaError {err}")
     flash_attention_bwd_dkv.launches += 1
+    flash_attention_bwd_dkv.launches_tc += q.dtype == torch.bfloat16
     return dk, dv
 
 
@@ -91,7 +101,8 @@ def flash_attention_bwd_dq(q, k, v, do, lse, dvec, *, scale: float,
     return dq
 
 
-flash_attention_bwd_dkv.launches = 0   # kernel launches; never counts a CPU call
+flash_attention_bwd_dkv.launches = 0     # kernel launches; never counts a CPU call
+flash_attention_bwd_dkv.launches_tc = 0  # of which the tensor-core (bf16) variant
 flash_attention_bwd_dq.launches = 0
 
 

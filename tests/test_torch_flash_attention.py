@@ -5,7 +5,9 @@ kernel in interpret mode and through the port.  Bounds are the reference's
 own (tests/test_kernels.py): 5e-5 in f32, 5e-2 in bf16, lse 1e-5 in f32.
 Cases that need the card carry the `cuda` marker and skip without one; they
 import no JAX, so on a machine with a card and no JAX they run with
-`python -m pytest -m cuda tests/test_torch_flash_attention.py`.
+`python -m pytest -m cuda tests/test_torch_flash_attention.py`.  The bf16
+tensor-core variant rounds P to bf16 before P.V; a plain emulation of that
+rounding is held to the same bf16 bounds here on the CPU.
 """
 import numpy as np
 import pytest
@@ -93,7 +95,49 @@ def test_wrapper_on_cpu_runs_plain_version_without_launch():
     got = ops.flash_attention(tq, tk, tv, True, None)
     want = ref.attention(tq, tk, tv, causal=True)
     assert kernel.flash_attention_fwd_lse.launches == before == 0
+    assert kernel.flash_attention_fwd_lse.launches_tc == 0
     np.testing.assert_allclose(_np(got), _np(want), atol=5e-5, rtol=5e-5)
+
+
+def _tc_fwd_emulation(q, k, v, *, scale, causal, window):
+    """What the bf16 tensor-core variant computes, in plain PyTorch: 64-key
+    tiles, an online softmax in f32 whose denominator sums the unrounded P,
+    and P rounded to bf16 before P.V (products exact, sums in f32)."""
+    sq, sk = q.shape[2], k.shape[2]
+    s = ref._scores(q, k, scale)
+    s = s.masked_fill(~ref.attention_mask(sq, sk, causal, window), ref.NEG_INF)
+    v = v.repeat_interleave(q.shape[1] // v.shape[1], dim=1).float()
+    m = torch.full(s.shape[:3], ref.NEG_INF)
+    l = torch.zeros(s.shape[:3])
+    acc = torch.zeros(q.shape)
+    for k0 in range(0, sk, 64):
+        tile = s[..., k0:k0 + 64]
+        m_new = torch.maximum(m, tile.amax(-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(tile - m_new[..., None])
+        l = l * alpha + p.sum(-1)
+        acc = acc * alpha[..., None] + p.bfloat16().float() @ v[..., k0:k0 + 64, :]
+        m = m_new
+    denom = l.clamp_min(1e-30)
+    return (acc / denom[..., None]).to(q.dtype), m + torch.log(denom)
+
+
+@pytest.mark.parametrize("case", [
+    (1, 4, 4, 256, 256, 80, True, None),     # stablelm-3b's head dim, serving and training
+    (1, 4, 2, 100, 300, 80, True, None),     # ragged, sq < sk, GQA
+    (1, 2, 1, 300, 300, 256, True, 100),     # head dim 256, MQA, sliding window
+])
+def test_tensor_core_rounding_fits_reference_bounds(case):
+    """The one numerical change of the bf16 variant, rounding P to bf16 before
+    P.V, stays inside the reference's bf16 bounds against the plain version."""
+    d, causal, window = case[5], case[6], case[7]
+    tq, tk, tv = _torch_inputs(case, "bfloat16", seed=4)
+    kw = {"scale": d ** -0.5, "causal": causal, "window": window}
+    got_o, got_lse = _tc_fwd_emulation(tq, tk, tv, **kw)
+    want_o, want_lse = ref.attention_fwd_lse(tq, tk, tv, **kw)
+    assert got_o.dtype == torch.bfloat16 and not torch.equal(got_o, want_o)
+    np.testing.assert_allclose(_np(got_o), _np(want_o), **tol("bfloat16"))
+    np.testing.assert_allclose(_np(got_lse), _np(want_lse), atol=1e-3, rtol=1e-3)
 
 
 def _need_cuda():
@@ -101,24 +145,35 @@ def _need_cuda():
         pytest.skip("needs a CUDA device: the kernel runs only on the card")
 
 
+# The card's cases: the reference's shapes, gemma3's head dim 256 with GQA and
+# a window, and at every head dim ragged Sq and Sk (not multiples of 16 or 64)
+# with Sq < Sk under GQA, and with Sq > Sk bidirectional.
+CUDA_CASES = FLASH_CASES + [(1, 8, 4, 300, 300, 256, True, 100),
+                            (2, 4, 1, 300, 300, 80, True, 100)] + [
+    c for d in kernel.HEAD_DIMS
+    for c in ((1, 4, 2, 72, 300, d, True, None), (1, 2, 2, 100, 72, d, False, None))]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", FLASH_CASES + [(1, 8, 4, 300, 300, 256, True, 100)])
+@pytest.mark.parametrize("case", CUDA_CASES)
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_cuda_kernel_matches_plain(case, dtype):
     _need_cuda()
     d, causal, window = case[5], case[6], case[7]
     tq, tk, tv = (t.cuda() for t in _torch_inputs(case, dtype, seed=2))
-    before = kernel.flash_attention_fwd_lse.launches
-    got_o, got_lse = kernel.flash_attention_fwd_lse(tq, tk, tv, scale=d ** -0.5,
-                                                    causal=causal, window=window)
+    fn = kernel.flash_attention_fwd_lse
+    before = (fn.launches, fn.launches_tc)
+    got_o, got_lse = fn(tq, tk, tv, scale=d ** -0.5, causal=causal, window=window)
     torch.cuda.synchronize()
-    assert kernel.flash_attention_fwd_lse.launches == before + 1
+    # bf16 runs the tensor-core variant, f32 the CUDA-core one
+    assert (fn.launches, fn.launches_tc) == (before[0] + 1,
+                                             before[1] + (dtype == "bfloat16"))
     want_o, want_lse = ref.attention_fwd_lse(tq, tk, tv, scale=d ** -0.5,
                                              causal=causal, window=window)
     np.testing.assert_allclose(_np(got_o.cpu()), _np(want_o.cpu()), **tol(dtype))
-    if dtype == "float32":
-        np.testing.assert_allclose(_np(got_lse.cpu()), _np(want_lse.cpu()),
-                                   atol=1e-5, rtol=1e-5)
+    lse_tol = 1e-5 if dtype == "float32" else 1e-3   # both sides: lse in f32
+    np.testing.assert_allclose(_np(got_lse.cpu()), _np(want_lse.cpu()),
+                               atol=lse_tol, rtol=lse_tol)
 
 
 @pytest.mark.cuda

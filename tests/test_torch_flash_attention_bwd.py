@@ -9,10 +9,12 @@ atol = rtol = 1e-4, in f32.
 
 The `cuda`-marked cases hold the CUDA kernels to the plain versions on the
 card and skip without one; they import no JAX.  f32 is held at the same
-1e-4.  bf16 is held at 2e-2 absolute + 2e-2 relative: both sides compute in
-f32 from the same bf16 inputs and round their outputs to bf16, whose spacing
-is 2^-8 relative, so they may differ by one bf16 step (2^-7 = 7.8e-3 at
-values in [1, 2), 3.1e-2 in [4, 8)).
+1e-4.  bf16 is held at 2e-2 absolute + 2e-2 relative: both sides round their
+outputs to bf16, whose spacing is 2^-8 relative, so they may differ by one
+bf16 step (2^-7 = 7.8e-3 at values in [1, 2), 3.1e-2 in [4, 8)); and the
+dK/dV kernel's tensor-core variant rounds P and dS to bf16 before the dV and
+dK products (the plain version multiplies them in f32).  A plain emulation of
+that rounding is held to the same bound here on the CPU.
 """
 import numpy as np
 import pytest
@@ -123,9 +125,42 @@ def test_wrappers_on_cpu_run_plain_versions_without_launch():
     dq = kernel_bwd.flash_attention_bwd_dq(q, k, v, do, lse, dvec, **kw)
     want = ref.attention_bwd(q, k, v, o, lse, do, **kw)
     assert kernel_bwd.flash_attention_bwd_dkv.launches == 0
+    assert kernel_bwd.flash_attention_bwd_dkv.launches_tc == 0
     assert kernel_bwd.flash_attention_bwd_dq.launches == 0
     for a, b_ in zip((dq, dk, dv), want, strict=True):
         np.testing.assert_allclose(a.numpy(), b_.numpy(), atol=1e-6, rtol=1e-6)
+
+
+def _tc_dkv_emulation(q, k, v, do, lse, dvec, *, scale, causal, window):
+    """What the dK/dV kernel's bf16 tensor-core variant computes, in plain
+    PyTorch: P and dS in f32 (dS from the unrounded P), rounded to bf16 before
+    dV = P^T dO and dK = dS^T Q (products exact, sums in f32)."""
+    p, ds = ref._bwd_probs(q, k, v, lse, do, dvec, scale, causal, window)
+    dv = torch.einsum("bhqk,bhqd->bhkd", p.bfloat16().float(), do.float())
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds.bfloat16().float(), q.float())
+    return dk.to(q.dtype), dv.to(q.dtype)
+
+
+@pytest.mark.parametrize("case", [
+    (2, 4, 256, 256, 80, True, None),     # stablelm-3b's head dim, training
+    (1, 4, 100, 300, 80, True, None),     # ragged, sq < sk
+    (1, 2, 300, 300, 256, True, 100),     # head dim 256 with a sliding window
+])
+def test_tensor_core_rounding_fits_reference_bounds(case):
+    """The one numerical change of B2's bf16 variant, rounding P and dS to
+    bf16 before their products, stays inside the reference's bf16 bound
+    against the plain version."""
+    d, causal, window = case[4], case[5], case[6]
+    q, k, v, do = (torch.from_numpy(a).bfloat16() for a in _mha_arrays(case, seed=4))
+    kw = {"scale": d ** -0.5, "causal": causal, "window": window}
+    o, lse = ref.attention_fwd_lse(q, k, v, **kw)
+    dvec = (do.float() * o.float()).sum(-1)
+    got = _tc_dkv_emulation(q, k, v, do, lse, dvec, **kw)
+    want = ref.attention_bwd_dkv(q, k, v, do, lse, dvec, **kw)
+    for name, a, b_ in zip(("dk", "dv"), got, want, strict=True):
+        assert a.dtype == torch.bfloat16 and not torch.equal(a, b_)
+        np.testing.assert_allclose(a.float().numpy(), b_.float().numpy(), err_msg=name,
+                                   atol=2e-2, rtol=2e-2)
 
 
 # --- on the card ----------------------------------------------------------------
@@ -140,8 +175,17 @@ def _card_tol(dtype):
     return TOL if dtype == torch.float32 else {"atol": 2e-2, "rtol": 2e-2}
 
 
+# The card's cases: the reference's shapes, the training shape, head dim 256
+# with a window, and at every head dim ragged Sq and Sk (not multiples of 16
+# or 64): Sq < Sk causal, Sq > Sk bidirectional, and a window.
+CUDA_CASES = BWD_CASES + [TRAIN_CASE, WIDE_CASE] + [
+    c for d in kernel_bwd.HEAD_DIMS
+    for c in ((1, 2, 72, 300, d, True, None), (1, 2, 100, 72, d, False, None),
+              (1, 2, 300, 300, d, True, 100))]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", BWD_CASES + [TRAIN_CASE, WIDE_CASE])
+@pytest.mark.parametrize("case", CUDA_CASES)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_cuda_bwd_kernels_match_plain(case, dtype):
     _need_cuda()
@@ -150,17 +194,36 @@ def test_cuda_bwd_kernels_match_plain(case, dtype):
     q, k, v, do = (torch.from_numpy(a).cuda().to(dtype) for a in _mha_arrays(case, seed=2))
     kw = {"scale": d ** -0.5, "causal": causal, "window": window}
     o, lse = ref.attention_fwd_lse(q, k, v, **kw)
-    before = (kernel_bwd.flash_attention_bwd_dkv.launches,
-              kernel_bwd.flash_attention_bwd_dq.launches)
+    dkv, dq = kernel_bwd.flash_attention_bwd_dkv, kernel_bwd.flash_attention_bwd_dq
+    before = (dkv.launches, dkv.launches_tc, dq.launches)
     got = kernel_bwd.flash_attention_bwd(q, k, v, o, lse, do, **kw)
     torch.cuda.synchronize()
-    assert (kernel_bwd.flash_attention_bwd_dkv.launches,
-            kernel_bwd.flash_attention_bwd_dq.launches) == (before[0] + 1, before[1] + 1)
+    # bf16 runs B2's tensor-core variant, f32 its CUDA-core one
+    assert (dkv.launches, dkv.launches_tc, dq.launches) == (
+        before[0] + 1, before[1] + (dtype == torch.bfloat16), before[2] + 1)
     want = ref.attention_bwd(q, k, v, o, lse, do, **kw)
     for name, a, b_ in zip(("dq", "dk", "dv"), got, want, strict=True):
         assert a.dtype == dtype and a.shape == b_.shape
         np.testing.assert_allclose(a.float().cpu().numpy(), b_.float().cpu().numpy(),
                                    err_msg=name, **_card_tol(dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [TRAIN_CASE, WIDE_CASE, (1, 2, 100, 300, 80, True, None)])
+def test_cuda_bwd_dkv_bf16_is_bit_identical_across_runs(case):
+    """No atomics and a fixed order of every sum: two runs of B2's tensor-core
+    variant give the same bits."""
+    _need_cuda()
+    d, causal, window = case[4], case[5], case[6]
+    q, k, v, do = (torch.from_numpy(a).cuda().bfloat16() for a in _mha_arrays(case, seed=5))
+    kw = {"scale": d ** -0.5, "causal": causal, "window": window}
+    o, lse = ref.attention_fwd_lse(q, k, v, **kw)
+    dvec = (do.float() * o.float()).sum(-1)
+    first, second = (kernel_bwd.flash_attention_bwd_dkv(q, k, v, do, lse, dvec, **kw)
+                     for _ in range(2))
+    torch.cuda.synchronize()
+    for a, b_ in zip(first, second, strict=True):
+        assert torch.equal(a, b_) and torch.isfinite(a.float()).all()
 
 
 @pytest.mark.cuda
