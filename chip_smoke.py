@@ -15,13 +15,16 @@ Phases, in order; any failure raises and the script exits non-zero:
                training shape, and ragged shapes; the backward B2 (dK/dV)
                and B3 (dQ) at the reference gradient shapes, the training
                shape, ragged shapes, a GQA case on several seeds and a
-               D = 256 window case (B1 and B2 in bf16 run their tensor-core
-               variants, in f32 their CUDA-core ones); the recurrences B4
-               (RG-LRU) and B5 (WKV-6) in f32 and bf16 at the reference test
-               shapes, from a nonzero initial state, at T = 1, at the serving
-               prefill and decode shapes, and B5 at extreme decay.  Each check
-               draws its inputs from a generator of its own and prints their
-               hash.
+               D = 256 window case (B1, B2 and B3 in bf16 run their
+               tensor-core variants, in f32 their CUDA-core ones); the
+               recurrences B4 (RG-LRU) and B5 (WKV-6) in f32 and bf16 at the
+               reference test shapes, from a nonzero initial state, at T = 1,
+               at the serving prefill and decode shapes, B5 at a ragged T over
+               several chunks and at extreme decay in both dtypes (bf16 with
+               T > 1 runs B5's two-pass design, T = 1 its step kernel, each
+               checked by its counter).  B2, B3 and B5's two-pass design are
+               bit-identical over two runs.  Each check draws its inputs from
+               a generator of its own and prints their hash.
   4. timing  - each kernel, its plain version and one PyTorch library call
                (CUDA events around queued calls: `ms`, where a wrapper's host
                work counts wherever it outlasts its kernel), and each kernel
@@ -50,13 +53,15 @@ Phases, in order; any failure raises and the script exits non-zero:
                the kernel launch counts of each run, in prefill and in decode,
                are read and checked (B1 once per attention layer in prefill,
                each in the tensor-core variant; B4 / B5 once per recurrent
-               layer in prefill and in every decode step).
+               layer in prefill and in every decode step; every rwkv6-3b
+               prefill call of B5 in the two-pass design, every decode call in
+               the step kernel).
   8. train (the main path) - stablelm-3b at its full published config, bf16,
                full remat, batch 8 x 512, grad_sync "bridge": 1 warm-up step
                and 3 timed steps through `repro_torch.launch.train.train`; the
                launch counts of that run are read and checked (B1 64, B2 32,
-               B3 32 per step; every B1 and B2 launch in the tensor-core
-               variant).
+               B3 32 per step; every B1, B2 and B3 launch in the
+               tensor-core variant).
   9. multi-card - only with two or more cards: torchrun starts min(4, count)
                NCCL ranks (this script with --rank), which run the Bruck, ring
                and Bridge all-reduce against dist.all_reduce, time the shift
@@ -193,6 +198,8 @@ WKV_CASES = [(2, 3, 50, 16, 16, False), (1, 2, 64, 32, 32, False),
 WKV_PREFILL = (4, 40, 512, 64, 64, True)
 WKV_DECODE = (4, 40, 1, 64, 64, True)
 WKV_EXTREME = (1, 1, 64, 16, 16, False)   # log_w = -20 (test_wkv6_extreme_decay_stable)
+# a ragged T over several chunks (64 + 64 + 64 + 8 steps), from s0
+WKV_RAGGED = (1, 4, 200, 64, 64, True)
 # the reference's bounds (tests/test_kernels.py): B4 y and h_last; B5 y (the
 # state, f32 from the same inputs on both sides, at 5e-4 in both dtypes)
 LRU_TOL = {torch.float32: 5e-5, torch.bfloat16: 5e-2}
@@ -492,9 +499,12 @@ def serve_path(arch: str) -> dict:
             for i in range(batch)]
     messages, at_prefill = [], {}
 
+    wkv_at_prefill = {}
+
     def progress(msg):
         if not messages:  # prefill is done (and synchronised): its launches so far
             at_prefill.update(read_launches())
+            wkv_at_prefill.update(read_wkv_variants())
         messages.append(msg)
         print(msg, flush=True)
 
@@ -504,6 +514,7 @@ def serve_path(arch: str) -> dict:
     out = serve_requests(cfg, model, reqs, max_seq=max_seq, progress=progress,
                          device="cuda")
     total = read_launches()
+    wkv_total = read_wkv_variants()
     check_tensor_core_launches(f"serve {arch}")
     peak = torch.cuda.max_memory_allocated()
     launches = {"prefill": at_prefill,
@@ -512,6 +523,15 @@ def serve_path(arch: str) -> dict:
     if launches["prefill"] != want_prefill or launches["decode"] != want_decode:
         raise AssertionError(f"{arch}: launches in the served run {launches}, expected "
                              f"prefill {want_prefill}, decode {want_decode}")
+    # B5 (bf16): every prefill call in the two-pass design, every decode call
+    # (T = 1) in the step kernel
+    wkv = {"prefill": wkv_at_prefill,
+           "decode": {k: wkv_total[k] - wkv_at_prefill[k] for k in WKV_VARIANTS}}
+    want_wkv = {"prefill": {"launches_chunked": want_prefill["wkv6_fwd"], "launches_step": 0},
+                "decode": {"launches_chunked": 0, "launches_step": want_decode["wkv6_fwd"]}}
+    print(f"serve {arch}: B5 designs {wkv}")
+    if wkv != want_wkv:
+        raise AssertionError(f"{arch}: B5 designs in the served run {wkv}, expected {want_wkv}")
     if any(len(out[i]) != new_tokens for i in range(batch)):
         raise AssertionError(f"token budgets not met: {[len(t) for t in out.values()]}")
     gen = torch.tensor([out[i] for i in range(batch)], dtype=torch.int32)
@@ -738,9 +758,10 @@ def check_recurrent_kernels() -> dict:
             raise AssertionError(f"B4 disagrees with its plain version: {line}")
         if case in (LRU_PREFILL, LRU_DECODE) and dtype == PATH_DTYPE["rg_lru_fwd"]:
             errs[("rg_lru_fwd", case)] = max(ey, eh)
-    for case, dtype in [(c, dt) for c in WKV_CASES + [WKV_DECODE, WKV_PREFILL] for dt in dtypes]:
+    for case, dtype in [(c, dt) for c in WKV_CASES + [WKV_DECODE, WKV_PREFILL, WKV_RAGGED]
+                        for dt in dtypes]:
         r, k, v, log_w, u, s0 = wkv_inputs(case, dtype)
-        y, s = wkv_kernel.wkv6_fwd(r, k, v, log_w, u, s0)
+        y, s = wkv_call(r, k, v, log_w, u, s0)
         torch.cuda.synchronize()
         want_y, want_s = wkv_ref.wkv6_scan(r, k, v, torch.exp(log_w.float()), u, s0)
         tol = WKV_TOL[dtype]
@@ -756,21 +777,45 @@ def check_recurrent_kernels() -> dict:
             raise AssertionError(f"B5 disagrees with its plain version: {line}")
         if case in (WKV_PREFILL, WKV_DECODE) and dtype == PATH_DTYPE["wkv6_fwd"]:
             errs[("wkv6_fwd", case)] = max(ey, es)
-    # extreme decay: every step forgets almost all (log_w = -20), f32
-    r, k, v, _, _, _ = wkv_inputs(WKV_EXTREME, torch.float32)
-    log_w = torch.full_like(r, -20.0)
-    u = torch.ones((r.shape[1], r.shape[3]), device="cuda")
-    y, _ = wkv_kernel.wkv6_fwd(r, k, v, log_w, u)
-    torch.cuda.synchronize()
-    want_y, _ = wkv_ref.wkv6_scan(r, k, v, torch.exp(log_w), u)
-    err, ok = max_err(y, want_y, EXTREME_TOL, EXTREME_TOL)
-    line = (f"wkv6 {WKV_EXTREME} f32 log_w = -20 inputs {input_hash(r, k, v)}: y max|err| "
-            f"{err:.3e} (tol {EXTREME_TOL} + {EXTREME_TOL}|want|), finite "
-            f"{bool(torch.isfinite(y).all())}")
-    print(line)
-    if not ok or not torch.isfinite(y).all():
-        raise AssertionError(f"B5 at extreme decay: {line}")
+    # extreme decay: every step forgets almost all (log_w = -20); f32 runs the
+    # first design, bf16 the two-pass one
+    for dtype, tol in ((torch.float32, EXTREME_TOL), (torch.bfloat16, WKV_TOL[torch.bfloat16])):
+        r, k, v, _, _, _ = wkv_inputs(WKV_EXTREME, dtype)
+        log_w = torch.full_like(r, -20.0)
+        u = torch.ones((r.shape[1], r.shape[3]), device="cuda")
+        y, _ = wkv_call(r, k, v, log_w, u)
+        torch.cuda.synchronize()
+        want_y, _ = wkv_ref.wkv6_scan(r, k, v, torch.exp(log_w.float()), u)
+        err, ok = max_err(y, want_y, tol, tol)
+        line = (f"wkv6 {WKV_EXTREME} {str(dtype)[6:]} log_w = -20 inputs {input_hash(r, k, v)}: "
+                f"y max|err| {err:.3e} (tol {tol} + {tol}|want|), finite "
+                f"{bool(torch.isfinite(y).all())}")
+        print(line)
+        if not ok or not torch.isfinite(y).all():
+            raise AssertionError(f"B5 at extreme decay: {line}")
+    # the two-pass design sums in a fixed order: a second run gives the same bits
+    args = wkv_inputs(WKV_PREFILL, torch.bfloat16)
+    first, second = (wkv_kernel.wkv6_fwd(*args) for _ in range(2))
+    if not all(torch.equal(a, b) for a, b in zip(first, second, strict=True)):
+        raise AssertionError("B5's two-pass design differs between two runs on the card")
+    print("wkv6 two-pass design: two runs on the card are bit-identical")
     return errs
+
+
+def wkv_call(r, k, v, log_w, u, s0=None):
+    """B5 through its wrapper, checking by the counters that the design of
+    this dtype and T ran: the step kernel at T = 1, the two-pass design for
+    bf16 above, the first design for f32 above."""
+    fn = wkv_kernel.wkv6_fwd
+    before = (fn.launches, fn.launches_chunked, fn.launches_step)
+    out = fn(r, k, v, log_w, u, s0)
+    step, chunked = r.shape[2] == 1, r.shape[2] > 1 and r.dtype == torch.bfloat16
+    want = (before[0] + 1, before[1] + chunked, before[2] + step)
+    if (fn.launches, fn.launches_chunked, fn.launches_step) != want:
+        raise AssertionError(f"B5 at {tuple(r.shape)} {r.dtype}: (launches, chunked, step) "
+                             f"{(fn.launches, fn.launches_chunked, fn.launches_step)}, "
+                             f"expected {want}")
+    return out
 
 
 def wkv_work(r, v, s0) -> tuple[int, int, int]:
@@ -870,7 +915,9 @@ LAUNCH_COUNTERS = {
 
 
 # the kernels with a tensor-core (bf16) variant, counted apart in launches_tc
-TC_COUNTERS = ("flash_attention_fwd", "flash_attention_bwd_dkv")
+TC_COUNTERS = ("flash_attention_fwd", "flash_attention_bwd_dkv", "flash_attention_bwd_dq")
+# B5's designs, counted apart: the two-pass one (bf16, T > 1) and the T = 1 kernel
+WKV_VARIANTS = ("launches_chunked", "launches_step")
 
 
 def reset_launches() -> None:
@@ -878,6 +925,12 @@ def reset_launches() -> None:
         fn.launches = 0
         if name in TC_COUNTERS:
             fn.launches_tc = 0
+    for key in WKV_VARIANTS:
+        setattr(wkv_kernel.wkv6_fwd, key, 0)
+
+
+def read_wkv_variants() -> dict:
+    return {key: getattr(wkv_kernel.wkv6_fwd, key) for key in WKV_VARIANTS}
 
 
 def read_launches() -> dict:
@@ -885,13 +938,13 @@ def read_launches() -> dict:
 
 
 def check_tensor_core_launches(path: str) -> None:
-    """On a bf16 path every launch of B1 and B2 is of the tensor-core variant."""
+    """On a bf16 path every launch of B1, B2 and B3 is of the tensor-core variant."""
     counts = {name: (LAUNCH_COUNTERS[name].launches, LAUNCH_COUNTERS[name].launches_tc)
               for name in TC_COUNTERS}
     print(f"{path}: (launches, of which tensor-core) {counts}")
     if any(total != tc for total, tc in counts.values()):
-        raise AssertionError(f"{path}: a bf16 launch of B1 or B2 missed the tensor-core "
-                             f"variant: {counts}")
+        raise AssertionError(f"{path}: a bf16 launch of B1, B2 or B3 missed the "
+                             f"tensor-core variant: {counts}")
 
 
 def train_main_path() -> tuple[dict, list[float]]:

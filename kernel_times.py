@@ -6,6 +6,8 @@ Run from the root of a checkout:
     python3 kernel_times.py                        # this checkout's src/
     python3 kernel_times.py --src OTHER/src        # e.g. a parent commit from git archive
     python3 kernel_times.py --edit ko_pv           # a copy with one stage knocked out
+    python3 kernel_times.py --host                 # also the B5 decode wrapper's host parts
+    python3 kernel_times.py --only wkv6_fwd        # one kernel's shapes only
 
 It times, with `chip_smoke.py`'s inputs and timing function, the
 flash-attention forward (B1) at the training shape and the two serving
@@ -20,24 +22,36 @@ Each is the median of three rounds, taken in turns.  `--src` names
 the `src` directory whose `repro_torch` is timed, so that two trees are
 timed by the same code on the same card in one run.  `--edit` applies
 named edits (EDITS) to a copy of that tree's kernel sources under
-build/kernel_times/ and times the copy: knock-outs of one stage of B1's
-bf16 tensor-core loop (their outputs are wrong; only their times mean
-something) and tuning variants.  Prints one line per kernel and shape, the
-card's name and power limit, and a JSON line {"src", "edits", "card",
-"times"}.  Exits non-zero without a CUDA card.
+build/kernel_times/ and times the copy: knock-outs of one stage of B1's bf16
+tensor-core loop, or of one pass or one stage of a pass of B5's two-pass
+design (their outputs are wrong; only their times mean something), and
+tuning variants. Prints one line
+per kernel and shape, the card's name and power limit, and a JSON line
+{"src", "edits", "card", "times", "host_us"}. `--host` also times, on the
+host clock, the parts of the WKV-6 wrapper's work in a decode call (T = 1,
+bf16, chip_smoke's inputs): the whole call, the import and lookup of the
+library, the two output allocations, the two ways to read the current
+stream, and the ctypes call that launches (and, in a tree that sets it on
+every launch, calls cudaFuncSetAttribute), beside the RG-LRU ctypes call,
+which never sets it. Each part is the median of 7 rounds of 200 calls, in
+microseconds a call. Exits non-zero without a CUDA card.
 """
 from __future__ import annotations
 
 import argparse
+import importlib
 import json
 import shutil
 import sys
+import time
 from pathlib import Path
 
 import torch
 
 ROOT = Path(__file__).resolve().parent
 FWD = "kernels/csrc/flash_attention_fwd.cu"
+BWD = "kernels/csrc/flash_attention_bwd.cu"
+WKV = "kernels/csrc/wkv6.cu"
 # name -> [(file under repro_torch/, text, replacement)]; each text must
 # appear exactly once.  ko_* take one stage out of B1's bf16 loop and keep
 # the operands it reads in use, so the compiler keeps the rest.
@@ -60,6 +74,33 @@ EDITS = {
                      "__launch_bounds__(kThreads, 1)")],
     # tuning: 32-key tiles at every head dim
     "k32": [(FWD, "return D > 128 ? 32 : 64;", "return 32;")],
+    # tuning: B3's tensor-core variant asks for the largest shared-memory carveout
+    "dq_carveout": [(BWD, "reinterpret_cast<const void*>(flash_bwd_dq_tc_kernel<D>), "
+                          "static_cast<int>(smem));",
+                     "reinterpret_cast<const void*>(flash_bwd_dq_tc_kernel<D>), "
+                     "static_cast<int>(smem), true);")],
+    # B5's two-pass design with one pass left out (the other's time alone)
+    "ko_wkv_output": [(WKV, "  wkv6_output_kernel<<<", "  if (false) wkv6_output_kernel<<<")],
+    "ko_wkv_state": [(WKV, "  wkv6_state_kernel<<<", "  if (false) wkv6_state_kernel<<<")],
+    # ... and one stage of the state pass left out: the next chunk's copy, the
+    # scan of c, the exps of k~, the update of S
+    "ko_state_load": [(WKV, "    if (c + 1 < n_chunks) load(c + 1);",
+                       "    if (false) load(c + 1);")],
+    "ko_state_scan": [(WKV, "    chunk_cumsum<kStateThreads / kMaxDim>(lb, kMaxDim, ks, kCStride, "
+                            "kLog2e, totals);\n", "")],
+    "ko_state_exp": [(WKV, "__bfloat162float(kb[i]) * tc::ex2(clast[d] - *at)",
+                      "__bfloat162float(kb[i]) * (clast[d] - *at)")],
+    "ko_state_update": [(WKV, "        tc::mma_tf32(S[n], big, b0, b1);\n"
+                              "        tc::mma_tf32(S[n], small, b0, b1);",
+                         "        S[n][0] += __uint_as_float(big[0] ^ small[1] ^ b0 ^ b1);")],
+    # ... or of the output pass: the scan of c, A left of the diagonal
+    # sub-block, the per-element pairs of the diagonal quarters
+    "ko_out_scan": [(WKV, "  chunk_cumsum<kThreads / kMaxDim>(ls, kBStride, cs + kCStride, "
+                          "kCStride, kLog2e, totals);\n", "")],
+    "ko_out_offdiag": [(WKV, "  if (warp > 0) {\n    const float* cref = cs + s * kCStride;",
+                        "  if (false) {\n    const float* cref = cs + s * kCStride;")],
+    "ko_out_diag": [(WKV, "  for (int p = lane; p < 2 * 28; p += 32) {",
+                     "  for (int p = lane; p < 0; p += 32) {")],
 }
 
 
@@ -105,12 +146,67 @@ def cases(cs) -> list:
     return out
 
 
+def host_parts(cs) -> dict:
+    """Microseconds a call of the parts of the WKV-6 wrapper's host work in a
+    decode call, on the host clock (see the module docstring)."""
+    r, k, v, log_w, u, s0 = cs.wkv_inputs(cs.WKV_DECODE, torch.bfloat16)
+    b, h, t, dk = r.shape
+    dv = v.shape[-1]
+    lib = cs._build.library()
+    y = torch.empty((b, h, t, dv), dtype=r.dtype, device=r.device)
+    s_last = torch.empty((b, h, dk, dv), dtype=torch.float32, device=r.device)
+    stream = torch.cuda.current_stream(r.device).cuda_stream
+    ptrs = [x.data_ptr() for x in (r, k, v, log_w, u, s0, y, s_last)]
+    # a library with the two-pass design takes a workspace pointer after s_last
+    workspace = [None] if len(lib.wkv6_fwd.argtypes) == 16 else []
+    a, x, h0 = cs.lru_inputs(cs.LRU_DECODE, torch.float32)
+    ya, ha = torch.empty_like(a), torch.empty_like(h0)
+
+    def library():
+        return importlib.import_module("repro_torch.kernels._build").library()
+
+    parts = {
+        "wrapper call": lambda: cs.wkv_kernel.wkv6_fwd(r, k, v, log_w, u, s0),
+        "import + library()": library,
+        "two torch.empty": lambda: (torch.empty((b, h, t, dv), dtype=r.dtype, device=r.device),
+                                    torch.empty((b, h, dk, dv), dtype=torch.float32,
+                                                device=r.device)),
+        "current_stream(device).cuda_stream": lambda: torch.cuda.current_stream(
+            r.device).cuda_stream,
+        "_cuda_getCurrentRawStream": lambda: torch._C._cuda_getCurrentRawStream(r.device.index),
+        "wkv6 ctypes call (launch)": lambda: lib.wkv6_fwd(
+            *ptrs, *workspace, b * h, h, t, dk, dv, 1, stream),
+        "rg_lru ctypes call (launch, no attribute)": lambda: lib.rg_lru_fwd(
+            a.data_ptr(), x.data_ptr(), h0.data_ptr(), ya.data_ptr(), ha.data_ptr(),
+            a.shape[0], a.shape[1], a.shape[2], 0, stream),
+    }
+    rounds = {name: [] for name in parts}
+    for _ in range(7):
+        for name, fn in parts.items():
+            fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter_ns()
+            for _ in range(200):
+                fn()
+            rounds[name].append((time.perf_counter_ns() - t0) / 200 / 1e3)
+            torch.cuda.synchronize()
+    out = {name: sorted(v)[3] for name, v in rounds.items()}
+    for name, us in out.items():
+        print(f"wkv6 decode host part {name}: {us:.3f} us a call "
+              f"(rounds {min(rounds[name]):.3f}-{max(rounds[name]):.3f})")
+    return out
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--src", default=str(ROOT / "src"),
                         help="the src directory whose repro_torch is timed")
     parser.add_argument("--edit", action="append", default=[], choices=sorted(EDITS),
                         help="an edit of the kernel sources (repeatable)")
+    parser.add_argument("--only", action="append", default=[],
+                        help="time only this kernel (repeatable; default: all)")
+    parser.add_argument("--host", action="store_true",
+                        help="also time the parts of the WKV-6 decode wrapper's host work")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("kernel_times: no CUDA device; this script runs only on the card")
@@ -128,7 +224,7 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     cs._build.library()
     runs: dict = {}
-    timed = cases(cs)
+    timed = [case for case in cases(cs) if not args.only or case[0] in args.only]
     for _ in range(3):
         for i, (_, _, fn) in enumerate(timed):
             for key, hold in (("ms", False), ("device_ms", True)):
@@ -139,9 +235,11 @@ def main() -> None:
                  **{key: sorted(runs[(i, key)])[1] for key in ("ms", "device_ms")}}
         times.append(entry)
         print(f"{name} {shape}: ms {entry['ms']:.4f} device_ms {entry['device_ms']:.4f}")
+    host_us = host_parts(cs) if args.host else None
     card = cs.nvidia_smi()
     print(card)
-    print(json.dumps({"src": str(src), "edits": args.edit, "card": card, "times": times}))
+    print(json.dumps({"src": str(src), "edits": args.edit, "card": card, "times": times,
+                      "host_us": host_us}))
 
 
 if __name__ == "__main__":

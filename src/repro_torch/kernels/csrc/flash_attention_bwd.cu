@@ -2,10 +2,13 @@
 //
 // Two kernels replace the two TPU kernels of
 // src/repro/kernels/flash_attention/kernel_bwd.py, which
-// `flash_attention_bwd` launches there:
+// `flash_attention_bwd` launches there, each in two variants chosen by the
+// inputs' dtype (never by failure): bf16 (the trained model's type) on the
+// tensor cores, f32 (the card-vs-CPU parity checks) on the CUDA cores.
 //   flash_bwd_dkv_tc_kernel (bf16), flash_bwd_dkv_kernel (f32)
 //                         <- _bwd_dkv_kernel  (dK, dV for one key tile)
-//   flash_bwd_dq_kernel   <- _bwd_dq_kernel   (dQ for one query tile)
+//   flash_bwd_dq_tc_kernel (bf16), flash_bwd_dq_kernel (f32)
+//                         <- _bwd_dq_kernel   (dQ for one query tile)
 // Both take the MHA layout (B*H, S, D): GQA expansion of K/V and the group
 // sum of dK/dV stay in the op (kernels/flash_attention/ops.py), as in the
 // JAX package.  With the logsumexp L saved by the forward and
@@ -15,20 +18,15 @@
 //   dS_ij = P_ij (dO_i . v_j - D_i) scale
 //   dK_j  = sum_i dS_ij q_i        dQ_i = sum_j dS_ij k_j
 //
-// Two variants of the dK/dV kernel, chosen by the inputs' dtype (never by
-// failure): bf16 (the trained model's type) runs flash_bwd_dkv_tc_kernel on
-// the tensor cores; f32 (the card-vs-CPU parity checks) runs
-// flash_bwd_dkv_kernel on the CUDA cores.  The dQ kernel has the CUDA-core
-// design for both dtypes.
-//
 // What bounds them on the H100.  At the training shape (B*H = 256, S = 512,
 // D = 80, causal, bf16) the dK/dV kernel needs 8 D FLOPs per live (query,
 // key) pair, 21.5 GFLOP, against ~127 MB of inputs and outputs: 0.038 ms at
 // 3.35 TB/s, so the bytes bound it, while the FLOPs take 0.022 ms at the
 // tensor cores' 989 TFLOP/s and at least 0.32 ms on the CUDA cores (67
-// TFLOP/s in f32), which is why its bf16 variant runs on the tensor cores.
+// TFLOP/s in f32), which is why the bf16 variants run on the tensor cores.
+// The dQ kernel needs 6 D FLOPs a pair (16.1 GFLOP) against ~106 MB: 0.032
+// ms of bytes against 0.016 ms of tensor-core FLOPs.
 // `mma.sync` rather than `wgmma`: see flash_attention_fwd.cu.
-// The dQ kernel needs 6 D FLOPs a pair against ~106 MB.
 //
 // dK/dV, bf16 design (tensor cores, after FlashAttention-2).  One CTA per
 // (b*h, 64-key tile), 4 warps, each owning 16 keys; under a causal mask the
@@ -54,28 +52,53 @@
 // numerical difference from the TPU kernel, which multiplies them in f32.
 // Shared memory: K, V and two stages of Q and dO tiles, (2 * 64 + 4 * 32) x
 // (D + 8) bf16, and 128 floats: 45 KB at D = 80 and 133 KB at D = 256.
-// Inputs must be 16-byte aligned (the wrapper checks).
 //
-// f32 variant of dK/dV and the dQ kernel (the first design of the port,
-// unchanged).  8 warps per CTA.  A CTA owns a tile of rows (64, or 32 at
-// D = 256 so that shared memory stays under the 227 KB a block can have): the
-// dK/dV kernel owns key rows and loops over the query tiles the mask leaves
-// live; the dQ kernel owns query rows and loops over the live key tiles.  The
-// TPU kernels' pl.when tile skipping becomes those loop bounds, taken from
-// causal, window and off = sk - sq.  Each warp owns R = rows / 8 of the owned
-// rows, and its lanes own output columns lane + 32 c (so head dim 80 needs no
-// padding), accumulating in f32 registers.  The streamed tile is 64 rows
-// wide, lane j taking rows j and j + 32; its rows are stored in shared
-// memory padded to D + 1 floats so that a warp reading one column hits 32
-// banks.  Scores, P and dS of the owned rows against the streamed rows stay
-// in registers and reach the products by warp shuffles.  Masked pairs,
-// pairs past the ragged edges and rows that are masked throughout give P = 0,
-// hence no gradient, as the TPU kernels' jnp.where(mask, exp, 0) does.  The
-// sums over the streamed tiles run in a fixed order in f32.
+// dQ, bf16 design (tensor cores, the forward's loop).  One CTA per (b*h,
+// 64-query tile), 4 warps of 16 query rows; under a causal mask the query
+// tiles run last to first, so the heaviest start first.  Q and dO of the
+// CTA's rows are copied into shared memory once and read by ldmatrix as A
+// operands; lse and dvec of a lane's two rows are held in registers.  The CTA
+// loops over the live key tiles (64 keys, 32 at D = 256, where the 16 x 256
+// f32 dQ accumulator takes 128 registers), K and V double-buffered with
+// cp.async, rows padded to D + 8 elements; the loop bounds and the
+// per-element masks of cut tiles are the forward's.  Per warp and key tile,
+// with mma.m16n8k16.bf16 into f32:
+//   S = Q K^T and dP = dO V^T  (K and V as B operands by ldmatrix);
+//   P = 2^(S scale log2e - lse log2e), 0 where masked;  dS = P (dP - dvec) scale;
+//   dQ += dS K  (dS rounded to bf16 in registers as the A operand, K by ldmatrix.trans).
+// dQ is not folded into the dK/dV kernel with atomicAdd, as FlashAttention-2
+// does: warp-local products and a fixed order of every sum give the same bits
+// on every run.  Rounding dS to bf16 before dS K is the one numerical
+// difference from the TPU kernel.  Shared memory: Q and dO tiles and two
+// stages of K and V tiles, (2 * 64 + 4 * 64) x (D + 8) bf16 = 66 KB at D = 80,
+// (2 * 64 + 4 * 32) x 264 = 132 KB at D = 256.  Up to D = 80 it is held to 170
+// registers: three CTAs an SM.  Inputs must be 16-byte aligned (the wrapper
+// checks).
+//
+// f32 variants (the first design of the port, unchanged).  8 warps per CTA.
+// A CTA owns a tile of rows (64, or 32 at D = 256 so that shared memory stays
+// under the 227 KB a block can have): the dK/dV kernel owns key rows and
+// loops over the query tiles the mask leaves live; the dQ kernel owns query
+// rows and loops over the live key tiles.  The TPU kernels' pl.when tile
+// skipping becomes those loop bounds, taken from causal, window and
+// off = sk - sq.  Each warp owns R = rows / 8 of the owned rows, and its
+// lanes own output columns lane + 32 c (so head dim 80 needs no padding),
+// accumulating in f32 registers.  The streamed tile is 64 rows wide, lane j
+// taking rows j and j + 32; its rows are stored in shared memory padded to
+// D + 1 floats so that a warp reading one column hits 32 banks.  Scores, P
+// and dS of the owned rows against the streamed rows stay in registers and
+// reach the products by warp shuffles.  Masked pairs, pairs past the ragged
+// edges and rows that are masked throughout give P = 0, hence no gradient,
+// as the TPU kernels' jnp.where(mask, exp, 0) does.  The sums over the
+// streamed tiles run in a fixed order in f32.
+//
+// Each launcher raises its kernel's dynamic shared-memory limit once per
+// device (launch.cuh), not on every launch.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "launch.cuh"
 #include "tensor_core.cuh"
 
 namespace {
@@ -84,15 +107,6 @@ constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
 constexpr int kStream = 64;  // rows of the streamed tile: two per lane
 constexpr unsigned kFull = 0xffffffffu;
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T from_float(float x);
-template <> __device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 // Rows owned by one CTA: 64, or 32 at D = 256 to fit shared memory.
 template <int D>
@@ -113,15 +127,15 @@ __device__ __forceinline__ bool live_pair(int qpos, int kpos, int sq, int sk, in
   return live;
 }
 
-// Loads rows [r0, r0 + rows) of a (S, D) matrix as f32, zero past `s`, with
-// row stride `stride` in shared memory.
-template <typename T, int D>
-__device__ __forceinline__ void load_rows(float* dst, const T* src, int r0, int rows, int s,
+// Loads rows [r0, r0 + rows) of a (S, D) matrix, zero past `s`, with row
+// stride `stride` in shared memory.
+template <int D>
+__device__ __forceinline__ void load_rows(float* dst, const float* src, int r0, int rows, int s,
                                           int stride) {
   for (int i = threadIdx.x; i < rows * D; i += kThreads) {
     const int r = i / D;
     const int c = i - r * D;
-    dst[r * stride + c] = r0 + r < s ? to_float(src[static_cast<int64_t>(r0) * D + i]) : 0.f;
+    dst[r * stride + c] = r0 + r < s ? src[static_cast<int64_t>(r0) * D + i] : 0.f;
   }
 }
 
@@ -155,8 +169,8 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int lane = threadIdx.x % 32;
   const int row0 = (threadIdx.x / 32) * R;
 
-  load_rows<float, D>(k_s, k + static_cast<int64_t>(bh) * sk * D, k0, BK, sk, D);
-  load_rows<float, D>(v_s, v + static_cast<int64_t>(bh) * sk * D, k0, BK, sk, D);
+  load_rows<D>(k_s, k + static_cast<int64_t>(bh) * sk * D, k0, BK, sk, D);
+  load_rows<D>(v_s, v + static_cast<int64_t>(bh) * sk * D, k0, BK, sk, D);
 
   // Queries that attend some key of this tile: [q_lo, q_hi).
   const int k_last = min(k0 + BK, sk) - 1;
@@ -175,8 +189,8 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int qt_begin = q_lo < q_hi ? (q_lo / kStream) * kStream : q_hi;
   for (int qt = qt_begin; qt < q_hi; qt += kStream) {
     __syncthreads();  // K/V written; the previous query tile consumed
-    load_rows<float, D>(q_s, q_g, qt, kStream, sq, P);
-    load_rows<float, D>(do_s, do_g, qt, kStream, sq, P);
+    load_rows<D>(q_s, q_g, qt, kStream, sq, P);
+    load_rows<D>(do_s, do_g, qt, kStream, sq, P);
     for (int i = threadIdx.x; i < kStream; i += kThreads) {
       const bool in = qt + i < sq;
       lse_s[i] = in ? lse_g[qt + i] : 0.f;
@@ -260,13 +274,14 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-// dQ of one query tile.  grid = (ceil(sq / BQ), B*H).
-template <typename T, int D>
+// dQ of one query tile, f32.  grid = (ceil(sq / BQ), B*H).
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                    const T* __restrict__ dout, const float* __restrict__ lse,
-                    const float* __restrict__ dvec, T* __restrict__ dq, int sq, int sk,
-                    float scale, bool causal, bool use_window, int window) {
+flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, const float* __restrict__ dout,
+                    const float* __restrict__ lse, const float* __restrict__ dvec,
+                    float* __restrict__ dq, int sq, int sk, float scale, bool causal,
+                    bool use_window, int window) {
   constexpr int BQ = owned_rows<D>();
   constexpr int R = BQ / kWarps;       // query rows per warp
   constexpr int P = D + 1;
@@ -279,14 +294,14 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
 
   const int bh = blockIdx.y;
   const int q0 = blockIdx.x * BQ;
-  const T* k_g = k + static_cast<int64_t>(bh) * sk * D;
-  const T* v_g = v + static_cast<int64_t>(bh) * sk * D;
+  const float* k_g = k + static_cast<int64_t>(bh) * sk * D;
+  const float* v_g = v + static_cast<int64_t>(bh) * sk * D;
   const int off = sk - sq;
   const int lane = threadIdx.x % 32;
   const int row0 = (threadIdx.x / 32) * R;
 
-  load_rows<T, D>(q_s, q + static_cast<int64_t>(bh) * sq * D, q0, BQ, sq, D);
-  load_rows<T, D>(do_s, dout + static_cast<int64_t>(bh) * sq * D, q0, BQ, sq, D);
+  load_rows<D>(q_s, q + static_cast<int64_t>(bh) * sq * D, q0, BQ, sq, D);
+  load_rows<D>(do_s, dout + static_cast<int64_t>(bh) * sq * D, q0, BQ, sq, D);
   float lse_r[R], dvec_r[R];
 #pragma unroll
   for (int i = 0; i < R; ++i) {
@@ -313,8 +328,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   const int kt_begin = k_lo < k_hi ? (k_lo / kStream) * kStream : k_hi;
   for (int kt = kt_begin; kt < k_hi; kt += kStream) {
     __syncthreads();  // Q/dO written; the previous key tile consumed
-    load_rows<T, D>(k_s, k_g, kt, kStream, sk, P);
-    load_rows<T, D>(v_s, v_g, kt, kStream, sk, P);
+    load_rows<D>(k_s, k_g, kt, kStream, sk, P);
+    load_rows<D>(v_s, v_g, kt, kStream, sk, P);
     __syncthreads();
 
     // s[i][h], dp[i][h]: query row0 + i against key kt + lane + 32 h.
@@ -378,7 +393,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
 #pragma unroll
     for (int c = 0; c < C; ++c) {
       const int col = lane + 32 * c;
-      if (col < D) dq[base + col] = from_float<T>(dq_acc[i][c]);
+      if (col < D) dq[base + col] = dq_acc[i][c];
     }
   }
 }
@@ -396,12 +411,14 @@ struct Args {
   cudaStream_t stream;
 };
 
-// The f32 dK/dV kernel's launch (bf16::launch_dkv launches the bf16 one).
+// The f32 kernels' launches (bf16::launch_dkv and bf16::launch_dq launch the
+// bf16 ones).
 template <int D>
 cudaError_t launch_dkv(const Args& a, void* dk, void* dv) {
-  const size_t smem = sizeof(float) * smem_floats<D>();
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  constexpr size_t smem = sizeof(float) * smem_floats<D>();
+  static std::atomic<unsigned long long> smem_set{0};
+  cudaError_t err = launch::max_dynamic_smem_once(
+      smem_set, reinterpret_cast<const void*>(flash_bwd_dkv_kernel<D>), static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const dim3 grid((a.sk + owned_rows<D>() - 1) / owned_rows<D>(), a.bh);
   flash_bwd_dkv_kernel<D><<<grid, kThreads, smem, a.stream>>>(
@@ -412,17 +429,18 @@ cudaError_t launch_dkv(const Args& a, void* dk, void* dv) {
   return cudaGetLastError();
 }
 
-template <typename T, int D>
+template <int D>
 cudaError_t launch_dq(const Args& a, void* dq) {
-  const size_t smem = sizeof(float) * smem_floats<D>();
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dq_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  constexpr size_t smem = sizeof(float) * smem_floats<D>();
+  static std::atomic<unsigned long long> smem_set{0};
+  cudaError_t err = launch::max_dynamic_smem_once(
+      smem_set, reinterpret_cast<const void*>(flash_bwd_dq_kernel<D>), static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const dim3 grid((a.sq + owned_rows<D>() - 1) / owned_rows<D>(), a.bh);
-  flash_bwd_dq_kernel<T, D><<<grid, kThreads, smem, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-      static_cast<const T*>(a.dout), a.lse, a.dvec, static_cast<T*>(dq), a.sq, a.sk, a.scale,
-      a.causal != 0, a.use_window != 0, a.window);
+  flash_bwd_dq_kernel<D><<<grid, kThreads, smem, a.stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<const float*>(a.dout), a.lse, a.dvec,
+      static_cast<float*>(dq), a.sq, a.sk, a.scale, a.causal != 0, a.use_window != 0, a.window);
   return cudaGetLastError();
 }
 
@@ -438,12 +456,7 @@ cudaError_t launch_dq(const Args& a, void* dq) {
     default: return cudaErrorInvalidValue;                       \
   }
 
-template <typename T>
-cudaError_t dq(const Args& a, int d, void* out) {
-  DISPATCH_HEAD_DIM(d, launch_dq<T, D>(a, out))
-}
-
-// ---- dK/dV, bf16 variant: tensor cores ----------------------------------------
+// ---- dK/dV and dQ, bf16 variants: tensor cores ---------------------------------
 
 namespace bf16 {
 
@@ -700,9 +713,9 @@ flash_bwd_dkv_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
 template <int D>
 cudaError_t launch_dkv(const Args& a, void* dk, void* dv) {
   constexpr size_t smem = smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkv_tc_kernel<D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
+  static std::atomic<unsigned long long> smem_set{0};
+  cudaError_t err = launch::max_dynamic_smem_once(
+      smem_set, reinterpret_cast<const void*>(flash_bwd_dkv_tc_kernel<D>), static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const dim3 grid(a.bh, (a.sk + kBlockK - 1) / kBlockK);
   flash_bwd_dkv_tc_kernel<D><<<grid, kThreads, smem, a.stream>>>(
@@ -712,11 +725,218 @@ cudaError_t launch_dkv(const Args& a, void* dk, void* dv) {
   return cudaGetLastError();
 }
 
+
+// ---- dQ --------------------------------------------------------------------------
+
+constexpr int kDqRows = 16 * kWarps;  // query rows of a CTA: 16 per warp
+
+// Keys per streamed tile: 64, or 32 at D = 256, where the 16 x 256 f32 dQ
+// accumulator takes 128 registers of a thread.
+template <int D>
+__host__ __device__ constexpr int dq_block_k() { return D > 128 ? 32 : 64; }
+
+// Q and dO tiles, then two stages of (K tile, V tile), rows padded to D + 8.
+template <int D>
+constexpr size_t dq_smem_bytes() {
+  return sizeof(T) * static_cast<size_t>((2 * kDqRows + 4 * dq_block_k<D>()) * (D + 8));
+}
+
+// dQ of one 64-query tile.  grid = (B*H, ceil(sq / 64)); under a causal mask
+// blockIdx.y runs the query tiles last to first.  Up to D = 80 the kernel is
+// held to 170 registers: three CTAs (12 warps) an SM.
+template <int D>
+__global__ void __launch_bounds__(kThreads, D <= 80 ? 3 : 1)
+flash_bwd_dq_tc_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                       const T* __restrict__ dout, const float* __restrict__ lse,
+                       const float* __restrict__ dvec, T* __restrict__ dq, int sq, int sk,
+                       float scale, bool causal, bool use_window, int window) {
+  constexpr int kBlockKeys = dq_block_k<D>();
+  constexpr int kStride = D + 8;             // padded row: ldmatrix reads hit 32 banks
+  constexpr int kTile = kBlockKeys * kStride;
+  constexpr int kSlices = D / 16;            // k-slices of Q K^T, pairs of dQ n-tiles
+  constexpr int kKeyTiles = kBlockKeys / 8;  // n-tiles of S
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* q_s = reinterpret_cast<T*>(smem);
+  T* do_s = q_s + kDqRows * kStride;
+  T* k_s = do_s + kDqRows * kStride;         // stage s at k_s + 2 s kTile
+  T* v_s = k_s + kTile;                      // stage s at v_s + 2 s kTile
+
+  const int64_t bh = blockIdx.x;
+  // under a causal mask the last query tiles have the most keys: they start first
+  const int tile = causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
+  const int q0 = tile * kDqRows;
+  const T* q_g = q + bh * sq * D;
+  const T* k_g = k + bh * sk * D;
+  const T* v_g = v + bh * sk * D;
+  const T* do_g = dout + bh * sq * D;
+  const int off = sk - sq;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4;                    // fragment row (and row + 8)
+  const int t4 = lane % 4;                   // fragment column pair
+  const int wrow = warp * 16;                // this warp's first row in the tile
+  const float scale_log2 = scale * kLog2e;
+
+  // Keys that some query of this tile attends: [k_lo, k_hi).
+  const int q_last = min(q0 + kDqRows, sq) - 1;
+  int k_lo = 0;
+  int k_hi = sk;
+  if (causal) k_hi = min(k_hi, q_last + off + 1);
+  if (use_window) k_lo = max(k_lo, q0 + off - window + 1);
+  const int kt_begin = k_lo < k_hi ? (k_lo / kBlockKeys) * kBlockKeys : k_hi;
+  const int n_tiles = (k_hi - kt_begin + kBlockKeys - 1) / kBlockKeys;
+
+  if (n_tiles > 0) {
+    tc::load_tile_async<D, kDqRows, kThreads>(q_s, q_g, q0, sq);
+    tc::load_tile_async<D, kDqRows, kThreads>(do_s, do_g, q0, sq);
+    tc::load_tile_async<D, kBlockKeys, kThreads>(k_s, k_g, kt_begin, sk);
+    tc::load_tile_async<D, kBlockKeys, kThreads>(v_s, v_g, kt_begin, sk);
+    tc::cp_async_commit();
+  }
+
+  // lse (in log2 units) and dvec of rows g and g + 8
+  float lse2[2], dvec_r[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qpos = q0 + wrow + g + 8 * r;
+    const bool in = qpos < sq;
+    lse2[r] = in ? lse[bh * sq + qpos] * kLog2e : 0.f;
+    dvec_r[r] = in ? dvec[bh * sq + qpos] : 0.f;
+  }
+  float acc[2 * kSlices][4];                 // dQ rows g, g + 8; 8 columns per n-tile
+#pragma unroll
+  for (int j = 0; j < 2 * kSlices; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+  const bool warp_live = q0 + wrow < sq;     // some row of this warp is a query
+  const T* q_frag = q_s + (wrow + lane % 16) * kStride + (lane / 16) * 8;
+  const T* do_frag = do_s + (wrow + lane % 16) * kStride + (lane / 16) * 8;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int kt = kt_begin + t * kBlockKeys;
+    const int stage = t & 1;
+    if (t + 1 < n_tiles) {  // the next tile's copy flies while this one is computed
+      tc::load_tile_async<D, kBlockKeys, kThreads>(k_s + 2 * (stage ^ 1) * kTile, k_g,
+                                                   kt + kBlockKeys, sk);
+      tc::load_tile_async<D, kBlockKeys, kThreads>(v_s + 2 * (stage ^ 1) * kTile, v_g,
+                                                   kt + kBlockKeys, sk);
+      tc::cp_async_commit();
+      tc::cp_async_wait<1>();
+    } else {
+      tc::cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (warp_live) {
+      const T* ks = k_s + 2 * stage * kTile;
+      const T* vs = v_s + 2 * stage * kTile;
+      // S = Q K^T and dP = dO V^T: 16 rows x kBlockKeys keys, n-tile j holds
+      // keys kt + 8 j ..
+      float s[kKeyTiles][4], dp[kKeyTiles][4];
+#pragma unroll
+      for (int j = 0; j < kKeyTiles; ++j) {
+        s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+        dp[j][0] = dp[j][1] = dp[j][2] = dp[j][3] = 0.f;
+      }
+#pragma unroll
+      for (int kk = 0; kk < kSlices; ++kk) {
+        uint32_t a[4];
+        tc::ldmatrix_x4(a, q_frag + kk * 16);
+#pragma unroll
+        for (int np = 0; np < kKeyTiles / 2; ++np) {  // keys 16 np .. 16 np + 15
+          const int b_off = (np * 16 + lane % 8 + (lane / 16) * 8) * kStride + kk * 16 +
+                            ((lane / 8) % 2) * 8;
+          uint32_t b[4];
+          tc::ldmatrix_x4(b, ks + b_off);
+          tc::mma_bf16(s[2 * np], a, b[0], b[1]);
+          tc::mma_bf16(s[2 * np + 1], a, b[2], b[3]);
+        }
+        tc::ldmatrix_x4(a, do_frag + kk * 16);
+#pragma unroll
+        for (int np = 0; np < kKeyTiles / 2; ++np) {
+          const int b_off = (np * 16 + lane % 8 + (lane / 16) * 8) * kStride + kk * 16 +
+                            ((lane / 8) % 2) * 8;
+          uint32_t b[4];
+          tc::ldmatrix_x4(b, vs + b_off);
+          tc::mma_bf16(dp[2 * np], a, b[0], b[1]);
+          tc::mma_bf16(dp[2 * np + 1], a, b[2], b[3]);
+        }
+      }
+      // P = 2^(S scale log2e - lse log2e), 0 where masked (per element, only
+      // on a tile that the mask or a ragged edge cuts, as in the forward);
+      // s <- dS = P (dP - dvec) scale
+      const bool cut = kt + kBlockKeys > sk || (causal && kt + kBlockKeys - 1 > q0 + off) ||
+                       (use_window && kt <= q0 + kDqRows - 1 + off - window);
+#pragma unroll
+      for (int j = 0; j < kKeyTiles; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          bool live = true;
+          if (cut) {
+            const int qpos = q0 + wrow + g + 8 * (e / 2);
+            const int kpos = kt + 8 * j + 2 * t4 + (e % 2);
+            live = kpos < sk;
+            if (causal) live = live && kpos <= qpos + off;
+            if (use_window) live = live && kpos > qpos + off - window;
+          }
+          const float p = live ? tc::ex2(fmaf(s[j][e], scale_log2, -lse2[e / 2])) : 0.f;
+          s[j][e] = p * (dp[j][e] - dvec_r[e / 2]) * scale;
+        }
+      }
+      // dQ += dS K: dS rounded to bf16 in registers is the A operand; K
+      // through ldmatrix.trans
+#pragma unroll
+      for (int kk = 0; kk < kKeyTiles / 2; ++kk) {  // keys 16 kk .. 16 kk + 15
+        uint32_t a[4];
+        tc::c_to_a(a, s[2 * kk], s[2 * kk + 1]);
+#pragma unroll
+        for (int dc = 0; dc < kSlices; ++dc) {  // columns 16 dc .. 16 dc + 15
+          uint32_t b[4];
+          tc::ldmatrix_x4_trans(b, ks + (kk * 16 + lane % 8 + ((lane / 8) % 2) * 8) * kStride +
+                                       dc * 16 + (lane / 16) * 8);
+          tc::mma_bf16(acc[2 * dc], a, b[0], b[1]);
+          tc::mma_bf16(acc[2 * dc + 1], a, b[2], b[3]);
+        }
+      }
+    }
+    __syncthreads();  // this stage is read out before the copy after next overwrites it
+  }
+
+  // every row of the tile is written, zeros where no key is live
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qpos = q0 + wrow + g + 8 * r;
+    if (qpos >= sq) continue;
+    T* dq_row = dq + (bh * sq + qpos) * D + 2 * t4;
+#pragma unroll
+    for (int j = 0; j < 2 * kSlices; ++j) {
+      *reinterpret_cast<__nv_bfloat162*>(dq_row + 8 * j) =
+          __floats2bfloat162_rn(acc[j][2 * r], acc[j][2 * r + 1]);
+    }
+  }
+}
+
+template <int D>
+cudaError_t launch_dq(const Args& a, void* dq) {
+  constexpr size_t smem = dq_smem_bytes<D>();
+  static std::atomic<unsigned long long> smem_set{0};
+  cudaError_t err = launch::max_dynamic_smem_once(
+      smem_set, reinterpret_cast<const void*>(flash_bwd_dq_tc_kernel<D>), static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const dim3 grid(a.bh, (a.sq + kDqRows - 1) / kDqRows);
+  flash_bwd_dq_tc_kernel<D><<<grid, kThreads, smem, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
+      static_cast<const T*>(a.dout), a.lse, a.dvec, static_cast<T*>(dq), a.sq, a.sk, a.scale,
+      a.causal != 0, a.use_window != 0, a.window);
+  return cudaGetLastError();
+}
+
 }  // namespace bf16
 
-// dK, dV of the variant of the inputs' dtype at the runtime head dim d.
+// dK, dV and dQ of the variant of the inputs' dtype at the runtime head dim d.
 cudaError_t dkv(const Args& a, int d, int is_bf16, void* dk, void* dv) {
   DISPATCH_HEAD_DIM(d, is_bf16 ? bf16::launch_dkv<D>(a, dk, dv) : launch_dkv<D>(a, dk, dv))
+}
+
+cudaError_t dq(const Args& a, int d, int is_bf16, void* out) {
+  DISPATCH_HEAD_DIM(d, is_bf16 ? bf16::launch_dq<D>(a, out) : launch_dq<D>(a, out))
 }
 
 }  // namespace
@@ -742,5 +962,5 @@ extern "C" int flash_attention_bwd_dq(const void* q, const void* k, const void* 
                                       void* stream) {
   const Args a{q, k, v, dout, static_cast<const float*>(lse), static_cast<const float*>(dvec),
                bh, sq, sk, scale, causal, use_window, window, static_cast<cudaStream_t>(stream)};
-  return is_bf16 ? dq<__nv_bfloat16>(a, d, dq_out) : dq<float>(a, d, dq_out);
+  return dq(a, d, is_bf16, dq_out);
 }

@@ -1,6 +1,7 @@
-// Tensor-core building blocks for the bf16 flash-attention kernels (sm_90a):
-// `mma.sync` m16n8k16 with f32 accumulation, `ldmatrix` from shared memory,
-// and 16-byte `cp.async` copies from device to shared memory.
+// Tensor-core building blocks for the port's kernels (sm_90a): `mma.sync`
+// m16n8k16 on bf16 and m16n8k8 on TF32, both with f32 accumulation,
+// `ldmatrix` from shared memory, and 16-byte `cp.async` copies from device to
+// shared memory.
 //
 // Fragment layout of mma.m16n8k16 (lane = 4 g + t, g = lane / 4, t = lane % 4):
 //   A (16 x 16, row-major), 4 registers of two bf16: a0 (g, 2t..2t+1),
@@ -10,6 +11,13 @@
 // So the C fragments of two neighbouring n-tiles, rounded to bf16 and packed
 // in pairs, are the A fragment of one 16-wide k-slice: a score tile never has
 // to leave the registers to become the left operand of the next product.
+//
+// Fragment layout of mma.m16n8k8 on TF32 (one 32-bit value a register):
+//   A (16 x 8, row-major): a0 (g, t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4);
+//   B (8 x 8, k x n, "col"): b0 (k t, n g), b1 (k t + 4, n g);
+//   C (16 x 8 f32): as above.
+// TF32 keeps 10 bits of mantissa: a bf16 value is exact in it, an f32 value
+// is rounded (to_tf32) before it enters the product.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -70,6 +78,25 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], 
       "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a b for one m16n8k8 tile, TF32 operands (as 32-bit patterns), f32
+// accumulation.
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// An f32 value rounded to TF32, to nearest with ties away from zero, as the
+// 32-bit pattern an mma_tf32 operand takes.
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  uint32_t y;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(y) : "f"(x));
+  return y;
 }
 
 // 2^x on the special-function unit, subnormal results flushed to zero (a

@@ -10,13 +10,13 @@ function.  There is no fallback from one to the other.
 D = rowsum(dO o O) is a reduction outside the kernels, as in the JAX package
 (`kernel_bwd.py:163` there); here it is one torch op.
 
-The dK/dV kernel has two variants, picked by the inputs' dtype.  bf16 inputs
-run on the tensor cores: P and dS are rounded to bf16 before the dV = P^T dO
-and dK = dS^T Q products, whose sums stay in f32.  That rounding is the one
-numerical difference from the TPU kernel and from the plain version, which
-multiply them in f32.  f32 inputs run the CUDA-core variant, all in f32, as
-the dQ kernel does for both dtypes.  `launches` counts every launch of a
-wrapper, `flash_attention_bwd_dkv.launches_tc` the tensor-core ones.
+Each kernel has two variants, picked by the inputs' dtype.  bf16 inputs run
+on the tensor cores: P and dS are rounded to bf16 before the dV = P^T dO and
+dK = dS^T Q products, and dS before the dQ = dS K product, whose sums stay in
+f32.  That rounding is the one numerical difference from the TPU kernels and
+from the plain versions, which multiply them in f32.  f32 inputs run the
+CUDA-core variants, all in f32.  `launches` counts every launch of a wrapper,
+`launches_tc` the tensor-core ones.
 """
 from __future__ import annotations
 
@@ -89,6 +89,7 @@ def flash_attention_bwd_dq(q, k, v, do, lse, dvec, *, scale: float,
         return ref.attention_bwd_dq(q, k, v, do, lse, dvec, scale=scale,
                                     causal=causal, window=window)
     _check(q, k, v, do, lse, dvec)
+    check_aligned(q, k, v, do)
     from .._build import library  # builds with nvcc on first use
 
     dq = torch.empty_like(q)
@@ -98,12 +99,14 @@ def flash_attention_bwd_dq(q, k, v, do, lse, dvec, *, scale: float,
     if err:
         raise RuntimeError(f"flash_attention_bwd_dq launch failed: cudaError {err}")
     flash_attention_bwd_dq.launches += 1
+    flash_attention_bwd_dq.launches_tc += q.dtype == torch.bfloat16
     return dq
 
 
 flash_attention_bwd_dkv.launches = 0     # kernel launches; never counts a CPU call
 flash_attention_bwd_dkv.launches_tc = 0  # of which the tensor-core (bf16) variant
 flash_attention_bwd_dq.launches = 0
+flash_attention_bwd_dq.launches_tc = 0   # of which the tensor-core (bf16) variant
 
 
 def flash_attention_bwd(q, k, v, o, lse, do, *, scale: float, causal: bool,

@@ -12,9 +12,10 @@ card and skip without one; they import no JAX.  f32 is held at the same
 1e-4.  bf16 is held at 2e-2 absolute + 2e-2 relative: both sides round their
 outputs to bf16, whose spacing is 2^-8 relative, so they may differ by one
 bf16 step (2^-7 = 7.8e-3 at values in [1, 2), 3.1e-2 in [4, 8)); and the
-dK/dV kernel's tensor-core variant rounds P and dS to bf16 before the dV and
-dK products (the plain version multiplies them in f32).  A plain emulation of
-that rounding is held to the same bound here on the CPU.
+kernels' tensor-core variants round P and dS to bf16 before the dV and dK
+products, and dS before the dQ product (the plain version multiplies them in
+f32).  Plain emulations of that rounding are held to the same bound here on
+the CPU, against the plain version and against the JAX Pallas backward.
 """
 import numpy as np
 import pytest
@@ -127,6 +128,7 @@ def test_wrappers_on_cpu_run_plain_versions_without_launch():
     assert kernel_bwd.flash_attention_bwd_dkv.launches == 0
     assert kernel_bwd.flash_attention_bwd_dkv.launches_tc == 0
     assert kernel_bwd.flash_attention_bwd_dq.launches == 0
+    assert kernel_bwd.flash_attention_bwd_dq.launches_tc == 0
     for a, b_ in zip((dq, dk, dv), want, strict=True):
         np.testing.assert_allclose(a.numpy(), b_.numpy(), atol=1e-6, rtol=1e-6)
 
@@ -139,6 +141,42 @@ def _tc_dkv_emulation(q, k, v, do, lse, dvec, *, scale, causal, window):
     dv = torch.einsum("bhqk,bhqd->bhkd", p.bfloat16().float(), do.float())
     dk = torch.einsum("bhqk,bhqd->bhkd", ds.bfloat16().float(), q.float())
     return dk.to(q.dtype), dv.to(q.dtype)
+
+
+def _tc_dq_emulation(q, k, v, do, lse, dvec, *, scale, causal, window):
+    """What the dQ kernel's bf16 tensor-core variant computes, in plain
+    PyTorch: dS in f32 from the unrounded P, rounded to bf16 before
+    dQ = dS K (products exact, sums in f32)."""
+    _, ds = ref._bwd_probs(q, k, v, lse, do, dvec, scale, causal, window)
+    return torch.einsum("bhqk,bhkd->bhqd", ds.bfloat16().float(), k.float()).to(q.dtype)
+
+
+@pytest.mark.parametrize("case", [
+    (1, 4, 72, 72, 80, True, None),       # stablelm-3b's head dim, ragged
+    (1, 2, 96, 96, 32, True, None),
+    (1, 2, 80, 80, 256, True, 32),        # head dim 256 with a sliding window
+])
+def test_tensor_core_dq_rounding_matches_jax_kernel(case):
+    """The one numerical change of B3's bf16 variant, rounding dS to bf16
+    before dS K, stays inside the bf16 bound against the Pallas backward
+    (interpret mode) fed the same bf16-exact inputs and the forward's
+    output and logsumexp."""
+    import jax.numpy as jnp
+
+    from repro.kernels.flash_attention.kernel import flash_attention_fwd_lse as jax_fwd
+    from repro.kernels.flash_attention.kernel_bwd import flash_attention_bwd as jax_bwd
+    d, causal, window = case[4], case[5], case[6]
+    q, k, v, do = (torch.from_numpy(a).bfloat16() for a in _mha_arrays(case, seed=6))
+    kw = {"scale": d ** -0.5, "causal": causal, "window": window}
+    jq, jk, jv, jdo = (jnp.asarray(t.float().numpy()) for t in (q, k, v, do))
+    o, lse = jax_fwd(jq, jk, jv, **kw, block_q=32, block_k=32, interpret=True)
+    want, _, _ = jax_bwd(jq, jk, jv, o, lse, jdo, **kw, block_q=32, block_k=32,
+                         interpret=True)
+    dvec = (do.float() * torch.from_numpy(np.array(o))).sum(-1)
+    got = _tc_dq_emulation(q, k, v, do, torch.from_numpy(np.array(lse)), dvec, **kw)
+    plain = ref.attention_bwd_dq(q, k, v, do, torch.from_numpy(np.array(lse)), dvec, **kw)
+    assert got.dtype == torch.bfloat16 and not torch.equal(got, plain)
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want), atol=2e-2, rtol=2e-2)
 
 
 @pytest.mark.parametrize("case", [
@@ -195,12 +233,13 @@ def test_cuda_bwd_kernels_match_plain(case, dtype):
     kw = {"scale": d ** -0.5, "causal": causal, "window": window}
     o, lse = ref.attention_fwd_lse(q, k, v, **kw)
     dkv, dq = kernel_bwd.flash_attention_bwd_dkv, kernel_bwd.flash_attention_bwd_dq
-    before = (dkv.launches, dkv.launches_tc, dq.launches)
+    before = (dkv.launches, dkv.launches_tc, dq.launches, dq.launches_tc)
     got = kernel_bwd.flash_attention_bwd(q, k, v, o, lse, do, **kw)
     torch.cuda.synchronize()
-    # bf16 runs B2's tensor-core variant, f32 its CUDA-core one
-    assert (dkv.launches, dkv.launches_tc, dq.launches) == (
-        before[0] + 1, before[1] + (dtype == torch.bfloat16), before[2] + 1)
+    # bf16 runs B2's and B3's tensor-core variants, f32 their CUDA-core ones
+    tc = int(dtype == torch.bfloat16)
+    assert (dkv.launches, dkv.launches_tc, dq.launches, dq.launches_tc) == (
+        before[0] + 1, before[1] + tc, before[2] + 1, before[3] + tc)
     want = ref.attention_bwd(q, k, v, o, lse, do, **kw)
     for name, a, b_ in zip(("dq", "dk", "dv"), got, want, strict=True):
         assert a.dtype == dtype and a.shape == b_.shape
@@ -224,6 +263,40 @@ def test_cuda_bwd_dkv_bf16_is_bit_identical_across_runs(case):
     torch.cuda.synchronize()
     for a, b_ in zip(first, second, strict=True):
         assert torch.equal(a, b_) and torch.isfinite(a.float()).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [TRAIN_CASE, WIDE_CASE, (1, 2, 100, 300, 80, True, None)])
+def test_cuda_bwd_dq_bf16_is_bit_identical_across_runs(case):
+    """No atomics and a fixed order of every sum: two runs of B3's tensor-core
+    variant give the same bits."""
+    _need_cuda()
+    d, causal, window = case[4], case[5], case[6]
+    q, k, v, do = (torch.from_numpy(a).cuda().bfloat16() for a in _mha_arrays(case, seed=5))
+    kw = {"scale": d ** -0.5, "causal": causal, "window": window}
+    o, lse = ref.attention_fwd_lse(q, k, v, **kw)
+    dvec = (do.float() * o.float()).sum(-1)
+    first, second = (kernel_bwd.flash_attention_bwd_dq(q, k, v, do, lse, dvec, **kw)
+                     for _ in range(2))
+    torch.cuda.synchronize()
+    assert torch.equal(first, second) and torch.isfinite(first.float()).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [(1, 4, 72, 72, 80, True, None), (1, 2, 80, 80, 256, True, 32)])
+def test_cuda_bwd_dq_bf16_matches_its_emulation(case):
+    """B3's bf16 variant against the plain emulation of its rounding: the
+    same function up to the order of f32 sums and the exps."""
+    _need_cuda()
+    d, causal, window = case[4], case[5], case[6]
+    q, k, v, do = (torch.from_numpy(a).cuda().bfloat16() for a in _mha_arrays(case, seed=6))
+    kw = {"scale": d ** -0.5, "causal": causal, "window": window}
+    o, lse = ref.attention_fwd_lse(q, k, v, **kw)
+    dvec = (do.float() * o.float()).sum(-1)
+    got = kernel_bwd.flash_attention_bwd_dq(q, k, v, do, lse, dvec, **kw)
+    want = _tc_dq_emulation(q, k, v, do, lse, dvec, **kw)
+    np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(),
+                               atol=2e-2, rtol=2e-2)
 
 
 @pytest.mark.cuda

@@ -6,7 +6,10 @@ The kernels' plain versions are held to the JAX Pallas kernels in interpret
 mode and to the JAX reference scans, at the reference's bounds
 (tests/test_kernels.py): B4 5e-5 (f32) / 5e-2 (bf16); B5 y and state 5e-4
 (f32), y 5e-2 (bf16); extreme decay 1e-4.  Blocks at 1e-5, full forward
-1e-4, prefill/decode 2e-3, all in f32.  Cases that need the card carry the
+1e-4, prefill/decode 2e-3, all in f32.  A plain emulation of B5's bf16
+two-pass design (its chunks, sub-blocks, factored operands and TF32
+rounding) is held to the JAX kernel and scan at the bf16 bounds.  Cases that
+need the card carry the
 `cuda` marker and skip without one; they need no JAX, so on a machine with a
 card and no JAX they run with
 `python -m pytest -m cuda tests/test_torch_recurrent.py`.
@@ -188,6 +191,115 @@ def test_wkv6_grad_on_cpu_matches_jax():
         np.testing.assert_allclose(_np(g), _np(w), atol=1e-4, rtol=1e-4)
 
 
+# --- B5's two-pass design, emulated ------------------------------------------------
+
+
+def _tf32(x):
+    """f32 rounded to TF32 as cvt.rna.tf32.f32 does: to nearest, ties away
+    from zero, the low 13 mantissa bits cleared."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _wkv6_two_pass_emulation(r, k, v, log_w, u, s0=None, chunk=64, sub=16):
+    """What B5's bf16 two-pass design computes, in plain PyTorch: per chunk of
+    64 steps, y = A V + (r e^{c_{t-1}}) S_in.  A's rows come in sub-blocks of
+    16: left of the diagonal sub-block from factored operands against the
+    step before it (r~ and k~, rounded to TF32); in the diagonal sub-block,
+    the lower-left 8 x 8 quarter likewise against the step before its rows,
+    the two diagonal 8 x 8 quarters from per-element exps, with the bonus on
+    the diagonal.  A and S_in are rounded to TF32 before their products.  The
+    state S_out = e^{c_last} S_in + k~^T V, k~ = k e^{c_last - c}, takes k~ as
+    the sum of its TF32 value and the TF32 value of the rest (3xTF32 whose
+    third product vanishes: v is exact in TF32)."""
+    bsz, heads, steps, dk = r.shape
+    dv = v.shape[-1]
+    rf, kf, vf, lw = (x.float() for x in (r, k, v, log_w))
+    uf = u.float()[None, :, None, :]
+    s = torch.zeros(bsz, heads, dk, dv) if s0 is None else s0.float()
+    ys = []
+
+    def factored(rows, cols, ref):  # A[rows, cols] against c_ref, all cols < all rows
+        ref_c = c[:, :, ref:ref + 1]
+        r_t = _tf32(rc[:, :, rows] * torch.exp(cprev[:, :, rows] - ref_c))
+        k_t = _tf32(kc[:, :, cols] * torch.exp(ref_c - c[:, :, cols]))
+        return r_t @ k_t.transpose(-1, -2)
+
+    for t0 in range(0, steps, chunk):
+        n = min(chunk, steps - t0)
+        rc, kc, vc = rf[:, :, t0:t0 + n], kf[:, :, t0:t0 + n], vf[:, :, t0:t0 + n]
+        c = torch.cumsum(lw[:, :, t0:t0 + n], dim=2)                       # c_t
+        cprev = torch.cat([torch.zeros_like(c[:, :, :1]), c[:, :, :-1]], dim=2)  # c_{t-1}
+        a = torch.zeros(bsz, heads, n, n)
+        for i0 in range(0, n, sub):
+            m = min(sub, n - i0)
+            for q0 in range(i0, i0 + m, 8):          # the diagonal 8 x 8 quarters
+                rows = slice(q0, min(q0 + 8, i0 + m))
+                qm = rows.stop - q0
+                strict = torch.ones(qm, qm, dtype=torch.bool).tril(-1)[:, :, None]
+                expo = cprev[:, :, rows, None, :] - c[:, :, None, rows, :]
+                decay = torch.exp(torch.where(strict, expo, torch.tensor(float("-inf"))))
+                a[:, :, rows, rows] = torch.einsum(
+                    "bhtd,bhjd,bhtjd->bhtj", rc[:, :, rows], kc[:, :, rows], decay) \
+                    + torch.diag_embed((rc[:, :, rows] * uf * kc[:, :, rows]).sum(-1))
+            if m > 8:                                 # the lower-left quarter
+                a[:, :, i0 + 8:i0 + m, i0:i0 + 8] = factored(
+                    slice(i0 + 8, i0 + m), slice(i0, i0 + 8), i0 + 7)
+            if i0 > 0:                                # left of the diagonal sub-block
+                a[:, :, i0:i0 + m, :i0] = factored(slice(i0, i0 + m), slice(0, i0), i0 - 1)
+        ys.append(_tf32(a) @ vc + _tf32(rc * torch.exp(cprev)) @ _tf32(s))
+        c_last = c[:, :, -1]
+        k_t = kc * torch.exp(c_last[:, :, None] - c)
+        big = _tf32(k_t)                              # k~ in two TF32 parts; v is exact
+        s = torch.exp(c_last)[..., None] * s + big.transpose(-1, -2) @ vc \
+            + _tf32(k_t - big).transpose(-1, -2) @ vc
+    return torch.cat(ys, dim=2).to(r.dtype), s
+
+
+# (B, H, T, dk, dv), whether s0 is given: the reference shapes, a ragged T over
+# several chunks, and a decode step; the Pallas kernel takes no s0
+TWO_PASS_CASES = [((2, 3, 50, 16, 16), False), ((2, 2, 33, 64, 64), False),
+                  ((1, 4, 200, 64, 64), False), ((1, 4, 200, 64, 64), True),
+                  ((4, 3, 1, 64, 64), True)]
+
+
+@pytest.mark.parametrize("dims,s0,against", [
+    (dims, s0, against) for dims, s0 in TWO_PASS_CASES
+    for against in (("scan",) if s0 else ("pallas", "scan"))])
+def test_two_pass_emulation_matches_jax(dims, s0, against):
+    r, k, v, lw, u, s = _wkv_arrays(dims, seed=13, s0=s0)
+    (jr, tr), (jk, tk), (jv, tv), (jl, tl) = (_pair(x, "bfloat16") for x in (r, k, v, lw))
+    if against == "pallas":
+        want_y, want_s = jax_wkv6(jr, jk, jv, jl, jnp.asarray(u))      # interpret mode
+    else:
+        want_y, want_s = jax_wkv_ref.wkv6_scan(jr, jk, jv, jnp.exp(jl.astype(jnp.float32)),
+                                               jnp.asarray(u),
+                                               None if s is None else jnp.asarray(s))
+    got_y, got_s = _wkv6_two_pass_emulation(tr, tk, tv, tl, torch.from_numpy(u),
+                                            None if s is None else torch.from_numpy(s))
+    assert got_y.dtype == torch.bfloat16 and torch.isfinite(got_y.float()).all()
+    np.testing.assert_allclose(_np(got_y), _np(want_y), **wkv_tol("bfloat16"))
+    np.testing.assert_allclose(_np(got_s), _np(want_s), **STATE_TOL)
+
+
+@pytest.mark.parametrize("against", ["pallas", "scan"])
+def test_two_pass_emulation_extreme_decay_is_finite_and_close(against):
+    """log_w = -20: every factored operand's exponent is <= 0, so nothing
+    overflows; held at the bf16 bound."""
+    r, k, v, _, _, _ = _wkv_arrays((1, 1, 64, 16, 16), seed=3)
+    lw = np.full(r.shape, -20.0, np.float32)
+    u = np.ones((1, 16), np.float32)
+    (jr, tr), (jk, tk), (jv, tv), (jl, tl) = (_pair(x, "bfloat16") for x in (r, k, v, lw))
+    if against == "pallas":
+        want_y, _ = jax_wkv6(jr, jk, jv, jl, jnp.asarray(u))
+    else:
+        want_y, _ = jax_wkv_ref.wkv6_scan(jr, jk, jv, jnp.exp(jl.astype(jnp.float32)),
+                                          jnp.asarray(u))
+    got_y, got_s = _wkv6_two_pass_emulation(tr, tk, tv, tl, torch.from_numpy(u))
+    assert torch.isfinite(got_y.float()).all() and torch.isfinite(got_s).all()
+    np.testing.assert_allclose(_np(got_y), _np(want_y), **wkv_tol("bfloat16"))
+
+
 # --- dispatch: CPU -> plain version, anything else -> kernel or raise -----------
 
 
@@ -203,6 +315,7 @@ def test_cpu_calls_never_count_a_launch():
     want_y, _ = wkv_ref.wkv6_scan(r, k, v, torch.exp(lw), u)
     assert torch.equal(got_y, want_y)
     assert (lru_kernel.rg_lru_fwd.launches, wkv_kernel.wkv6_fwd.launches) == (lru0, wkv0) == (0, 0)
+    assert wkv_kernel.wkv6_fwd.launches_chunked == wkv_kernel.wkv6_fwd.launches_step == 0
 
 
 def test_ops_raise_off_the_cpu_when_a_gradient_is_needed():
@@ -410,10 +523,14 @@ def test_cuda_wkv6_matches_plain(dims, dtype, s0):
                       for x in (r, k, v, lw))
     tu = torch.from_numpy(u).cuda()
     ts = None if s is None else torch.from_numpy(s).cuda()
-    before = wkv_kernel.wkv6_fwd.launches
-    got_y, got_s = wkv_kernel.wkv6_fwd(tr, tk, tv, tl, tu, ts)
+    fn = wkv_kernel.wkv6_fwd
+    before = (fn.launches, fn.launches_chunked, fn.launches_step)
+    got_y, got_s = fn(tr, tk, tv, tl, tu, ts)
     torch.cuda.synchronize()
-    assert wkv_kernel.wkv6_fwd.launches == before + 1
+    # T = 1 runs the step kernel, bf16 above it the two-pass design
+    step, chunked = dims[2] == 1, dims[2] > 1 and dtype == "bfloat16"
+    assert (fn.launches, fn.launches_chunked, fn.launches_step) == (
+        before[0] + 1, before[1] + chunked, before[2] + step)
     want_y, want_s = wkv_ref.wkv6_scan(tr, tk, tv, torch.exp(tl.float()), tu, ts)
     np.testing.assert_allclose(_np(got_y.cpu()), _np(want_y.cpu()), **wkv_tol(dtype))
     np.testing.assert_allclose(_np(got_s.cpu()), _np(want_s.cpu()), **STATE_TOL)
@@ -430,6 +547,41 @@ def test_cuda_wkv6_extreme_decay_is_finite_and_close():
     want_y, _ = wkv_ref.wkv6_scan(*ts, torch.exp(lw), u)
     assert torch.isfinite(got_y).all()
     np.testing.assert_allclose(_np(got_y.cpu()), _np(want_y.cpu()), atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dims,s0", [((1, 4, 200, 64, 64), True), ((2, 2, 33, 64, 64), False),
+                                     ((1, 2, 130, 64, 48), True), ((1, 2, 70, 7, 5), True)])
+def test_cuda_wkv6_two_pass_matches_its_emulation(dims, s0):
+    """B5's two-pass design (bf16, T > 1) against the plain emulation of its
+    rounding, at ragged T, dk and dv that are not multiples of 8 included."""
+    _need_cuda()
+    r, k, v, lw, u, s = _wkv_arrays(dims, seed=14, s0=s0)
+    tr, tk, tv, tl = (torch.from_numpy(x).bfloat16().cuda() for x in (r, k, v, lw))
+    tu = torch.from_numpy(u).cuda()
+    ts = None if s is None else torch.from_numpy(s).cuda()
+    got_y, got_s = wkv_kernel.wkv6_fwd(tr, tk, tv, tl, tu, ts)
+    want_y, want_s = _wkv6_two_pass_emulation(*(t.cpu() for t in (tr, tk, tv, tl, tu)),
+                                              None if ts is None else ts.cpu())
+    np.testing.assert_allclose(_np(got_y.cpu()), _np(want_y), **wkv_tol("bfloat16"))
+    np.testing.assert_allclose(_np(got_s.cpu()), _np(want_s), **STATE_TOL)
+
+
+@pytest.mark.cuda
+def test_cuda_wkv6_two_pass_extreme_decay_and_bits():
+    """log_w = -20 in bf16 through the two-pass design: finite and within the
+    bf16 bound; and two runs give the same bits."""
+    _need_cuda()
+    r, k, v, _, _, _ = _wkv_arrays((1, 1, 64, 16, 16), seed=3)
+    ts = [torch.from_numpy(x).bfloat16().cuda() for x in (r, k, v)]
+    lw = torch.full(ts[0].shape, -20.0, device="cuda", dtype=torch.bfloat16)
+    u = torch.ones((1, 16), device="cuda")
+    got_y, got_s = wkv_kernel.wkv6_fwd(*ts, lw, u)
+    again_y, again_s = wkv_kernel.wkv6_fwd(*ts, lw, u)
+    want_y, _ = wkv_ref.wkv6_scan(*ts, torch.exp(lw.float()), u)
+    assert torch.isfinite(got_y.float()).all()
+    assert torch.equal(got_y, again_y) and torch.equal(got_s, again_s)
+    np.testing.assert_allclose(_np(got_y.cpu()), _np(want_y.cpu()), **wkv_tol("bfloat16"))
 
 
 @pytest.mark.cuda
