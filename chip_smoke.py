@@ -19,12 +19,16 @@ Phases, in order; any failure raises and the script exits non-zero:
                tensor-core variants, in f32 their CUDA-core ones); the
                recurrences B4 (RG-LRU) and B5 (WKV-6) in f32 and bf16 at the
                reference test shapes, from a nonzero initial state, at T = 1,
-               at the serving prefill and decode shapes, B5 at a ragged T over
-               several chunks and at extreme decay in both dtypes (bf16 with
-               T > 1 runs B5's two-pass design, T = 1 its step kernel, each
-               checked by its counter).  B2, B3 and B5's two-pass design are
-               bit-identical over two runs.  Each check draws its inputs from
-               a generator of its own and prints their hash.
+               at the serving prefill and decode shapes, B4 at a ragged T over
+               many stages of its ring (2, 1100, 4096) and at an odd D (its
+               one-element copies and one-lane step threads), B5 at a ragged
+               T over several chunks and at extreme decay in both dtypes
+               (T = 1 runs B4's and B5's step kernels, T > 1 B4's ring and,
+               in bf16, B5's two-pass design, each call checked by its
+               counters).  B4 in f32 equals its plain version bit for bit.
+               B2, B3, B4's ring and B5's two-pass design are bit-identical
+               over two runs.  Each check draws its inputs from a generator
+               of its own and prints their hash.
   4. timing  - each kernel, its plain version and one PyTorch library call
                (CUDA events around queued calls: `ms`, where a wrapper's host
                work counts wherever it outlasts its kernel), and each kernel
@@ -32,9 +36,12 @@ Phases, in order; any failure raises and the script exits non-zero:
                (`device_ms`: device time only), beside the card's bound, at
                the shape each path gives it: B1 at the serving
                shapes and the training shape, B2 and B3 at the training
-               shape, B4 and B5 at the serving prefill and decode shapes (no
-               single PyTorch call computes either recurrence: their library
-               time is null).  The attention yardstick is timed, both ways,
+               shape, B4 and B5 at the serving prefill and decode shapes.
+               No single PyTorch call computes either recurrence over T, so
+               their prefill library time is null; B4's decode step is
+               torch.addcmul(b, a, h0), checked against the plain version
+               and timed both ways as its library time.  The attention
+               yardstick is timed, both ways,
                under each SDPA backend that runs at the shape (flash, cuDNN,
                efficient); the fastest is the library time (`library_ms`,
                `library_device_ms`), and its backend is recorded.
@@ -53,9 +60,9 @@ Phases, in order; any failure raises and the script exits non-zero:
                the kernel launch counts of each run, in prefill and in decode,
                are read and checked (B1 once per attention layer in prefill,
                each in the tensor-core variant; B4 / B5 once per recurrent
-               layer in prefill and in every decode step; every rwkv6-3b
-               prefill call of B5 in the two-pass design, every decode call in
-               the step kernel).
+               layer in prefill and in every decode step; every prefill call
+               of B4 in the ring design and of B5 in the two-pass design,
+               every decode call of both in the step kernel).
   8. train (the main path) - stablelm-3b at its full published config, bf16,
                full remat, batch 8 x 512, grad_sync "bridge": 1 warm-up step
                and 3 timed steps through `repro_torch.launch.train.train`; the
@@ -189,6 +196,11 @@ LRU_CASES = [(2, 100, 48, False), (1, 256, 128, False), (3, 17, 8, False),
 # a decode step (T = 1), both from the cache's state.  The model runs B4 on f32.
 LRU_PREFILL = (4, 512, 4096, True)
 LRU_DECODE = (4, 1, 4096, True)
+# a ragged T over many stages of the ring (68 of 16 steps and 12), at the
+# model's width; an odd D (one-element copies in the ring, one lane a thread
+# in the step kernel)
+LRU_RAGGED = (2, 1100, 4096, True)
+LRU_ODD = [(2, 37, 33, True), (3, 1, 33, True)]
 # B5 (WKV-6): b, h, t, dk, dv, whether an initial state s0 is given.  The
 # reference's test shapes and a nonzero s0 ...
 WKV_CASES = [(2, 3, 50, 16, 16, False), (1, 2, 64, 32, 32, False),
@@ -497,14 +509,12 @@ def serve_path(arch: str) -> dict:
                             dtype=torch.int32)
     reqs = [Request(rid=i, prompt=prompts[i].numpy(), max_new_tokens=new_tokens)
             for i in range(batch)]
-    messages, at_prefill = [], {}
-
-    wkv_at_prefill = {}
+    messages, at_prefill, designs_at_prefill = [], {}, {}
 
     def progress(msg):
         if not messages:  # prefill is done (and synchronised): its launches so far
             at_prefill.update(read_launches())
-            wkv_at_prefill.update(read_wkv_variants())
+            designs_at_prefill.update(read_designs())
         messages.append(msg)
         print(msg, flush=True)
 
@@ -514,7 +524,7 @@ def serve_path(arch: str) -> dict:
     out = serve_requests(cfg, model, reqs, max_seq=max_seq, progress=progress,
                          device="cuda")
     total = read_launches()
-    wkv_total = read_wkv_variants()
+    designs_total = read_designs()
     check_tensor_core_launches(f"serve {arch}")
     peak = torch.cuda.max_memory_allocated()
     launches = {"prefill": at_prefill,
@@ -523,15 +533,22 @@ def serve_path(arch: str) -> dict:
     if launches["prefill"] != want_prefill or launches["decode"] != want_decode:
         raise AssertionError(f"{arch}: launches in the served run {launches}, expected "
                              f"prefill {want_prefill}, decode {want_decode}")
-    # B5 (bf16): every prefill call in the two-pass design, every decode call
-    # (T = 1) in the step kernel
-    wkv = {"prefill": wkv_at_prefill,
-           "decode": {k: wkv_total[k] - wkv_at_prefill[k] for k in WKV_VARIANTS}}
-    want_wkv = {"prefill": {"launches_chunked": want_prefill["wkv6_fwd"], "launches_step": 0},
-                "decode": {"launches_chunked": 0, "launches_step": want_decode["wkv6_fwd"]}}
-    print(f"serve {arch}: B5 designs {wkv}")
-    if wkv != want_wkv:
-        raise AssertionError(f"{arch}: B5 designs in the served run {wkv}, expected {want_wkv}")
+    # every prefill call of B4 in the ring, of B5 (bf16) in the two-pass
+    # design; every decode call (T = 1) of both in the step kernel
+    designs = {"prefill": designs_at_prefill,
+               "decode": {name: {k: designs_total[name][k] - designs_at_prefill[name][k]
+                                 for k in keys} for name, keys in DESIGN_COUNTERS.items()}}
+    want_designs = {
+        "prefill": {"rg_lru_fwd": {"launches_step": 0},
+                    "wkv6_fwd": {"launches_chunked": want_prefill["wkv6_fwd"],
+                                 "launches_step": 0}},
+        "decode": {"rg_lru_fwd": {"launches_step": want_decode["rg_lru_fwd"]},
+                   "wkv6_fwd": {"launches_chunked": 0,
+                                "launches_step": want_decode["wkv6_fwd"]}}}
+    print(f"serve {arch}: B4 / B5 designs {designs}")
+    if designs != want_designs:
+        raise AssertionError(f"{arch}: B4 / B5 designs in the served run {designs}, "
+                             f"expected {want_designs}")
     if any(len(out[i]) != new_tokens for i in range(batch)):
         raise AssertionError(f"token budgets not met: {[len(t) for t in out.values()]}")
     gen = torch.tensor([out[i] for i in range(batch)], dtype=torch.int32)
@@ -743,21 +760,34 @@ def check_recurrent_kernels() -> dict:
     the errors at the serving shapes in the dtype the model runs them in."""
     errs = {}
     dtypes = (torch.float32, torch.bfloat16)
-    for case, dtype in [(c, dt) for c in LRU_CASES + [LRU_DECODE, LRU_PREFILL] for dt in dtypes]:
+    lru_cases = LRU_CASES + [LRU_DECODE, LRU_PREFILL, LRU_RAGGED] + LRU_ODD
+    for case, dtype in [(c, dt) for c in lru_cases for dt in dtypes]:
         a, x, h0 = lru_inputs(case, dtype)
-        y, h = lru_kernel.rg_lru_fwd(a, x, h0)
+        y, h = lru_call(a, x, h0)
         torch.cuda.synchronize()
         want_y, want_h = lru_ref.rg_lru_scan(a, x, h0)
         tol = LRU_TOL[dtype]
         (ey, ok_y), (eh, ok_h) = max_err(y, want_y, tol, tol), max_err(h, want_h, tol, tol)
+        # one multiply and one add a step, each rounded, in order: the bits of
+        # the plain version
+        same = torch.equal(y, want_y) and torch.equal(h, want_h)
         line = (f"rg_lru {case} {str(dtype)[6:]} inputs {input_hash(a, x, *([h0] if case[3] else []))}: "
-                f"y max|err| {ey:.3e}, h_last max|err| {eh:.3e} (tol {tol} + {tol}|want|)")
+                f"y max|err| {ey:.3e}, h_last max|err| {eh:.3e} (tol {tol} + {tol}|want|), "
+                f"bit-identical {same}")
         print(line)
         if not (ok_y and ok_h) or y.shape != a.shape or y.dtype != a.dtype \
                 or not torch.isfinite(y).all():
             raise AssertionError(f"B4 disagrees with its plain version: {line}")
+        if dtype == torch.float32 and not same:
+            raise AssertionError(f"B4 in f32 differs from its plain version's bits: {line}")
         if case in (LRU_PREFILL, LRU_DECODE) and dtype == PATH_DTYPE["rg_lru_fwd"]:
             errs[("rg_lru_fwd", case)] = max(ey, eh)
+    for dtype in dtypes:
+        args = lru_inputs(LRU_RAGGED, dtype)
+        first, second = (lru_call(*args) for _ in range(2))
+        if not all(torch.equal(a, b) for a, b in zip(first, second, strict=True)):
+            raise AssertionError(f"B4's ring differs between two runs on the card ({dtype})")
+    print("rg_lru ring: two runs on the card are bit-identical (f32, bf16)")
     for case, dtype in [(c, dt) for c in WKV_CASES + [WKV_DECODE, WKV_PREFILL, WKV_RAGGED]
                         for dt in dtypes]:
         r, k, v, log_w, u, s0 = wkv_inputs(case, dtype)
@@ -802,6 +832,19 @@ def check_recurrent_kernels() -> dict:
     return errs
 
 
+def lru_call(a, x, h0=None):
+    """B4 through its wrapper, checking by the counters that the design of
+    this T ran: the step kernel at T = 1, the ring above."""
+    fn = lru_kernel.rg_lru_fwd
+    before = (fn.launches, fn.launches_step)
+    out = fn(a, x, h0)
+    want = (before[0] + 1, before[1] + (a.shape[1] == 1))
+    if (fn.launches, fn.launches_step) != want:
+        raise AssertionError(f"B4 at {tuple(a.shape)} {a.dtype}: (launches, step) "
+                             f"{(fn.launches, fn.launches_step)}, expected {want}")
+    return out
+
+
 def wkv_call(r, k, v, log_w, u, s0=None):
     """B5 through its wrapper, checking by the counters that the design of
     this dtype and T ran: the step kernel at T = 1, the two-pass design for
@@ -844,18 +887,31 @@ def wkv_work(r, v, s0) -> tuple[int, int, int]:
 def time_recurrent() -> dict:
     """B4 and B5 at the serving prefill and decode shapes, in the dtype the
     model runs them in: kernel and plain version (CUDA events), beside the
-    bound.  No single PyTorch call computes either recurrence, so there is no
-    library time."""
+    bound.  No single PyTorch call computes either recurrence over T, so
+    prefill has no library time; B4's decode step is one torch.addcmul
+    (h_1 = b_1 + a_1 h0, its one (B, D) output standing for y and h_last),
+    checked against the plain version at LRU_TOL and timed both ways."""
     times = {}
     for name, case in (("rg_lru_fwd", LRU_PREFILL), ("rg_lru_fwd", LRU_DECODE),
                        ("wkv6_fwd", WKV_PREFILL), ("wkv6_fwd", WKV_DECODE)):
         dtype = PATH_DTYPE[name]
+        library = None
         if name == "rg_lru_fwd":
             a, x, h0 = lru_inputs(case, dtype)
             fns = {"ms": lambda: lru_kernel.rg_lru_fwd(a, x, h0),
                    "plain_ms": lambda: lru_ref.rg_lru_scan(a, x, h0)}
             moved = (3 * a.numel()) * a.element_size() + 2 * h0.numel() * 4
             flops, extra = 2 * a.numel(), ""
+            if case[1] == 1:
+                library = lambda: torch.addcmul(x[:, 0], a[:, 0], h0)  # noqa: E731
+                got, (want, _) = library(), lru_ref.rg_lru_scan(a, x, h0)
+                err, ok = max_err(got, want[:, 0], LRU_TOL[dtype], LRU_TOL[dtype])
+                print(f"rg_lru library torch.addcmul(b, a, h0) {case}: max|err| {err:.3e} "
+                      f"against the plain version (tol {LRU_TOL[dtype]} + "
+                      f"{LRU_TOL[dtype]}|want|)")
+                if not ok:
+                    raise AssertionError("torch.addcmul disagrees with B4's plain version")
+                fns["library_ms"] = fns["library_device_ms"] = library
         else:
             r, k, v, log_w, u, s0 = wkv_inputs(case, dtype)
             fns = {"ms": lambda: wkv_kernel.wkv6_fwd(r, k, v, log_w, u, s0),
@@ -866,12 +922,17 @@ def time_recurrent() -> dict:
         fns["device_ms"] = fns["ms"]
         t = time_in_turns(fns, {}, {"plain_ms": 10})
         t["bound_ms"], t["bound_by"] = bound(moved, flops, PEAK_FLOP_S[dtype])
-        t["library_ms"] = None
+        if library is None:
+            t["library_ms"] = t["library_device_ms"] = None
+            lib_text = "library_ms none (no PyTorch call computes the recurrence)"
+        else:
+            lib_text = (f"library_ms {t['library_ms']:.4f} library_device_ms "
+                        f"{t['library_device_ms']:.4f} (torch.addcmul)")
         times[(name, case)] = t
         print(f"{name} timing {case} {str(dtype)[6:]}: kernel_ms {t['ms']:.4f} device_ms "
               f"{t['device_ms']:.4f} plain_ms "
-              f"{t['plain_ms']:.4f} library_ms none (no PyTorch call computes the "
-              f"recurrence) bound_ms {t['bound_ms']:.4f} (by {t['bound_by']}: {moved} bytes, "
+              f"{t['plain_ms']:.4f} {lib_text} bound_ms {t['bound_ms']:.4f} "
+              f"(by {t['bound_by']}: {moved} bytes, "
               f"{flops} FLOP{extra}; peak {PEAK_FLOP_S[dtype]:.3g} FLOP/s for "
               f"{str(dtype)[6:]})")
     return times
@@ -916,8 +977,10 @@ LAUNCH_COUNTERS = {
 
 # the kernels with a tensor-core (bf16) variant, counted apart in launches_tc
 TC_COUNTERS = ("flash_attention_fwd", "flash_attention_bwd_dkv", "flash_attention_bwd_dq")
-# B5's designs, counted apart: the two-pass one (bf16, T > 1) and the T = 1 kernel
-WKV_VARIANTS = ("launches_chunked", "launches_step")
+# the recurrences' designs, counted apart: B4's and B5's T = 1 kernels and
+# B5's two-pass one (bf16, T > 1)
+DESIGN_COUNTERS = {"rg_lru_fwd": ("launches_step",),
+                   "wkv6_fwd": ("launches_chunked", "launches_step")}
 
 
 def reset_launches() -> None:
@@ -925,12 +988,13 @@ def reset_launches() -> None:
         fn.launches = 0
         if name in TC_COUNTERS:
             fn.launches_tc = 0
-    for key in WKV_VARIANTS:
-        setattr(wkv_kernel.wkv6_fwd, key, 0)
+        for key in DESIGN_COUNTERS.get(name, ()):
+            setattr(fn, key, 0)
 
 
-def read_wkv_variants() -> dict:
-    return {key: getattr(wkv_kernel.wkv6_fwd, key) for key in WKV_VARIANTS}
+def read_designs() -> dict:
+    return {name: {key: getattr(LAUNCH_COUNTERS[name], key) for key in keys}
+            for name, keys in DESIGN_COUNTERS.items()}
 
 
 def read_launches() -> dict:

@@ -6,14 +6,15 @@ Run from the root of a checkout:
     python3 kernel_times.py                        # this checkout's src/
     python3 kernel_times.py --src OTHER/src        # e.g. a parent commit from git archive
     python3 kernel_times.py --edit ko_pv           # a copy with one stage knocked out
-    python3 kernel_times.py --host                 # also the B5 decode wrapper's host parts
+    python3 kernel_times.py --host                 # also the B4 / B5 decode wrappers' host parts
     python3 kernel_times.py --only wkv6_fwd        # one kernel's shapes only
 
 It times, with `chip_smoke.py`'s inputs and timing function, the
 flash-attention forward (B1) at the training shape and the two serving
 prefill shapes, the dK/dV (B2) and dQ (B3) backward at the training shape,
 and the RG-LRU (B4) and WKV-6 (B5) recurrences at the serving prefill and
-decode shapes, each in the dtype its path gives it:
+decode shapes, each in the dtype its path gives it, and the card's launch
+floor (`torch.cuda._sleep(0)`, always timed):
   ms         CUDA events around 20 queued calls; the wrapper's host work
              counts wherever it outlasts the kernel (chip_smoke's `ms`);
   device_ms  the same with the card held by a sleep kernel while the calls
@@ -23,18 +24,21 @@ the `src` directory whose `repro_torch` is timed, so that two trees are
 timed by the same code on the same card in one run.  `--edit` applies
 named edits (EDITS) to a copy of that tree's kernel sources under
 build/kernel_times/ and times the copy: knock-outs of one stage of B1's bf16
-tensor-core loop, or of one pass or one stage of a pass of B5's two-pass
-design (their outputs are wrong; only their times mean something), and
-tuning variants. Prints one line
+tensor-core loop, of one pass or one stage of a pass of B5's two-pass
+design, or of the y store or the chain of B4's ring (their outputs are
+wrong; only their times mean something), and tuning variants (B4's ring
+with one stage: load, wait, compute). Prints one line
 per kernel and shape, the card's name and power limit, and a JSON line
 {"src", "edits", "card", "times", "host_us"}. `--host` also times, on the
-host clock, the parts of the WKV-6 wrapper's work in a decode call (T = 1,
-bf16, chip_smoke's inputs): the whole call, the import and lookup of the
-library, the two output allocations, the two ways to read the current
-stream, and the ctypes call that launches (and, in a tree that sets it on
-every launch, calls cudaFuncSetAttribute), beside the RG-LRU ctypes call,
-which never sets it. Each part is the median of 7 rounds of 200 calls, in
-microseconds a call. Exits non-zero without a CUDA card.
+host clock, the parts of the WKV-6 and RG-LRU wrappers' work in a decode
+call (T = 1, bf16 and f32, chip_smoke's inputs): each whole call, the
+import and lookup of the library, each wrapper's checks where its tree has
+them apart (RG-LRU's `_check`), each pair of output allocations, the two
+ways to read the current stream, and each ctypes call that launches (the
+WKV-6 one, in a tree that sets it on every launch, also calls
+cudaFuncSetAttribute; the RG-LRU one never does). Each part is the median
+of 7 rounds of 200 calls, in microseconds a call. Exits non-zero without a
+CUDA card.
 """
 from __future__ import annotations
 
@@ -52,6 +56,7 @@ ROOT = Path(__file__).resolve().parent
 FWD = "kernels/csrc/flash_attention_fwd.cu"
 BWD = "kernels/csrc/flash_attention_bwd.cu"
 WKV = "kernels/csrc/wkv6.cu"
+LRU = "kernels/csrc/rg_lru.cu"
 # name -> [(file under repro_torch/, text, replacement)]; each text must
 # appear exactly once.  ko_* take one stage out of B1's bf16 loop and keep
 # the operands it reads in use, so the compiler keeps the rest.
@@ -101,6 +106,32 @@ EDITS = {
                         "  if (false) {\n    const float* cref = cs + s * kCStride;")],
     "ko_out_diag": [(WKV, "  for (int p = lane; p < 2 * 28; p += 32) {",
                      "  for (int p = lane; p < 0; p += 32) {")],
+    # B4's ring with one part left out: the y store, the chain (h = b, so
+    # the loads of a still land but feed nothing), the copies (the chain
+    # reads what shared memory holds); and with one stage, so that each
+    # stage's copy is waited for before its chain runs
+    "ko_lru_store": [(LRU, "        if (d0 + col < d) {", "        if (false) {")],
+    "ko_lru_chain": [(LRU, "h = step(to_float(ra[i * kLanes + lane]), h, "
+                           "to_float(rb[i * kLanes + lane]));",
+                      "h = to_float(rb[i * kLanes + lane]);")],
+    "ko_lru_load": [(LRU, "    if (s < groups) load_stage", "    if (false) load_stage"),
+                    (LRU, "    if (next < groups) {", "    if (false) {")],
+    "lru_one_stage": [(LRU, "constexpr int kStages = 4;", "constexpr int kStages = 1;")],
+    # tuning of B4's ring: stages, steps a stage, bytes of a CTA's row,
+    # streaming y stores, y stored from the chain (4 bytes a thread a step)
+    "lru_stages8": [(LRU, "constexpr int kStages = 4;", "constexpr int kStages = 8;")],
+    "lru_steps32": [(LRU, "constexpr int kSteps = 16;", "constexpr int kSteps = 32;")],
+    "lru_steps8": [(LRU, "constexpr int kSteps = 16;", "constexpr int kSteps = 8;")],
+    "lru_row256": [(LRU, "constexpr int kRowBytes = 128;", "constexpr int kRowBytes = 256;")],
+    "lru_stcs": [(LRU, "*reinterpret_cast<uint4*>(y + (row0 + t0 + i) * d + d0 + col) =\n"
+                       "              *reinterpret_cast<const uint4*>(sy + i * kLanes + col);",
+                  "__stcs(reinterpret_cast<uint4*>(y + (row0 + t0 + i) * d + d0 + col),\n"
+                  "              *reinterpret_cast<const uint4*>(sy + i * kLanes + col));")],
+    "lru_direct_y": [(LRU, "        if constexpr (kVec) {\n"
+                           "          sy[i * kLanes + lane] = from_float<T>(h);\n"
+                           "        } else if (live) {", "        if (live) {"),
+                     (LRU, "if constexpr (kVec) {  // the stage's y rows",
+                      "if constexpr (false) {  // the stage's y rows")],
 }
 
 
@@ -140,15 +171,25 @@ def cases(cs) -> list:
         a, x, h0 = cs.lru_inputs(case, cs.PATH_DTYPE["rg_lru_fwd"])
         out.append(("rg_lru_fwd", case,
                     lambda a=a, x=x, h0=h0: cs.lru_kernel.rg_lru_fwd(a, x, h0)))
+    # PyTorch's elementwise kernel moving B4's prefill bytes (read a and b,
+    # write one array like y): the rate this card gives that traffic
+    a, x, _ = cs.lru_inputs(cs.LRU_PREFILL, cs.PATH_DTYPE["rg_lru_fwd"])
+    out.append(("rg_lru_fwd bytes by torch.add", cs.LRU_PREFILL,
+                lambda a=a, x=x: torch.add(a, x)))
     for case in (cs.WKV_PREFILL, cs.WKV_DECODE):
         args = cs.wkv_inputs(case, cs.PATH_DTYPE["wkv6_fwd"])
         out.append(("wkv6_fwd", case, lambda args=args: cs.wkv_kernel.wkv6_fwd(*args)))
     return out
 
 
+# the card's launch floor: an empty kernel, timed as the kernels are
+LAUNCH_FLOOR = ("launch_floor", (), lambda: torch.cuda._sleep(0))
+
+
 def host_parts(cs) -> dict:
-    """Microseconds a call of the parts of the WKV-6 wrapper's host work in a
-    decode call, on the host clock (see the module docstring)."""
+    """Microseconds a call of the parts of the WKV-6 and RG-LRU wrappers'
+    host work in a decode call, on the host clock (see the module
+    docstring)."""
     r, k, v, log_w, u, s0 = cs.wkv_inputs(cs.WKV_DECODE, torch.bfloat16)
     b, h, t, dk = r.shape
     dv = v.shape[-1]
@@ -161,24 +202,36 @@ def host_parts(cs) -> dict:
     workspace = [None] if len(lib.wkv6_fwd.argtypes) == 16 else []
     a, x, h0 = cs.lru_inputs(cs.LRU_DECODE, torch.float32)
     ya, ha = torch.empty_like(a), torch.empty_like(h0)
+    ba, _, da = a.shape
+    # rg_lru_fwd's C signature, (a, b, h0, y, h_last, batch, steps, d,
+    # is_bf16, stream), is the same in every tree so far; a tree with another
+    # has its ctypes call left out rather than called wrongly
+    lru_args = (a.data_ptr(), x.data_ptr(), h0.data_ptr(), ya.data_ptr(), ha.data_ptr(),
+                ba, 1, da, 0, stream)
+    lru_launch = len(lib.rg_lru_fwd.argtypes) == len(lru_args)
+    lru_check = getattr(cs.lru_kernel, "_check", None)  # apart in this tree?
 
     def library():
         return importlib.import_module("repro_torch.kernels._build").library()
 
     parts = {
-        "wrapper call": lambda: cs.wkv_kernel.wkv6_fwd(r, k, v, log_w, u, s0),
+        "wkv6 wrapper call": lambda: cs.wkv_kernel.wkv6_fwd(r, k, v, log_w, u, s0),
         "import + library()": library,
-        "two torch.empty": lambda: (torch.empty((b, h, t, dv), dtype=r.dtype, device=r.device),
-                                    torch.empty((b, h, dk, dv), dtype=torch.float32,
-                                                device=r.device)),
+        "wkv6 two torch.empty": lambda: (
+            torch.empty((b, h, t, dv), dtype=r.dtype, device=r.device),
+            torch.empty((b, h, dk, dv), dtype=torch.float32, device=r.device)),
         "current_stream(device).cuda_stream": lambda: torch.cuda.current_stream(
             r.device).cuda_stream,
         "_cuda_getCurrentRawStream": lambda: torch._C._cuda_getCurrentRawStream(r.device.index),
         "wkv6 ctypes call (launch)": lambda: lib.wkv6_fwd(
             *ptrs, *workspace, b * h, h, t, dk, dv, 1, stream),
-        "rg_lru ctypes call (launch, no attribute)": lambda: lib.rg_lru_fwd(
-            a.data_ptr(), x.data_ptr(), h0.data_ptr(), ya.data_ptr(), ha.data_ptr(),
-            a.shape[0], a.shape[1], a.shape[2], 0, stream),
+        "rg_lru wrapper call": lambda: cs.lru_kernel.rg_lru_fwd(a, x, h0),
+        **({"rg_lru checks (_check)": lambda: lru_check(a, x, h0)} if lru_check else {}),
+        "rg_lru two torch.empty": lambda: (torch.empty_like(a),
+                                           torch.empty((ba, da), dtype=torch.float32,
+                                                       device=a.device)),
+        **({"rg_lru ctypes call (launch, no attribute)": lambda: lib.rg_lru_fwd(*lru_args)}
+           if lru_launch else {}),
     }
     rounds = {name: [] for name in parts}
     for _ in range(7):
@@ -192,7 +245,7 @@ def host_parts(cs) -> dict:
             torch.cuda.synchronize()
     out = {name: sorted(v)[3] for name, v in rounds.items()}
     for name, us in out.items():
-        print(f"wkv6 decode host part {name}: {us:.3f} us a call "
+        print(f"decode host part {name}: {us:.3f} us a call "
               f"(rounds {min(rounds[name]):.3f}-{max(rounds[name]):.3f})")
     return out
 
@@ -206,7 +259,7 @@ def main() -> None:
     parser.add_argument("--only", action="append", default=[],
                         help="time only this kernel (repeatable; default: all)")
     parser.add_argument("--host", action="store_true",
-                        help="also time the parts of the WKV-6 decode wrapper's host work")
+                        help="also time the parts of the decode wrappers' host work")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("kernel_times: no CUDA device; this script runs only on the card")
@@ -224,7 +277,8 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     cs._build.library()
     runs: dict = {}
-    timed = [case for case in cases(cs) if not args.only or case[0] in args.only]
+    timed = [case for case in cases(cs) if not args.only or case[0].split()[0] in args.only]
+    timed.append(LAUNCH_FLOOR)
     for _ in range(3):
         for i, (_, _, fn) in enumerate(timed):
             for key, hold in (("ms", False), ("device_ms", True)):

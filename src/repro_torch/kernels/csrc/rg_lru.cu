@@ -9,27 +9,48 @@
 // What bounds it on the H100.  Each element of a and b is read once and each
 // of y written once, with one multiply and one add between: bytes bound it.
 // At the serving shape (B = 4, T = 512, D = 4096, f32) that is ~101 MB, ~30 us
-// at 3.35 TB/s.  But the recurrence is a dependent chain along T, and this
-// first kernel walks it in one thread per (b, d) lane: 16,384 lanes of 512
-// steps leave most of the card idle, so latency, not bandwidth, sets its time.
-// A chunked two-pass scan (local scans, then a carry pass) is later work.
+// at 3.35 TB/s.  To reach that rate the card needs ~2-3 MB of loads in flight
+// (the rate times ~0.7 us of loaded DRAM latency).  The dependent chain along
+// T, one multiply and one add a step, costs ~3 us at 512 steps and bounds
+// nothing, so the design is about loads in flight, not about the order of
+// the recurrence.
 //
-// Design.  One thread per (b, d) lane, consecutive threads on consecutive d,
-// so every step's loads and stores coalesce.  h lives in a register, from h0
-// or 0.  The thread walks T in groups of kUnroll steps: it loads the group's
-// a and b first, then runs the chain, so the loads of a group are in flight
-// together.  The TPU kernel's padding (a = 1, b = 0) becomes a bound on t, its
-// VMEM carry along the "arbitrary" time axis the register.  Multiply and add
-// are rounded one by one (no FMA contraction), as the plain version computes
-// them, so in f32 the two agree bit for bit.
+// Design, T > 1 (`rg_lru_scan_kernel`).  A CTA takes the lanes of one batch
+// row that make one 128-byte row of a step (32 lanes in f32, 64 in bf16), one
+// thread a lane, and walks T through a ring of kStages stages in shared
+// memory, each holding kSteps steps of a and b for those lanes.  The copy of
+// stage s + kStages - 1 (cp.async, 16 bytes a copy where the rows and
+// pointers allow, else one element a thread) is issued before the chain of
+// stage s runs, so kStages - 1 stages of every CTA (12 KB) are in flight
+// while it computes: ~6 MB over the card at the serving shape, whose 512
+// CTAs are all resident, ~4 an SM.  Each lane walks its own T in order, h in
+// a register from h0 or 0.  Its y goes into a stage of y in shared memory,
+// which the CTA then writes with 16-byte stores (4 rows a warp's store in
+// f32): on the card the writes, not the loads or the chain, held the first
+// version back, which stored each step's y from the chain, 4 bytes a thread.
+// Where the rows are not 16-byte aligned, each lane stores its own y.
+//
+// Design, T = 1 (`rg_lru_step_kernel`), a decode step: no ring.  Each thread
+// takes 4 lanes with 16-byte loads (8-byte in bf16) where the lane count and
+// the pointers allow, one lane otherwise.
+//
+// Multiply and add are rounded one by one (no FMA contraction), as the plain
+// version computes them, and every lane keeps its order along T, so in f32
+// the kernel and the plain version agree bit for bit.  The TPU kernel's
+// padding (a = 1, b = 0) becomes a bound on t and d, its VMEM carry along the
+// "arbitrary" time axis the register.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "tensor_core.cuh"
+
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kUnroll = 8;
+constexpr int kRowBytes = 128;  // a CTA's lanes of one step
+constexpr int kSteps = 16;      // steps a stage
+constexpr int kStages = 4;      // stages in the ring
+constexpr int kStepThreads = 128;
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -40,44 +61,201 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(f
   return __float2bfloat16(x);
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-rg_lru_kernel(const T* __restrict__ a, const T* __restrict__ b, const float* __restrict__ h0,
-              T* __restrict__ y, float* __restrict__ h_last, int batch, int steps, int d) {
-  const int64_t lane = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  if (lane >= static_cast<int64_t>(batch) * d) return;
-  const int64_t bi = lane / d;
-  const int64_t base = bi * steps * d + (lane - bi * d);  // element (bi, t = 0, di)
-  float h = h0 != nullptr ? h0[lane] : 0.f;
-  for (int t0 = 0; t0 < steps; t0 += kUnroll) {
-    float av[kUnroll], bv[kUnroll];
-#pragma unroll
-    for (int i = 0; i < kUnroll; ++i) {
-      if (t0 + i < steps) {
-        const int64_t idx = base + static_cast<int64_t>(t0 + i) * d;
-        av[i] = to_float(a[idx]);
-        bv[i] = to_float(b[idx]);
-      }
+__device__ __forceinline__ float step(float a, float h, float b) {
+  return __fadd_rn(__fmul_rn(a, h), b);
+}
+
+// Copies steps [t0, t0 + kSteps) of a and b, lanes [d0, d0 + kLanes) of the
+// rows from `row0` on, into one stage (sa, sb: kSteps x kLanes each).  Steps
+// past T and lanes past D are zero-filled (kVec) or left as they are; the
+// chain never reads them into a stored value.
+template <typename T, bool kVec>
+__device__ __forceinline__ void load_stage(T* sa, T* sb, const T* __restrict__ a,
+                                           const T* __restrict__ b, int64_t row0, int t0,
+                                           int steps, int d, int d0) {
+  constexpr int kLanes = kRowBytes / sizeof(T);
+  if constexpr (kVec) {  // rows of D elements are 16-byte aligned
+    constexpr int kPer = 16 / sizeof(T);     // elements a copy
+    constexpr int kCopies = kLanes / kPer;   // copies a row
+    for (int c = threadIdx.x; c < 2 * kSteps * kCopies; c += kLanes) {
+      const int row = c / kCopies;           // a's steps first, then b's
+      const int i = row % kSteps;
+      const int col = (c % kCopies) * kPer;
+      const bool ok = t0 + i < steps && d0 + col < d;
+      const int64_t at = ok ? (row0 + t0 + i) * d + d0 + col : 0;
+      T* dst = (row < kSteps ? sa : sb) + i * kLanes + col;
+      tc::cp_async16(dst, (row < kSteps ? a : b) + at, ok ? 16 : 0);
     }
-#pragma unroll
-    for (int i = 0; i < kUnroll; ++i) {
-      if (t0 + i < steps) {
-        h = __fadd_rn(__fmul_rn(av[i], h), bv[i]);
-        y[base + static_cast<int64_t>(t0 + i) * d] = from_float<T>(h);
+  } else {  // each thread its own lane
+    const int lane = threadIdx.x;
+    for (int i = 0; i < kSteps; ++i) {
+      const bool ok = t0 + i < steps && d0 + lane < d;
+      const int64_t at = ok ? (row0 + t0 + i) * d + d0 + lane : 0;
+      if constexpr (sizeof(T) == 4) {
+        tc::cp_async4(sa + i * kLanes + lane, a + at, ok ? 4 : 0);
+        tc::cp_async4(sb + i * kLanes + lane, b + at, ok ? 4 : 0);
+      } else if (ok) {  // no 2-byte cp.async: a plain copy
+        sa[i * kLanes + lane] = a[at];
+        sb[i * kLanes + lane] = b[at];
       }
     }
   }
-  h_last[lane] = h;
+}
+
+// One CTA: batch row blockIdx.x / d_tiles, lanes d0 .. d0 + kLanes - 1.
+template <typename T, bool kVec>
+__global__ void __launch_bounds__(kRowBytes / sizeof(T))
+rg_lru_scan_kernel(const T* __restrict__ a, const T* __restrict__ b,
+                   const float* __restrict__ h0, T* __restrict__ y, float* __restrict__ h_last,
+                   int steps, int d, int d_tiles) {
+  constexpr int kLanes = kRowBytes / sizeof(T);
+  __shared__ __align__(16) T sa[kStages][kSteps * kLanes];
+  __shared__ __align__(16) T sb[kStages][kSteps * kLanes];
+  __shared__ __align__(16) T sy[kSteps * kLanes];  // a stage of y (kVec)
+  const int bi = blockIdx.x / d_tiles;
+  const int d0 = (blockIdx.x - bi * d_tiles) * kLanes;
+  const int lane = threadIdx.x;
+  const bool live = d0 + lane < d;
+  const int64_t row0 = static_cast<int64_t>(bi) * steps;  // row (bi, t = 0) of (B*T, D)
+  const int64_t at = static_cast<int64_t>(bi) * d + d0 + lane;  // (bi, d) in (B, D)
+  const int groups = (steps + kSteps - 1) / kSteps;
+  float h = live && h0 != nullptr ? h0[at] : 0.f;
+
+  // group j of this thread's cp.async copies holds stage j
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < groups) load_stage<T, kVec>(sa[s], sb[s], a, b, row0, s * kSteps, steps, d, d0);
+    tc::cp_async_commit();
+  }
+  for (int g = 0; g < groups; ++g) {
+    const int next = g + kStages - 1;  // the copy flies while stage g's chain runs
+    if (next < groups) {
+      load_stage<T, kVec>(sa[next % kStages], sb[next % kStages], a, b, row0, next * kSteps,
+                          steps, d, d0);
+    }
+    tc::cp_async_commit();
+    tc::cp_async_wait<kStages - 1>();
+    __syncthreads();  // every thread's copies of stage g have landed
+    const T* ra = sa[g % kStages];
+    const T* rb = sb[g % kStages];
+    const int t0 = g * kSteps;
+    const int n = min(kSteps, steps - t0);
+    T* yp = y + (row0 + t0) * d + d0 + lane;
+#pragma unroll
+    for (int i = 0; i < kSteps; ++i) {
+      if (i < n) {
+        h = step(to_float(ra[i * kLanes + lane]), h, to_float(rb[i * kLanes + lane]));
+        if constexpr (kVec) {
+          sy[i * kLanes + lane] = from_float<T>(h);
+        } else if (live) {
+          yp[static_cast<int64_t>(i) * d] = from_float<T>(h);
+        }
+      }
+    }
+    if constexpr (kVec) {  // the stage's y rows, 16 bytes a store
+      constexpr int kPer = 16 / sizeof(T);
+      constexpr int kCopies = kLanes / kPer;
+      __syncthreads();
+      for (int c = lane; c < n * kCopies; c += kLanes) {
+        const int i = c / kCopies;
+        const int col = (c % kCopies) * kPer;
+        if (d0 + col < d) {
+          *reinterpret_cast<uint4*>(y + (row0 + t0 + i) * d + d0 + col) =
+              *reinterpret_cast<const uint4*>(sy + i * kLanes + col);
+        }
+      }
+    }
+    __syncthreads();  // stage g (and y's stage) is read before it is refilled
+  }
+  if (live) h_last[at] = h;
+}
+
+__device__ __forceinline__ void load4(const float* p, float (&v)[4]) {
+  const float4 x = *reinterpret_cast<const float4*>(p);
+  v[0] = x.x, v[1] = x.y, v[2] = x.z, v[3] = x.w;
+}
+__device__ __forceinline__ void load4(const __nv_bfloat16* p, float (&v)[4]) {
+  const uint2 x = *reinterpret_cast<const uint2*>(p);
+  const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&x.x));
+  const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&x.y));
+  v[0] = lo.x, v[1] = lo.y, v[2] = hi.x, v[3] = hi.y;
+}
+__device__ __forceinline__ void store4(float* p, const float (&v)[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* p, const float (&v)[4]) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]);
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(v[2], v[3]);
+  uint2 x;
+  x.x = *reinterpret_cast<const uint32_t*>(&lo);
+  x.y = *reinterpret_cast<const uint32_t*>(&hi);
+  *reinterpret_cast<uint2*>(p) = x;
+}
+
+// T = 1 over n = B * D lanes: 4 lanes a thread (kVec) or one.
+template <typename T, bool kVec>
+__global__ void __launch_bounds__(kStepThreads)
+rg_lru_step_kernel(const T* __restrict__ a, const T* __restrict__ b,
+                   const float* __restrict__ h0, T* __restrict__ y, float* __restrict__ h_last,
+                   int64_t n) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * kStepThreads + threadIdx.x;
+  if constexpr (kVec) {
+    const int64_t e = i * 4;
+    if (e >= n) return;
+    float av[4], bv[4], hv[4] = {0.f, 0.f, 0.f, 0.f};
+    load4(a + e, av);
+    load4(b + e, bv);
+    if (h0 != nullptr) load4(h0 + e, hv);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) hv[k] = step(av[k], hv[k], bv[k]);
+    store4(y + e, hv);
+    store4(h_last + e, hv);
+  } else {
+    if (i >= n) return;
+    const float h = step(to_float(a[i]), h0 != nullptr ? h0[i] : 0.f, to_float(b[i]));
+    y[i] = from_float<T>(h);
+    h_last[i] = h;
+  }
+}
+
+bool aligned(const void* p, size_t bytes) {
+  return reinterpret_cast<uintptr_t>(p) % bytes == 0;
 }
 
 template <typename T>
 cudaError_t launch(const void* a, const void* b, const void* h0, void* y, void* h_last,
                    int batch, int steps, int d, cudaStream_t stream) {
-  const int64_t lanes = static_cast<int64_t>(batch) * d;
-  const unsigned blocks = static_cast<unsigned>((lanes + kThreads - 1) / kThreads);
-  rg_lru_kernel<T><<<blocks, kThreads, 0, stream>>>(
-      static_cast<const T*>(a), static_cast<const T*>(b), static_cast<const float*>(h0),
-      static_cast<T*>(y), static_cast<float*>(h_last), batch, steps, d);
+  const T* ta = static_cast<const T*>(a);
+  const T* tb = static_cast<const T*>(b);
+  const float* th0 = static_cast<const float*>(h0);
+  T* ty = static_cast<T*>(y);
+  float* th = static_cast<float*>(h_last);
+  if (steps == 1) {
+    const int64_t n = static_cast<int64_t>(batch) * d;
+    const bool vec = n % 4 == 0 && aligned(a, 4 * sizeof(T)) && aligned(b, 4 * sizeof(T)) &&
+                     aligned(y, 4 * sizeof(T)) && aligned(h_last, 16) &&
+                     (h0 == nullptr || aligned(h0, 16));
+    const int64_t threads = vec ? n / 4 : n;
+    const unsigned blocks = static_cast<unsigned>((threads + kStepThreads - 1) / kStepThreads);
+    if (vec) {
+      rg_lru_step_kernel<T, true><<<blocks, kStepThreads, 0, stream>>>(ta, tb, th0, ty, th, n);
+    } else {
+      rg_lru_step_kernel<T, false><<<blocks, kStepThreads, 0, stream>>>(ta, tb, th0, ty, th, n);
+    }
+  } else {
+    constexpr int kLanes = kRowBytes / sizeof(T);
+    const int d_tiles = (d + kLanes - 1) / kLanes;
+    const int64_t blocks = static_cast<int64_t>(batch) * d_tiles;
+    if (blocks > 0x7fffffff) return cudaErrorInvalidConfiguration;
+    const bool vec = (static_cast<size_t>(d) * sizeof(T)) % 16 == 0 && aligned(a, 16) &&
+                     aligned(b, 16);
+    if (vec) {
+      rg_lru_scan_kernel<T, true><<<static_cast<unsigned>(blocks), kLanes, 0, stream>>>(
+          ta, tb, th0, ty, th, steps, d, d_tiles);
+    } else {
+      rg_lru_scan_kernel<T, false><<<static_cast<unsigned>(blocks), kLanes, 0, stream>>>(
+          ta, tb, th0, ty, th, steps, d, d_tiles);
+    }
+  }
   return cudaGetLastError();
 }
 
@@ -85,7 +263,8 @@ cudaError_t launch(const void* a, const void* b, const void* h0, void* y, void* 
 
 // a, b (B, T, D) contiguous, both f32 (is_bf16 = 0) or both bf16; h0 (B, D) f32
 // or null (zeros).  Writes y (B, T, D) in the input type and h_last (B, D) f32.
-// Launches on `stream` and returns the launch's cudaError_t (0 on success).
+// T = 1 launches the step kernel, T > 1 the ring.  Launches on `stream` and
+// returns the launch's cudaError_t (0 on success).
 extern "C" int rg_lru_fwd(const void* a, const void* b, const void* h0, void* y, void* h_last,
                           int batch, int steps, int d, int is_bf16, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);

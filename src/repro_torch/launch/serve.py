@@ -5,11 +5,12 @@ per-request stop lengths, KV caches managed by the model's cache protocol.
 Decode is an eager Python loop (the JAX driver jits its step).
 
 Run on the card (random weights from a seed, scaled-down config):
-  PYTHONPATH=src python -m repro_torch.launch.serve --arch stablelm-3b
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-3b
 Run on the CPU with the plain versions of the kernels:
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu
-`--arch` takes any id of `repro_torch.configs.ARCHS`; the recurrent archs
-(rwkv6-3b, recurrentgemma-9b) keep their recurrent states in the caches.
+`--arch` takes any id of `repro_torch.configs.ARCHS` and defaults to the
+reference's rwkv6-3b; the recurrent archs (rwkv6-3b, recurrentgemma-9b) keep
+their recurrent states in the caches.
 """
 from __future__ import annotations
 
@@ -75,14 +76,19 @@ def serve_requests(cfg, model, requests: list[Request], max_seq: int,
     return {r.rid: r.out for r in requests}
 
 
-def main():
+def build_parser() -> argparse.ArgumentParser:
+    """The reference's options and defaults, and `--device`."""
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="stablelm-3b", choices=list(configs.ARCHS))
+    ap.add_argument("--arch", default="rwkv6-3b", choices=list(configs.ARCHS))
     ap.add_argument("--requests", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=16)
     ap.add_argument("--new-tokens", type=int, default=12)
     ap.add_argument("--device", default="cuda")
-    args = ap.parse_args()
+    return ap
+
+
+def main():
+    args = build_parser().parse_args()
 
     dev = resolve_device(args.device)
     cfg = configs.get(args.arch).scaled_down()

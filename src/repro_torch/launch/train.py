@@ -49,7 +49,8 @@ from repro_torch.optim import adamw_init, adamw_update, cosine_warmup_schedule
 @dataclasses.dataclass
 class TrainConfig:
     """The reference's fields and defaults, except `arch`: the reference's
-    default (rwkv6-3b) is not ported yet (ROADMAP A6)."""
+    default (rwkv6-3b) is served by the port but not trained on the card yet
+    (a CUDA rwkv6-3b step raises until ROADMAP A14)."""
 
     arch: str = "stablelm-3b"
     scale: str = "smoke"             # smoke (scaled_down) | full

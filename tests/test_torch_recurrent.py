@@ -8,10 +8,10 @@ mode and to the JAX reference scans, at the reference's bounds
 (f32), y 5e-2 (bf16); extreme decay 1e-4.  Blocks at 1e-5, full forward
 1e-4, prefill/decode 2e-3, all in f32.  A plain emulation of B5's bf16
 two-pass design (its chunks, sub-blocks, factored operands and TF32
-rounding) is held to the JAX kernel and scan at the bf16 bounds.  Cases that
-need the card carry the
-`cuda` marker and skip without one; they need no JAX, so on a machine with a
-card and no JAX they run with
+rounding) is held to the JAX kernel and scan at the bf16 bounds.  On the
+card B4 also equals its plain version bit for bit in f32.  Cases that need
+the card carry the `cuda` marker and skip without one; they need no JAX, so
+on a machine with a card and no JAX they run with
 `python -m pytest -m cuda tests/test_torch_recurrent.py`.
 """
 import dataclasses
@@ -113,7 +113,9 @@ def test_plain_rg_lru_matches_jax_kernel(shape, dtype):
     np.testing.assert_allclose(_np(got_h), _np(want_h), **lru_tol(dtype))
 
 
-@pytest.mark.parametrize("shape", [(2, 100, 48), (3, 17, 8), (4, 1, 64)])
+# (2, 1100, 48): a T over many stages of the CUDA kernel's ring (16 steps a
+# stage), not a multiple of the stage
+@pytest.mark.parametrize("shape", [(2, 100, 48), (3, 17, 8), (4, 1, 64), (2, 1100, 48)])
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_plain_rg_lru_from_h0_matches_jax_scan(shape, dtype):
     a, b, h0 = _lru_arrays(shape, seed=1, h0=True)
@@ -315,6 +317,7 @@ def test_cpu_calls_never_count_a_launch():
     want_y, _ = wkv_ref.wkv6_scan(r, k, v, torch.exp(lw), u)
     assert torch.equal(got_y, want_y)
     assert (lru_kernel.rg_lru_fwd.launches, wkv_kernel.wkv6_fwd.launches) == (lru0, wkv0) == (0, 0)
+    assert lru_kernel.rg_lru_fwd.launches_step == 0
     assert wkv_kernel.wkv6_fwd.launches_chunked == wkv_kernel.wkv6_fwd.launches_step == 0
 
 
@@ -494,22 +497,56 @@ def _need_cuda():
         pytest.skip("needs a CUDA device: the kernel runs only on the card")
 
 
+def _lru_cuda_call(ta, tb, th):
+    """B4 on the card, checking by the counters that the design of this T
+    ran: the step kernel at T = 1, the ring above."""
+    fn = lru_kernel.rg_lru_fwd
+    before = (fn.launches, fn.launches_step)
+    out = fn(ta, tb, th)
+    torch.cuda.synchronize()
+    assert (fn.launches, fn.launches_step) == (before[0] + 1, before[1] + (ta.shape[1] == 1))
+    return out
+
+
+# (4, 3, 300): one ragged stage; D = 33: one-element copies in the ring (bf16
+# rows are not 4-byte multiples) and one lane a thread in the step kernel
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", LRU_CASES + [(4, 3, 300)])
+@pytest.mark.parametrize("shape", LRU_CASES + [(4, 3, 300), (2, 37, 33), (3, 1, 33)])
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("h0", [False, True])
 def test_cuda_rg_lru_matches_plain(shape, dtype, h0):
+    """Within the reference's bounds; in f32 the same bits (each lane's
+    multiply and add rounded one by one, in order, as the plain version)."""
     _need_cuda()
     a, b, h = _lru_arrays(shape, seed=11, h0=h0)
     ta, tb = (torch.from_numpy(x).to(getattr(torch, dtype)).cuda() for x in (a, b))
     th = None if h is None else torch.from_numpy(h).cuda()
-    before = lru_kernel.rg_lru_fwd.launches
-    got_y, got_h = lru_kernel.rg_lru_fwd(ta, tb, th)
-    torch.cuda.synchronize()
-    assert lru_kernel.rg_lru_fwd.launches == before + 1
+    got_y, got_h = _lru_cuda_call(ta, tb, th)
     want_y, want_h = lru_ref.rg_lru_scan(ta, tb, th)
     np.testing.assert_allclose(_np(got_y.cpu()), _np(want_y.cpu()), **lru_tol(dtype))
     np.testing.assert_allclose(_np(got_h.cpu()), _np(want_h.cpu()), **lru_tol(dtype))
+    if dtype == "float32":
+        assert torch.equal(got_y, want_y) and torch.equal(got_h, want_h)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_cuda_rg_lru_ring_over_many_stages(dtype):
+    """A ragged T over many stages of the ring (68 of 16 steps and 12) at the
+    model's width, from h0: within the bounds, the plain version's bits in
+    f32, and the same bits in two runs."""
+    _need_cuda()
+    a, b, h = _lru_arrays((2, 1100, 4096), seed=12, h0=True)
+    ta, tb = (torch.from_numpy(x).to(getattr(torch, dtype)).cuda() for x in (a, b))
+    th = torch.from_numpy(h).cuda()
+    got_y, got_h = _lru_cuda_call(ta, tb, th)
+    again_y, again_h = _lru_cuda_call(ta, tb, th)
+    assert torch.equal(got_y, again_y) and torch.equal(got_h, again_h)
+    want_y, want_h = lru_ref.rg_lru_scan(ta, tb, th)
+    np.testing.assert_allclose(_np(got_y.cpu()), _np(want_y.cpu()), **lru_tol(dtype))
+    np.testing.assert_allclose(_np(got_h.cpu()), _np(want_h.cpu()), **lru_tol(dtype))
+    if dtype == "float32":
+        assert torch.equal(got_y, want_y) and torch.equal(got_h, want_h)
 
 
 @pytest.mark.cuda

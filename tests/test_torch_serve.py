@@ -1,5 +1,7 @@
 """Port parity: `repro_torch.launch.serve` vs `repro.launch.serve`."""
+import ast
 import dataclasses
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -51,3 +53,15 @@ def test_serve_tokens_equal_jax_recurrent(arch):
                                device="cpu")
     assert len(got[0]) == N - 2 and all(len(got[i]) == N for i in (1, 2))
     assert got == want
+
+
+def test_cli_default_arch_is_the_references():
+    """The port's `--arch` default is the reference's, read from the source
+    of `repro/launch/serve.py`, so that the two cannot drift apart."""
+    tree = ast.parse(Path(jax_serve.__file__).read_text())
+    defaults = [kw.value.value for node in ast.walk(tree)
+                if isinstance(node, ast.Call) and getattr(node.func, "attr", None) == "add_argument"
+                and node.args and getattr(node.args[0], "value", None) == "--arch"
+                for kw in node.keywords if kw.arg == "default"]
+    assert len(defaults) == 1
+    assert serve.build_parser().parse_args([]).arch == defaults[0] == "rwkv6-3b"
