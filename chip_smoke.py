@@ -11,8 +11,9 @@ Phases, in order; any failure raises and the script exits non-zero:
                print each kernel's registers and spills from ptxas.
   3. kernels - every kernel against its plain PyTorch version on the card: the
                forward B1 at the reference test shapes, the serving shapes
-               (stablelm-3b; recurrentgemma-9b's local layers) and the
-               training shape, and ragged shapes; the backward B2 (dK/dV)
+               (stablelm-3b; recurrentgemma-9b's local layers; qwen3-moe's
+               GQA 16:1 at D = 128) and the training shape, and ragged
+               shapes; the backward B2 (dK/dV)
                and B3 (dQ) at the reference gradient shapes, the training
                shape, ragged shapes, a GQA case on several seeds and a
                D = 256 window case (B1, B2 and B3 in bf16 run their
@@ -35,7 +36,7 @@ Phases, in order; any failure raises and the script exits non-zero:
                again with the card held busy while its launches are queued
                (`device_ms`: device time only), beside the card's bound, at
                the shape each path gives it: B1 at the serving
-               shapes and the training shape, B2 and B3 at the training
+               shapes (qwen3-moe's included) and the training shape, B2 and B3 at the training
                shape, B4 and B5 at the serving prefill and decode shapes.
                No single PyTorch call computes either recurrence over T, so
                their prefill library time is null; B4's decode step is
@@ -46,23 +47,33 @@ Phases, in order; any failure raises and the script exits non-zero:
                efficient); the fastest is the library time (`library_ms`,
                `library_device_ms`), and its backend is recorded.
   5. parity  - at full width, f32, depth cut: stablelm-3b (4 layers),
-               recurrentgemma-9b (one pattern period: rglru, rglru, local) and
-               rwkv6-3b (2 layers): the same weights on the card (kernels) and
-               on the CPU (plain versions) give the same prefill and decode
-               logits.
+               recurrentgemma-9b (one pattern period: rglru, rglru, local),
+               rwkv6-3b (2 layers) and qwen3-moe-235b-a22b (1 layer, ~15 GB):
+               the same weights on the card (kernels) and on the CPU (plain
+               versions) give the same prefill and decode logits; for the MoE
+               arch it also prints how many (token, choice) routing decisions
+               (expert and kept or dropped) agree between card and CPU, and
+               the top-k probability gap of any token that differs.
   6. train parity - stablelm-3b at full width cut to 2 layers, f32, 2 x 128
                tokens: the same weights on the card (B1, B2, B3) and on the CPU
                (plain versions) give the same loss and gradients.
   7. serve   - stablelm-3b, recurrentgemma-9b and rwkv6-3b, each at its full
-               published config (bf16, random weights from a seed), answer 4
-               requests of 512-token prompts with 32 new tokens each through
-               `repro_torch.launch.serve.serve_requests`, one model at a time;
+               published config, and qwen3-moe-235b-a22b at its full width
+               cut to 8 of its 94 layers (bf16, random weights from a seed),
+               answer 4 requests of 512-token prompts with 32 new tokens each
+               through `repro_torch.launch.serve.serve_requests`, one model at
+               a time;
                the kernel launch counts of each run, in prefill and in decode,
                are read and checked (B1 once per attention layer in prefill,
                each in the tensor-core variant; B4 / B5 once per recurrent
                layer in prefill and in every decode step; every prefill call
                of B4 in the ring design and of B5 in the two-pass design,
-               every decode call of both in the step kernel).
+               every decode call of both in the step kernel).  Then one more
+               decode step of each runs under torch.profiler (device ms, the
+               device's idle share, host reads of device values, the top ops
+               by device time), and the MoE arch's FFN is timed at the
+               prefill and decode shapes: whole, its expert products, and
+               its dispatch and combine products, beside its bound.
   8. train (the main path) - stablelm-3b at its full published config, bf16,
                full remat, batch 8 x 512, grad_sync "bridge": 1 warm-up step
                and 3 timed steps through `repro_torch.launch.train.train`; the
@@ -71,11 +82,15 @@ Phases, in order; any failure raises and the script exits non-zero:
                tensor-core variant).
   9. multi-card - only with two or more cards: torchrun starts min(4, count)
                NCCL ranks (this script with --rank), which run the Bruck, ring
-               and Bridge all-reduce against dist.all_reduce, time the shift
-               latencies behind the H100_NVLINK cost model, and train the full
-               config 2 steps through `train()` with grad_sync "gspmd" and
-               "bridge"; the losses must agree with each other and with the
-               main path's.  With one card it says that it did not run.
+               and Bridge all-reduce against dist.all_reduce and the Bruck
+               all-to-all against dist.all_to_all_single (bit-exact), timing
+               each at 1 MB and 256 MB a rank, run the compressed all-reduce's
+               gates, time the shift latencies behind the H100_NVLINK cost
+               model, and train the full config 2 steps through `train()`
+               with grad_sync "gspmd", "bridge" and "bridge-compressed"; the
+               first two's losses must agree with each other and with the
+               main path's, the last's be finite and end below 1.5 x its
+               first.  With one card it says that it did not run.
 Then it prints the kernels' JSON line (one entry per kernel and path, each
 with the launches of that path's run and the numbers of the shape that path
 gives it; a served model's prefill and decode are two paths), the card's name
@@ -84,6 +99,7 @@ nothing of JAX.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import gc
@@ -117,6 +133,7 @@ from repro_torch.kernels.wkv6 import ref as wkv_ref  # noqa: E402
 from repro_torch.launch import train as train_mod  # noqa: E402
 from repro_torch.launch.serve import Request, serve_requests  # noqa: E402
 from repro_torch.models import decode_step, forward, init_params, prefill  # noqa: E402
+from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.data import SyntheticLM  # noqa: E402
 from repro_torch.models.model import loss_fn  # noqa: E402
 
@@ -147,6 +164,8 @@ TRAIN_FWD_CASE = (8, 32, 32, 512, 512, 80, True, None)
 WIDE_CASE = (1, 8, 4, 300, 300, 256, True, 100)
 # recurrentgemma-9b's local layers in prefill: 16 query heads of 256, MQA, window 2048
 GRIFFIN_CASE = (4, 16, 1, 512, 512, 256, True, 2048)
+# qwen3-moe-235b-a22b's prefill: 64 query heads of 128 on 4 KV heads (GQA 16:1)
+QWEN_CASE = (4, 64, 4, 512, 512, 128, True, None)
 # ragged Sq and Sk (not multiples of 16 or 64): Sq < Sk under GQA, and MQA
 # with a window
 RAGGED_CASES = [(1, 4, 2, 72, 300, 80, True, None), (2, 4, 1, 300, 300, 80, True, 100)]
@@ -220,8 +239,13 @@ WKV_STATE_TOL = 5e-4
 EXTREME_TOL = 1e-4
 PATH_DTYPE = {"rg_lru_fwd": torch.float32, "wkv6_fwd": torch.bfloat16}
 # card vs CPU model parity: arch, layers kept (full width otherwise)
-PARITY_ARCHS = (("stablelm-3b", 4), ("recurrentgemma-9b", 3), ("rwkv6-3b", 2))
-SERVE_ARCHS = ("stablelm-3b", "recurrentgemma-9b", "rwkv6-3b")
+PARITY_ARCHS = (("stablelm-3b", 4), ("recurrentgemma-9b", 3), ("rwkv6-3b", 2),
+                ("qwen3-moe-235b-a22b", 1))
+SERVE_ARCHS = ("stablelm-3b", "recurrentgemma-9b", "rwkv6-3b", "qwen3-moe-235b-a22b")
+# served depth where the whole model does not fit one card: qwen3-moe's 94
+# layers are ~470 GB in bf16; 8 layers and the untied embed and unembed are
+# ~42.3 GB.  The other served models keep their full configs.
+SERVE_DEPTH = {"qwen3-moe-235b-a22b": 8}
 # the SDPA backends tried for the attention yardstick (torch.nn.attention.SDPBackend)
 SDPA_BACKENDS = ("FLASH_ATTENTION", "CUDNN_ATTENTION", "EFFICIENT_ATTENTION")
 
@@ -287,7 +311,7 @@ def check_kernels() -> dict:
     errs = {}
     cases = [(c, dt) for dt in (torch.float32, torch.bfloat16) for c in FLASH_CASES]
     cases += [(c, dt) for c in (SERVE_CASE, TRAIN_FWD_CASE, WIDE_CASE, GRIFFIN_CASE,
-                                *RAGGED_CASES)
+                                QWEN_CASE, *RAGGED_CASES)
               for dt in (torch.bfloat16, torch.float32)]
     for case, dtype in cases:
         d, causal, window = case[5], case[6], case[7]
@@ -449,10 +473,56 @@ def time_flash(case) -> dict:
     return times
 
 
+@contextlib.contextmanager
+def recorded_routes(records: list):
+    """While open, every MoE routing call appends (device type, top_i, keep,
+    probs), on the host, to `records`."""
+    route = moe_mod.route
+
+    def recording(p, xg, m):
+        out = route(p, xg, m)
+        probs, _, top_i, _, keep = out
+        records.append((xg.device.type, top_i.cpu(), keep.cpu(), probs.cpu()))
+        return out
+
+    moe_mod.route = recording
+    try:
+        yield records
+    finally:
+        moe_mod.route = route
+
+
+def report_routing(arch: str, records: list, cfg) -> None:
+    """Prints how many (token, choice) routing decisions (the expert, kept or
+    dropped) agree between the card's and the CPU's calls, in call order,
+    and the top-k probability gap (CPU) of every token whose decisions differ."""
+    cpu = [r for r in records if r[0] == "cpu"]
+    card = [r for r in records if r[0] == "cuda"]
+    if len(cpu) != len(card) or not cpu:
+        raise AssertionError(f"{arch}: {len(card)} routing calls on the card, "
+                             f"{len(cpu)} on the CPU")
+    e, k = cfg.moe.num_experts, cfg.moe.top_k
+    agree = total = 0
+    gaps = []
+    for (_, ti_c, keep_c, probs_c), (_, ti_g, keep_g, _) in zip(cpu, card, strict=True):
+        # 0: not chosen, 1: chosen and dropped, 2: chosen and kept
+        m_c, m_g = (torch.zeros(ti.shape[:-1] + (e,), dtype=torch.int8).scatter_(
+            -1, ti, 1 + kp.to(torch.int8)) for ti, kp in ((ti_c, keep_c), (ti_g, keep_g)))
+        agree += int(((m_c == m_g) & (m_c > 0)).sum())
+        total += int((m_c > 0).sum())
+        differ = (m_c != m_g).any(-1)
+        top = probs_c.sort(dim=-1, descending=True).values
+        gaps += (top[..., k - 1] - top[..., k])[differ].tolist()
+    print(f"routing {arch} card vs cpu: {agree} of {total} (token, choice) decisions agree "
+          f"over {len(cpu)} calls; {len(gaps)} tokens differ"
+          + (f", top-k probability gaps (p_k - p_(k+1), CPU) {sorted(gaps)}" if gaps else ""))
+
+
 @torch.inference_mode()
 def check_model_parity(arch: str, num_layers: int) -> float:
     """Same f32 weights on the card and on the CPU: logits within MODEL_TOL.
-    `arch` at its full width, cut to `num_layers`."""
+    `arch` at its full width, cut to `num_layers`; a MoE arch's routing
+    decisions are compared and printed too."""
     cfg = dataclasses.replace(configs.get(arch), num_layers=num_layers, dtype="float32")
     if arch == "stablelm-3b":
         cpu_model = init_params(cfg, torch.Generator().manual_seed(SEED), device="cpu")
@@ -464,14 +534,17 @@ def check_model_parity(arch: str, num_layers: int) -> float:
                            generator=torch.Generator().manual_seed(SEED + 1))
     prompt, max_seq = tokens[:, :128], 136
     worst = 0.0
-    logits_c, caches_c = prefill(cfg, cpu_model, {"tokens": prompt}, max_seq)
-    logits_g, caches_g = prefill(cfg, gpu_model, {"tokens": prompt.cuda()}, max_seq)
-    steps = [("prefill", logits_c, logits_g)]
-    for t in range(128, 131):
-        tok = tokens[:, t:t + 1]
-        logits_c, caches_c = decode_step(cfg, cpu_model, tok, caches_c)
-        logits_g, caches_g = decode_step(cfg, gpu_model, tok.cuda(), caches_g)
-        steps.append((f"decode {t}", logits_c, logits_g))
+    with recorded_routes([]) as routes:
+        logits_c, caches_c = prefill(cfg, cpu_model, {"tokens": prompt}, max_seq)
+        logits_g, caches_g = prefill(cfg, gpu_model, {"tokens": prompt.cuda()}, max_seq)
+        steps = [("prefill", logits_c, logits_g)]
+        for t in range(128, 131):
+            tok = tokens[:, t:t + 1]
+            logits_c, caches_c = decode_step(cfg, cpu_model, tok, caches_c)
+            logits_g, caches_g = decode_step(cfg, gpu_model, tok.cuda(), caches_g)
+            steps.append((f"decode {t}", logits_c, logits_g))
+    if cfg.ffn == "moe":
+        report_routing(arch, routes, cfg)
     for name, want, got in steps:
         err, ok = max_err(got.cpu(), want, MODEL_TOL, MODEL_TOL)
         worst = max(worst, err)
@@ -497,10 +570,13 @@ def expected_serve_launches(cfg, new_tokens: int) -> tuple[dict, dict]:
 
 
 def serve_path(arch: str) -> dict:
-    """`arch` at its full published config answers 4 x (512 + 32) tokens
-    through `serve_requests`.  Returns the launch counts of the run, split
-    into prefill and decode."""
+    """`arch` at its full published config (its depth cut to SERVE_DEPTH
+    where that names it) answers 4 x (512 + 32) tokens through
+    `serve_requests`.  Returns the launch counts of the run, split into
+    prefill and decode."""
     cfg = configs.get(arch)
+    if arch in SERVE_DEPTH:
+        cfg = dataclasses.replace(cfg, num_layers=SERVE_DEPTH[arch])
     batch, prompt_len, new_tokens = 4, 512, 32
     max_seq = prompt_len + new_tokens + 1
     model = init_params(cfg, torch.Generator(device="cuda").manual_seed(SEED), "cuda")
@@ -556,7 +632,8 @@ def serve_path(arch: str) -> dict:
         raise AssertionError("generated token id out of the vocabulary")
 
     # greedy agreement with a teacher-forced full forward (printed, not
-    # asserted: bf16 near-ties can flip a greedy choice)
+    # asserted: bf16 near-ties can flip a greedy choice, and a MoE model's
+    # capacity drops depend on how the tokens are grouped)
     full = torch.cat([prompts, gen], dim=1).cuda()
     with torch.inference_mode():
         logits = forward(cfg, model, {"tokens": full}, mode="train").logits
@@ -565,14 +642,113 @@ def serve_path(arch: str) -> dict:
     ref_tok = logits[:, prompt_len - 1:-1].argmax(dim=-1).cpu()
     agree = (ref_tok == gen).float().mean().item() * 100
 
+    # one more decode step (from a fresh prefill) under the profiler: the
+    # device's busy time and idle share in decode
+    with torch.inference_mode():
+        _, caches = prefill(cfg, model, {"tokens": prompts.cuda()}, max_seq)
+        step = gen[:, :1].cuda()
+        decode_step(cfg, model, step, caches)
+        print(f"serve {arch} decode step (batch {batch}) under the profiler: "
+              f"{profile_text(profiled(lambda: decode_step(cfg, model, step, caches)))}")
+    if cfg.ffn == "moe":
+        moe_breakdown(cfg, model)
+
     prefill_s = float(re.search(r"prefill: .* in ([0-9.]+)s", messages[0]).group(1))
     decode_tps = float(re.search(r"\(([0-9.]+) tok/s\)", messages[1]).group(1))
-    print(f"serve {arch} full config, {batch} x ({prompt_len} + {new_tokens}): "
+    print(f"serve {arch} full config ({cfg.num_layers} layers), "
+          f"{batch} x ({prompt_len} + {new_tokens}): "
           f"prefill {prefill_s:.3f} s = {batch * prompt_len / prefill_s:.1f} tok/s, "
           f"decode {decode_tps:.1f} tok/s, peak memory {peak / 2**30:.3f} GiB "
           f"({peak} bytes), greedy agreement with full forward {agree:.1f}%, "
           f"launches prefill {launches['prefill']}, decode {launches['decode']}")
     return launches
+
+
+def profiled(fn, top: int = 8) -> dict:
+    """One call of `fn` (warm) under torch.profiler, CPU and CUDA: its wall
+    ms (host clock, ending in a synchronize, the profiler's own cost
+    included), the device ms (the kernels' device times summed: one stream),
+    the device's idle share of the wall time, the host's reads of device
+    values (`aten::_local_scalar_dense`, each a sync) and the `top` ops by
+    their kernels' device ms."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+    device = sum(e.self_device_time_total for e in events
+                 if e.device_type == DeviceType.CUDA) / 1e3
+    ops = sorted(((e.key, round(e.self_device_time_total / 1e3, 4), e.count) for e in events
+                  if e.device_type == DeviceType.CPU and e.self_device_time_total > 0),
+                 key=lambda op: -op[1])
+    reads = sum(e.count for e in events if e.key == "aten::_local_scalar_dense")
+    return {"wall_ms": wall, "device_ms": device,
+            "idle_share": 1 - device / wall if device else None,
+            "host_reads": reads, "top_ops": ops[:top]}
+
+
+def profile_text(prof: dict) -> str:
+    if not prof["device_ms"]:
+        return (f"wall {prof['wall_ms']:.3f} ms, device time not measured (the profiler "
+                f"saw no kernel)")
+    return (f"wall {prof['wall_ms']:.3f} ms, device {prof['device_ms']:.3f} ms, idle "
+            f"{prof['idle_share'] * 100:.1f} %, host reads of device values "
+            f"{prof['host_reads']}, top ops (name, device ms, calls) {prof['top_ops']}")
+
+
+@torch.inference_mode()
+def moe_breakdown(cfg, model) -> None:
+    """Layer 0's MoE FFN of a served model at the served prefill (4 x 512
+    tokens: groups of `group_size`, one after another) and decode (one group
+    of 4 tokens) shapes, bf16, timed with CUDA events (`time_ms`): the whole
+    FFN, its three expert products per group (`layers.dot`: f32
+    accumulation and output), the same three as plain bf16 `torch.bmm`, and
+    its dispatch and combine products; beside the least time of the FFN's
+    bytes (the expert weights once) and FLOPs."""
+    from repro_torch.models import layers
+
+    p, m, d = model.blocks[0]["ffn"], cfg.moe, cfg.d_model
+    e, f = m.num_experts, m.d_ff_expert
+    gen = case_generator("moe", cfg.name)
+    bf16 = torch.bfloat16
+    weight_bytes = sum(p[k].numel() * p[k].element_size() for k in ("w_gate", "w_up", "w_down"))
+    for name, tokens in (("prefill", 4 * 512), ("decode", 4)):
+        gs = min(m.group_size, tokens)
+        n, c = tokens // gs, moe_mod._capacity(gs, m)
+        x = torch.randn((1, tokens, d), generator=gen, device="cuda").to(bf16)
+        xe = torch.randn((e, c, d), generator=gen, device="cuda").to(bf16)
+        hu = torch.randn((e, c, f), generator=gen, device="cuda").to(bf16)
+        xg = torch.randn((1, gs, d), generator=gen, device="cuda").to(bf16)
+        ye = torch.randn((1, e * c, d), generator=gen, device="cuda").to(bf16)
+        disp = torch.zeros((1, gs, e * c), dtype=bf16, device="cuda")
+
+        def groups(fn):
+            return lambda: [fn() for _ in range(n)]
+
+        fns = {
+            "ffn": lambda: moe_mod.moe_ffn(cfg, p, x),
+            "experts": groups(lambda: (layers.dot(xe, p["w_gate"]), layers.dot(xe, p["w_up"]),
+                                       layers.dot(hu, p["w_down"]))),
+            "experts_bf16_bmm": groups(lambda: (torch.bmm(xe, p["w_gate"]),
+                                                torch.bmm(xe, p["w_up"]),
+                                                torch.bmm(hu, p["w_down"]))),
+            "dispatch_combine": groups(lambda: (torch.matmul(disp.mT, xg),
+                                                torch.matmul(disp, ye))),
+        }
+        ms = {key: time_ms(fn, iters=10) for key, fn in fns.items()}
+        print(f"moe {cfg.name} layer 0 {name} FFN under the profiler: "
+              f"{profile_text(profiled(fns['ffn']))}")
+        flops = n * (3 * 2 * e * c * d * f + 2 * 2 * gs * e * c * d)
+        moved = weight_bytes + 2 * x.numel() * x.element_size()
+        bound_ms, by = bound(moved, flops)
+        print(f"moe {cfg.name} layer 0 {name} ({n} group(s) of {gs} tokens, C = {c}), bf16, "
+              f"ms: {ms}; bound_ms {bound_ms:.4f} (by {by}: {moved} bytes, {flops} FLOP, of "
+              f"which dispatch and combine {n * 4 * gs * e * c * d})")
 
 
 def bwd_inputs(case, dtype):
@@ -1082,13 +1258,91 @@ def multi_card(n: int, main_losses: list[float]) -> dict:
         raise AssertionError(f"multi-card ranks exited {proc.returncode}")
     res = json.loads([ln for ln in out.splitlines() if ln.startswith('{"ranks"')][-1])
     want = main_losses[:MULTI_STEPS]
-    for mode, got in res["train_losses"].items():
+    for mode in ("gspmd", "bridge"):
+        got = res["train_losses"][mode]
         if not all(math.isclose(a, b, rel_tol=LOSS_RTOL) for a, b in zip(got, want, strict=True)):
             raise AssertionError(f"{n}-rank {mode} losses {got} differ from the one-rank "
                                  f"main path's {want} beyond rtol {LOSS_RTOL}")
     print(f"multi-card train: {n}-rank gspmd and bridge losses match the one-rank main "
           f"path's {want} (rtol {LOSS_RTOL})")
     return res
+
+
+def host_ms(fn, iters: int) -> float:
+    """ms of one call of the collective `fn` on the host clock, every rank
+    starting together after a warm-up call and ending synchronised."""
+    import torch.distributed as dist
+
+    fn()
+    dist.barrier()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    dist.barrier()
+    return (time.perf_counter() - t0) / iters * 1e3
+
+
+def multi_all_to_all(n: int, dev, say) -> dict:
+    """bruck_all_to_all against dist.all_to_all_single at MULTI_SIZES_MB a
+    rank (f32; row j of a rank's (n, m) input is its block for rank j): the
+    same bits, then both timed on the host clock."""
+    import torch.distributed as dist
+
+    from repro_torch.collectives import bruck_all_to_all
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1000 + dist.get_rank())
+    out = {}
+    for mb in MULTI_SIZES_MB:
+        x = torch.randn((n, mb * 2**20 // 4 // n), generator=gen, device=dev)
+        want = torch.empty_like(x)
+        dist.all_to_all_single(want, x)
+        if not torch.equal(bruck_all_to_all(x), want):
+            raise AssertionError(f"bruck_all_to_all {mb} MB differs from all_to_all_single")
+        recv = torch.empty_like(x)
+        ms = {"library": host_ms(lambda x=x: dist.all_to_all_single(recv, x), 5),
+              "bruck": host_ms(lambda x=x: bruck_all_to_all(x), 5)}
+        out[f"all_to_all_{mb}MB_ms"] = ms
+        say(f"multi-card all-to-all {mb} MB f32 a rank on {n} ranks: bruck_all_to_all equals "
+            f"dist.all_to_all_single bit for bit; host clock, ms: {ms}")
+    return out
+
+
+def multi_compressed(n: int, dev, say) -> dict:
+    """The reference's compressed all-reduce gates (tests/_multidevice_worker.py):
+    round 1's relative error below 0.05, and with error feedback round 1 +
+    round 2 within 2 x round 1's error of twice the sum; then the compressed
+    all-reduce and dist.all_reduce timed at MULTI_SIZES_MB a rank."""
+    import torch.distributed as dist
+
+    from repro_torch.collectives import compressed_all_reduce, make_error_feedback_state
+
+    rank = dist.get_rank()
+    g = torch.randn((n, 33), generator=torch.Generator(device=dev).manual_seed(SEED),
+                    device=dev) * 3.0   # every rank draws the same global array
+    want = g.sum(0)
+    grads = [g[rank].clone()]
+    ef = make_error_feedback_state(grads)
+    (out1,), ef = compressed_all_reduce(grads, ef)
+    (out2,), _ = compressed_all_reduce(grads, ef)
+    err1 = (out1 - want).abs().max().item()
+    rel = err1 / want.abs().max().item()
+    err_fb = (out1 + out2 - 2 * want).abs().max().item()
+    say(f"multi-card compressed all-reduce on {n} ranks: relative error {rel:.4e} (gate "
+        f"< 0.05); error feedback {err_fb:.4e} <= 2 x {err1:.4e} + 1e-6")
+    if not (rel < 0.05 and err_fb <= 2 * err1 + 1e-6):
+        raise AssertionError("compressed all-reduce gates failed")
+    out = {"compressed_gates": {"rel_err": rel, "err1": err1, "err_fb": err_fb}}
+    gen = torch.Generator(device=dev).manual_seed(SEED + rank)
+    for mb in MULTI_SIZES_MB:
+        x = torch.randn(mb * 2**20 // 4, generator=gen, device=dev)
+        zero = make_error_feedback_state([x])
+        ms = {"library": host_ms(lambda x=x: dist.all_reduce(x.clone()), 5),
+              "compressed": host_ms(lambda x=x, z=zero: compressed_all_reduce([x], z), 5)}
+        out[f"compressed_allreduce_{mb}MB_ms"] = ms
+        say(f"multi-card compressed all-reduce {mb} MB f32 on {n} ranks (host clock, ms): {ms}")
+    return out
 
 
 def _rank_main() -> None:
@@ -1106,17 +1360,6 @@ def _rank_main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     say = (lambda *a: print(*a, flush=True)) if rank == 0 else (lambda *a: None)
     out = {"ranks": n}
-
-    def host_ms(fn, iters):
-        fn()
-        dist.barrier()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-        dist.barrier()
-        return (time.perf_counter() - t0) / iters * 1e3
 
     try:
         gen = torch.Generator(device=dev).manual_seed(SEED + rank)
@@ -1138,6 +1381,8 @@ def _rank_main() -> None:
             out[f"allreduce_{mb}MB_ms"] = ms
             say(f"multi-card all-reduce {mb} MB f32 on {n} ranks (host clock, ms): {ms}; "
                 f"gradient_sync_plan picks {plan.impl} (bridge_all_reduce is always Bruck)")
+        out.update(multi_all_to_all(n, dev, say))
+        out.update(multi_compressed(n, dev, say))
         # shift latency at one f32 element, offsets 1 and 2 in turns, nine rounds
         # of 200 each, on the host clock and on CUDA events of the current stream
         # (which waits for NCCL's); alpha_h := t(2) - t(1), alpha_s := t(1) - alpha_h
@@ -1171,7 +1416,7 @@ def _rank_main() -> None:
         # the full config trains MULTI_STEPS steps through train() per mode
         b, _, seq = TRAIN_CASE[:3]
         losses, step_s = {}, {}
-        for mode in ("gspmd", "bridge"):
+        for mode in train_mod.GRAD_SYNCS:
             tc = train_mod.TrainConfig(arch="stablelm-3b", scale="full", steps=MULTI_STEPS,
                                        batch_size=b, seq_len=seq, grad_sync=mode, seed=SEED)
             lines = []
@@ -1192,11 +1437,15 @@ def _rank_main() -> None:
             torch.cuda.empty_cache()
         out["train_losses"], out["train_step_s"] = losses, step_s
         say(f"multi-card train stablelm-3b full config, {n} ranks, global batch {b} x {seq}: "
-            f"gspmd {losses['gspmd']} (steps {step_s['gspmd']} s), bridge {losses['bridge']} "
-            f"(steps {step_s['bridge']} s) (rtol {LOSS_RTOL})")
+            + ", ".join(f"{mode} {losses[mode]} (steps {step_s[mode]} s)" for mode in losses)
+            + f" (bridge vs gspmd rtol {LOSS_RTOL})")
         if not all(math.isclose(a, c, rel_tol=LOSS_RTOL)
                    for a, c in zip(losses["bridge"], losses["gspmd"], strict=True)):
             raise AssertionError("bridge and gspmd losses differ")
+        # tests/_distributed_worker.py check 2: compressed sync still trains
+        compressed = losses["bridge-compressed"]
+        if not (all(math.isfinite(x) for x in compressed) and compressed[-1] < 1.5 * compressed[0]):
+            raise AssertionError(f"bridge-compressed losses {compressed} not finite or diverging")
         say(json.dumps(out))
     finally:
         dist.destroy_process_group()
@@ -1226,7 +1475,8 @@ def main() -> None:
     bwd_errs = check_bwd_kernels()
     rec_errs = check_recurrent_kernels()
     phase("4 kernel timing")
-    fwd_times = {case: time_flash(case) for case in (TRAIN_FWD_CASE, SERVE_CASE, GRIFFIN_CASE)}
+    fwd_times = {case: time_flash(case)
+                 for case in (TRAIN_FWD_CASE, SERVE_CASE, GRIFFIN_CASE, QWEN_CASE)}
     bwd_times = time_bwd()
     rec_times = time_recurrent()
     phase("5 model parity card vs cpu")
@@ -1259,7 +1509,7 @@ def main() -> None:
     # one entry per kernel and path: launches of that path's run, error and
     # times at the shape that path gives the kernel
     griffin, rwkv = serve_launches["recurrentgemma-9b"], serve_launches["rwkv6-3b"]
-    stablelm = serve_launches["stablelm-3b"]
+    stablelm, qwen = serve_launches["stablelm-3b"], serve_launches["qwen3-moe-235b-a22b"]
     entries = [
         ("train stablelm-3b", "flash_attention_fwd", TRAIN_FWD_CASE, train_launches,
          fwd_errs[TRAIN_FWD_CASE], fwd_times[TRAIN_FWD_CASE]),
@@ -1269,6 +1519,8 @@ def main() -> None:
          fwd_errs[SERVE_CASE], fwd_times[SERVE_CASE]),
         ("serve recurrentgemma-9b prefill", "flash_attention_fwd", GRIFFIN_CASE,
          griffin["prefill"], fwd_errs[GRIFFIN_CASE], fwd_times[GRIFFIN_CASE]),
+        ("serve qwen3-moe-235b-a22b prefill", "flash_attention_fwd", QWEN_CASE,
+         qwen["prefill"], fwd_errs[QWEN_CASE], fwd_times[QWEN_CASE]),
         *((f"serve recurrentgemma-9b {part}", "rg_lru_fwd", case, griffin[part],
            rec_errs[("rg_lru_fwd", case)], rec_times[("rg_lru_fwd", case)])
           for part, case in (("prefill", LRU_PREFILL), ("decode", LRU_DECODE))),

@@ -12,7 +12,9 @@ import importlib
 from repro_torch.models.config import SHAPES, ArchConfig, ShapeConfig
 
 ARCHS: tuple[str, ...] = (
+    "arctic-480b",
     "gemma3-4b",
+    "qwen3-moe-235b-a22b",
     "recurrentgemma-9b",
     "rwkv6-3b",
     "stablelm-3b",

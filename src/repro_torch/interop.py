@@ -8,6 +8,9 @@ layout, so the two can be compared leaf by leaf.  The JAX tree stacks each
 segment's per-period blocks on a leading reps axis; the scan runs
 `for rep in range(reps): for pos in period`, so that is the layer order here.
 Projections keep the JAX `(d_in, d_out)` layout: the port computes `x @ w`.
+A block's parameter dicts may nest (a MoE FFN's stacked `(E, ...)` experts
+beside Arctic's dense residual under `ffn["dense"]`); both directions walk
+any depth of dicts.
 """
 from __future__ import annotations
 
@@ -27,10 +30,11 @@ def _tensor(a, device) -> torch.Tensor:
 
 
 def _leaves(tree: dict, device, rep: int | None = None) -> dict:
-    """{name: {param: tensor}} of one block (rep-th slice) or one top-level group."""
-    return {name: {k: _tensor(a if rep is None else np.asarray(a)[rep], device)
-                   for k, a in sub.items()}
-            for name, sub in tree.items()}
+    """The dicts of `tree` with each array as a tensor: one block (its rep-th
+    slice) or the top-level groups."""
+    return {k: _leaves(a, device, rep) if isinstance(a, dict) else
+            _tensor(a if rep is None else np.asarray(a)[rep], device)
+            for k, a in tree.items()}
 
 
 def params_from_jax(cfg: ArchConfig, tree: dict,
@@ -65,11 +69,19 @@ def tree_from_model(model: Model, attr: str = "data") -> dict:
     def leaves(pdict) -> dict:
         out = {}
         for k, p in pdict.items():
+            if isinstance(p, torch.nn.ParameterDict):  # a nested dict
+                out[k] = leaves(p)
+                continue
             t = getattr(p, attr)
             if t is None:
                 raise ValueError(f"parameter {k!r} has no {attr}")
             out[k] = _numpy(t)
         return out
+
+    def stack(trees: list) -> dict:
+        """The per-rep dicts of one period position, stacked leaf by leaf."""
+        return {k: stack([t[k] for t in trees]) if isinstance(v, dict) else
+                np.stack([t[k] for t in trees]) for k, v in trees[0].items()}
 
     cfg = model.cfg
     tree = {"embed": leaves(model.embed)}
@@ -85,9 +97,6 @@ def tree_from_model(model: Model, attr: str = "data") -> dict:
                 per_pos[pos].append({name: leaves(block[name])
                                      for name, _ in block.named_children()})
                 layer += 1
-        decoder.append([{name: {k: np.stack([r[name][k] for r in reps_list])
-                                for k in reps_list[0][name]}
-                         for name in reps_list[0]}
-                        for reps_list in per_pos])
+        decoder.append([stack(reps_list) for reps_list in per_pos])
     tree["decoder"] = decoder
     return tree

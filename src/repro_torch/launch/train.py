@@ -9,7 +9,10 @@ are then summed across ranks and divided by the world size:
   bridge : the paper's technique.  `gradient_sync_plan` picks, under the
            `H100_NVLINK` cost model, the Bruck reduce-scatter + all-gather
            (with the planner's schedules), the ring, or the library
-           all-reduce, run per gradient leaf.
+           all-reduce, run per gradient leaf;
+  bridge-compressed : the int8 all-reduce with error feedback
+           (`compressed_all_reduce`), the residuals kept across steps from
+           zero; it quantizes on one rank too, as the reference does.
 The loss and metrics are averaged across ranks, as `pmean` does.
 
 The world is `torch.distributed` when it is initialised (`torchrun`), else one
@@ -17,8 +20,8 @@ rank.  Rank r takes rows [r B/n, (r+1) B/n) of `SyntheticLM.global_batch`, so
 the global batch does not depend on the world size.  Ranks run on
 `cuda:{LOCAL_RANK}` (NCCL), or on the CPU (gloo) when `device="cpu"`.
 
-Not ported yet, and refused with NotImplementedError: `bridge-compressed`
-(ROADMAP A3), checkpoint/restart (A11) and 2-D meshes (A9).
+Not ported yet, and refused with NotImplementedError: checkpoint/restart
+(ROADMAP A11) and 2-D meshes (A9).
 
 Run (random weights from a seed, scaled-down config unless --scale full):
   PYTHONPATH=src python -m repro_torch.launch.train --arch stablelm-3b
@@ -38,7 +41,8 @@ import torch.distributed as dist
 
 from repro_torch import configs
 from repro_torch._device import resolve_device
-from repro_torch.collectives import (bruck_all_reduce, gradient_sync_plan,
+from repro_torch.collectives import (bruck_all_reduce, compressed_all_reduce,
+                                     gradient_sync_plan, make_error_feedback_state,
                                      ring_all_reduce)
 from repro_torch.core.cost_model import H100_NVLINK
 from repro_torch.data import SyntheticLM
@@ -59,7 +63,7 @@ class TrainConfig:
     seq_len: int = 64
     lr: float = 3e-4
     warmup: int = 10
-    grad_sync: str = "gspmd"         # gspmd | bridge  (bridge-compressed: A3)
+    grad_sync: str = "gspmd"         # gspmd | bridge | bridge-compressed
     checkpoint_dir: str | None = None
     checkpoint_every: int = 10
     mesh_shape: tuple = ()
@@ -67,12 +71,12 @@ class TrainConfig:
     seed: int = 0
 
 
+GRAD_SYNCS = ("gspmd", "bridge", "bridge-compressed")
+
+
 def _check_supported(tc: TrainConfig) -> None:
-    if tc.grad_sync == "bridge-compressed":
-        raise NotImplementedError("grad_sync='bridge-compressed' is not ported to "
-                                  "PyTorch yet: ROADMAP A3 (compressed all-reduce)")
-    if tc.grad_sync not in ("gspmd", "bridge"):
-        raise ValueError(f"grad_sync must be 'gspmd' or 'bridge', got {tc.grad_sync!r}")
+    if tc.grad_sync not in GRAD_SYNCS:
+        raise ValueError(f"grad_sync must be one of {GRAD_SYNCS}, got {tc.grad_sync!r}")
     if tc.checkpoint_dir:
         raise NotImplementedError("checkpoint_dir: checkpoint/restart is not ported to "
                                   "PyTorch yet: ROADMAP A11")
@@ -104,12 +108,19 @@ def current_world() -> World:
     return World()
 
 
-def sync_gradients(grads: list[torch.Tensor], grad_sync: str,
-                   world: World) -> list[torch.Tensor]:
-    """Sum gradient leaves across the world and divide by its size."""
+def sync_gradients(grads: list[torch.Tensor], grad_sync: str, world: World,
+                   ef_state: list[torch.Tensor] | None = None):
+    """Sum gradient leaves across the world and divide by its size.  Returns
+    (grads, ef_state): `bridge-compressed` reads and replaces the error
+    feedback residuals, the other modes pass them through."""
     n = world.size
+    if grad_sync == "bridge-compressed":
+        grads, ef_state = compressed_all_reduce(grads, ef_state)
+        for g in grads:  # f32 sums of this call's own: divided in place
+            g /= n
+        return grads, ef_state
     if n == 1:
-        return grads
+        return grads, ef_state
     if grad_sync == "gspmd":
         for g in grads:
             dist.all_reduce(g, op=dist.ReduceOp.SUM)
@@ -124,7 +135,7 @@ def sync_gradients(grads: list[torch.Tensor], grad_sync: str,
         else:
             for g in grads:
                 dist.all_reduce(g, op=dist.ReduceOp.SUM)
-    return [g / n for g in grads]
+    return [g / n for g in grads], ef_state
 
 
 def _pmean(x: torch.Tensor, world: World) -> torch.Tensor:
@@ -136,22 +147,23 @@ def _pmean(x: torch.Tensor, world: World) -> torch.Tensor:
 
 
 def make_train_step(cfg, tc: TrainConfig, world: World):
-    """step(model, opt_state, batch) -> (opt_state, metrics); the model's
-    parameters are updated in place."""
+    """step(model, opt_state, batch, ef) -> (opt_state, metrics, ef); the
+    model's parameters are updated in place, and `ef` is the error feedback
+    state of `bridge-compressed` (None for the other modes)."""
     lr = cosine_warmup_schedule(tc.lr, tc.warmup, tc.steps)
 
-    def step(model: Model, opt_state, batch: dict):
+    def step(model: Model, opt_state, batch: dict, ef=None):
         params = list(model.parameters())
         for p in params:
             p.grad = None
         loss, metrics = loss_fn(cfg, model, batch)
         loss.backward()
-        grads = sync_gradients([p.grad for p in params], tc.grad_sync, world)
+        grads, ef = sync_gradients([p.grad for p in params], tc.grad_sync, world, ef)
         metrics = {k: _pmean(m, world) for k, m in metrics.items()}
         _, opt_state, om = adamw_update(grads, opt_state, params, lr)
         metrics.update(om)
         metrics["loss"] = _pmean(loss, world)
-        return opt_state, metrics
+        return opt_state, metrics, ef
 
     return step
 
@@ -193,6 +205,8 @@ def train(tc: TrainConfig, progress=print, device=None, model: Model | None = No
             for p in model.parameters():
                 dist.broadcast(p.data, src=0)
     opt_state = adamw_init(list(model.parameters()))
+    ef = (make_error_feedback_state(list(model.parameters()))
+          if tc.grad_sync == "bridge-compressed" else None)
     step_fn = make_train_step(cfg, tc, world)
 
     per_rank = tc.batch_size // world.size
@@ -204,7 +218,7 @@ def train(tc: TrainConfig, progress=print, device=None, model: Model | None = No
         host_batch = data.global_batch(step, tc.batch_size, 1)
         batch = {k: torch.from_numpy(v[rows]).to(dev) for k, v in host_batch.items()}
         t0 = time.perf_counter()
-        opt_state, metrics = step_fn(model, opt_state, batch)
+        opt_state, metrics, ef = step_fn(model, opt_state, batch, ef)
         loss = float(metrics["loss"])  # waits for the device
         dt = time.perf_counter() - t0
         losses.append(loss)

@@ -13,33 +13,41 @@ import torch.nn.functional as F
 
 
 class _DotF32(torch.autograd.Function):
-    """x (N, d_in) @ w (d_in, d_out) in half precision with f32 accumulation
-    and an f32 result, on the card.
+    """x (N, d_in) @ w (d_in, d_out), or a batch of them, x (B, N, d_in) @
+    w (B, d_in, d_out), in half precision with f32 accumulation and an f32
+    result, on the card.
 
-    `torch.mm(..., out_dtype=torch.float32)` has no derivative (`aten::mm.dtype`
-    raises "derivative for aten::mm is not implemented"), so the backward is
-    written here: g w^T and x^T g from f32 copies of the operands, cast to the
-    operands' dtypes, as JAX transposes a `preferred_element_type=f32` dot.
+    `torch.mm(..., out_dtype=torch.float32)` and `torch.bmm`'s have no
+    derivative (`aten::mm.dtype` raises "derivative for aten::mm is not
+    implemented"), so the backward is written here: g w^T and x^T g from f32
+    copies of the operands, cast to the operands' dtypes, as JAX transposes a
+    `preferred_element_type=f32` dot.
     """
 
     @staticmethod
     def forward(ctx, x, w):
         ctx.save_for_backward(x, w)
-        return torch.mm(x, w, out_dtype=torch.float32)
+        return (torch.mm if x.dim() == 2 else torch.bmm)(x, w, out_dtype=torch.float32)
 
     @staticmethod
     def backward(ctx, g):
         x, w = ctx.saved_tensors
-        dx = torch.mm(g, w.float().t()).to(x.dtype) if ctx.needs_input_grad[0] else None
-        dw = torch.mm(x.float().t(), g).to(w.dtype) if ctx.needs_input_grad[1] else None
+        dx = torch.matmul(g, w.float().mT).to(x.dtype) if ctx.needs_input_grad[0] else None
+        dw = torch.matmul(x.float().mT, g).to(w.dtype) if ctx.needs_input_grad[1] else None
         return dx, dw
 
 
 def dot(x, w):
-    """x (..., d_in) @ w (d_in, d_out) with a float32 result."""
+    """x (..., d_in) @ w (d_in, d_out), or x (B, N, d_in) @ a stack of B
+    weights w (B, d_in, d_out) (the MoE experts: `jnp.einsum("ecd,edf->ecf",
+    preferred_element_type=f32)`), with a float32 result.  Operands of two
+    dtypes (the MoE router: bf16 activations, f32 weights) are promoted to
+    float32 first, as JAX promotes them."""
     if x.dtype == torch.float32 and w.dtype == torch.float32:
         return torch.matmul(x, w)
-    if x.is_cuda:  # half-precision product, f32 accumulation and f32 output
+    if x.is_cuda and x.dtype == w.dtype:  # half precision, f32 accumulation and output
+        if w.dim() == 3:
+            return _DotF32.apply(x, w)
         y = _DotF32.apply(x.reshape(-1, x.shape[-1]), w)
         return y.reshape(*x.shape[:-1], w.shape[-1])
     return torch.matmul(x.float(), w.float())

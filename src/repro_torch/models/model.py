@@ -13,9 +13,11 @@ Parameters are trainable `nn.Parameter`s; inference callers run under
 `torch.utils.checkpoint` when `cfg.remat` and `cfg.remat_policy == "full"`,
 as the JAX package wraps its scan body in `jax.checkpoint`.
 
-Block kinds ported so far: "attn" and "local" with a SwiGLU FFN, "rglru"
-(recurrentgemma) with a SwiGLU FFN, and "rwkv6" with its RWKV channel mix.
-The others raise `NotImplementedError` naming the ROADMAP item that ports them.
+Block kinds ported so far: "attn" and "local" with a SwiGLU or MoE FFN,
+"rglru" (recurrentgemma) with a SwiGLU FFN, and "rwkv6" with its RWKV
+channel mix.  The others raise `NotImplementedError` naming the ROADMAP item
+that ports them.  Each block returns an auxiliary loss (nonzero only for a
+MoE FFN), summed over the blocks into `ModelOutput.aux_loss`.
 """
 from __future__ import annotations
 
@@ -26,12 +28,11 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from .._device import resolve_device
-from . import attention, layers, recurrent
+from . import attention, layers, moe, recurrent
 from .config import ArchConfig
 
 _NOT_PORTED = {
     "mla": "ROADMAP A5 (other attention variants: MLA)",
-    "moe": "ROADMAP A4 (MoE and the expert-parallel all-to-all)",
     "gelu": "ROADMAP A5 (other attention variants: whisper)",
     "enc_dec": "ROADMAP A5 (other attention variants: whisper encoder-decoder)",
     "frontend": "ROADMAP A5 (other attention variants: patch/audio frontends)",
@@ -51,7 +52,7 @@ def check_supported(cfg: ArchConfig) -> None:
     for kind in cfg.pattern:
         if kind not in _KINDS:
             raise _not_ported(kind)
-    if cfg.ffn != "swiglu":
+    if cfg.ffn not in ("swiglu", "moe"):
         raise _not_ported(cfg.ffn)
     if cfg.enc_dec:
         raise _not_ported("enc_dec")
@@ -78,13 +79,17 @@ def segments(cfg: ArchConfig) -> list[tuple[tuple[str, ...], int]]:
 
 
 def _trainable(params: dict) -> nn.ParameterDict:
-    return nn.ParameterDict({k: nn.Parameter(t) for k, t in params.items()})
+    """A ParameterDict of `params`; a nested dict (Arctic's ffn["dense"])
+    becomes a nested ParameterDict under the same key."""
+    return nn.ParameterDict({k: _trainable(t) if isinstance(t, dict) else nn.Parameter(t)
+                             for k, t in params.items()})
 
 
 class Block(nn.Module):
     """One layer: norm1, mix (attention), norm2, ffn — each a ParameterDict.
 
-    Indexing by name (`block["mix"]`) mirrors the JAX parameter dicts."""
+    Indexing by name (`block["mix"]`, `block["ffn"]["dense"]`) mirrors the
+    JAX parameter dicts."""
 
     def __init__(self, kind: str, params: dict):
         super().__init__()
@@ -131,6 +136,8 @@ def init_block(cfg: ArchConfig, generator, kind: str, dtype) -> dict:
     p["norm2"] = layers.init_rmsnorm(cfg.d_model, dtype, dev)
     if kind == "rwkv6":
         p["ffn"] = recurrent.init_rwkv_cmix(cfg, generator, dtype)
+    elif cfg.ffn == "moe":
+        p["ffn"] = moe.init_moe(cfg, generator, dtype)
     else:
         p["ffn"] = layers.init_swiglu(generator, cfg.d_model, cfg.d_ff, dtype)
     return p
@@ -182,9 +189,10 @@ def init_caches(cfg: ArchConfig, batch: int, max_seq: int,
 
 
 def apply_block(cfg: ArchConfig, p: Block, kind: str, x, positions, *, cache=None):
-    """Returns (x, cache); the cache is updated in place: attention caches by
-    the attention block, recurrent states here.  (The JAX version also
-    returns an auxiliary loss, which only MoE blocks make.)"""
+    """Returns (x, cache, aux); the cache is updated in place: attention
+    caches by the attention block, recurrent states here.  aux is the MoE
+    FFN's auxiliary loss (a float32 tensor), 0.0 for the other FFNs."""
+    aux = 0.0
     h = layers.rmsnorm(p["norm1"], x)
     mix_cache = None if cache is None else cache["mix"]
     if kind == "rglru":
@@ -199,13 +207,15 @@ def apply_block(cfg: ArchConfig, p: Block, kind: str, x, positions, *, cache=Non
     if kind == "rwkv6":
         y, new_cmix = recurrent.rwkv_cmix(cfg, p["ffn"], h,
                                           state=None if cache is None else cache["cmix"])
+    elif cfg.ffn == "moe":
+        y, aux = moe.moe_ffn(cfg, p["ffn"], h)
     else:
         y = layers.swiglu(p["ffn"], h)
     if cache is not None:
         cache["mix"] = new_mix
         if kind == "rwkv6":
             cache["cmix"] = new_cmix
-    return x + y, cache
+    return x + y, cache, aux
 
 
 # --- public entry points ----------------------------------------------------------------
@@ -237,17 +247,20 @@ def forward(cfg: ArchConfig, params: Model, batch: dict, *, caches=None,
         raise NotImplementedError(
             f"remat_policy={cfg.remat_policy!r} is not ported to PyTorch yet: "
             f"ROADMAP A13 (selective remat policies); use 'full' or 'none'")
+    total_aux = 0.0
     for i, block in enumerate(params.blocks):
         cache = None if caches is None else caches[i]
         if remat:
-            x, _ = checkpoint(apply_block, cfg, block, block.kind, x, positions,
-                              cache=cache, use_reentrant=False)
+            x, _, aux = checkpoint(apply_block, cfg, block, block.kind, x, positions,
+                                   cache=cache, use_reentrant=False)
         else:
-            x, _ = apply_block(cfg, block, block.kind, x, positions, cache=cache)
+            x, _, aux = apply_block(cfg, block, block.kind, x, positions, cache=cache)
+        total_aux = total_aux + aux
     x = layers.rmsnorm(params.final_norm, x)
     head = params.embed if cfg.tied_embeddings else params.unembed
     return ModelOutput(logits=layers.unembed(head, x), caches=caches,
-                       aux_loss=torch.zeros((), dtype=torch.float32, device=x.device))
+                       aux_loss=torch.as_tensor(total_aux, dtype=torch.float32,
+                                                device=x.device))
 
 
 def _cache_pos(caches) -> int:

@@ -8,10 +8,19 @@ Modes:
   collectives       the port of tests/_multidevice_worker.py's RS / AG /
                     all-reduce checks, against NumPy sums; prints 'ok <name>'
                     per check and 'ALL-OK'.
-  train PARAMS OUT  trains stablelm-3b smoke (4 steps, batch 8, seq 32) with
-                    grad_sync gspmd and then bridge, from the weights in the
-                    .npz file PARAMS (JAX tree layout, flattened); rank 0
-                    writes both loss lists to the JSON file OUT.
+  a2a IN OUT        bruck_all_to_all of row `rank` of the (n, n, ...) array
+                    in the .npy file IN; each rank writes its output to
+                    OUT.<rank>.npy.
+  compressed OUT    two rounds of compressed_all_reduce (the second with the
+                    first's error feedback) on two seeded gradient leaves
+                    per rank; rank 0 writes both rounds' sums and every
+                    rank's inputs to the .npz file OUT.
+  train PARAMS OUT [MODE ...]
+                    trains stablelm-3b smoke (4 steps, batch 8, seq 32) with
+                    each grad_sync MODE in turn (default: gspmd, then
+                    bridge), from the weights in the .npz file PARAMS (JAX
+                    tree layout, flattened); rank 0 writes the loss lists,
+                    by mode, to the JSON file OUT.
 """
 from __future__ import annotations
 
@@ -110,7 +119,38 @@ def _collectives(n: int, rank: int) -> None:
         print("ALL-OK", flush=True)
 
 
-def _train(n: int, rank: int, params_path: str, out_path: str) -> None:
+def _a2a(n: int, rank: int, in_path: str, out_path: str) -> None:
+    import numpy as np
+    import torch
+
+    from repro_torch.collectives import bruck_all_to_all
+
+    x = torch.from_numpy(np.load(in_path)[rank])
+    np.save(f"{out_path}.{rank}.npy", bruck_all_to_all(x).numpy())
+
+
+def _compressed(n: int, rank: int, out_path: str) -> None:
+    import numpy as np
+    import torch
+
+    from repro_torch.collectives import compressed_all_reduce, make_error_feedback_state
+
+    rng = np.random.default_rng(0)  # every rank draws the same global arrays
+    glob = [rng.standard_normal((n, 33)).astype(np.float32) * 3.0,
+            rng.standard_normal((n, 4, 5)).astype(np.float32)]
+    grads = [torch.from_numpy(g[rank]) for g in glob]
+    ef = make_error_feedback_state(grads)
+    out1, ef = compressed_all_reduce(grads, ef)
+    # second round on the same grads: error feedback corrects round-1 error
+    out2, _ = compressed_all_reduce(grads, ef)
+    if rank == 0:
+        np.savez(out_path, **{f"g{i}": g for i, g in enumerate(glob)},
+                 **{f"round1_{i}": t.numpy() for i, t in enumerate(out1)},
+                 **{f"round2_{i}": t.numpy() for i, t in enumerate(out2)})
+    torch.distributed.barrier()
+
+
+def _train(n: int, rank: int, params_path: str, out_path: str, *modes: str) -> None:
     import numpy as np
     import torch
 
@@ -135,7 +175,7 @@ def _train(n: int, rank: int, params_path: str, out_path: str) -> None:
     tree = lists(tree)
     kw = {"arch": "stablelm-3b", "steps": 4, "batch_size": 8, "seq_len": 32}
     losses = {}
-    for mode in ("gspmd", "bridge"):
+    for mode in modes or ("gspmd", "bridge"):
         tc = TrainConfig(grad_sync=mode, **kw)
         model = params_from_jax(model_config(tc), tree, device="cpu")
         _, _, losses[mode] = train(tc, progress=lambda *_: None, device="cpu", model=model)
@@ -155,8 +195,12 @@ def main() -> None:
     try:
         if mode == "collectives":
             _collectives(world, rank)
+        elif mode == "a2a":
+            _a2a(world, rank, *sys.argv[5:7])
+        elif mode == "compressed":
+            _compressed(world, rank, sys.argv[5])
         elif mode == "train":
-            _train(world, rank, *sys.argv[5:7])
+            _train(world, rank, *sys.argv[5:])
         else:
             raise SystemExit(f"unknown mode {mode!r}")
     finally:

@@ -6,13 +6,15 @@ import numpy as np
 
 from repro.models import init_params as jax_init_params
 from repro_torch.interop import params_from_jax
-from repro_torch.models.config import ArchConfig
+from repro_torch.models.config import ArchConfig, MoEConfig
 
 
 def port_cfg(jax_cfg):
     """The port's ArchConfig with the same fields as the JAX one."""
     fields = dataclasses.asdict(jax_cfg)
-    assert fields["moe"] is None and fields["mla"] is None
+    assert fields["mla"] is None
+    if fields["moe"] is not None:
+        fields["moe"] = MoEConfig(**fields["moe"])
     return ArchConfig(**fields)
 
 

@@ -96,7 +96,15 @@ def _gemma3(num_layers=14):
                                num_layers=num_layers)
 
 
-ARCH_CFGS = {"stablelm-3b": _stablelm, "gemma3-4b": _gemma3}
+def _moe(arch):
+    """A MoE arch scaled down (8 experts top-2, groups of 64 tokens)."""
+    return lambda: dataclasses.replace(jax_configs.get(arch).scaled_down(),
+                                       dtype="float32", remat=False)
+
+
+ARCH_CFGS = {"stablelm-3b": _stablelm, "gemma3-4b": _gemma3,
+             "qwen3-moe-235b-a22b": _moe("qwen3-moe-235b-a22b"),
+             "arctic-480b": _moe("arctic-480b")}
 
 
 def _tokens(cfg, batch, seq, seed=0):
@@ -161,7 +169,8 @@ def test_unported_kinds_raise():
 
 
 
-@pytest.mark.parametrize("arch", ["gemma3-4b", "recurrentgemma-9b", "rwkv6-3b", "stablelm-3b"])
+@pytest.mark.parametrize("arch", ["gemma3-4b", "recurrentgemma-9b", "rwkv6-3b", "stablelm-3b",
+                                  "qwen3-moe-235b-a22b", "arctic-480b"])
 def test_port_configs_equal_the_reference(arch):
     """Each config module of the port is a copy of the reference's: the same
     fields, field by field, and the arch is registered in `ARCHS`."""

@@ -55,6 +55,24 @@ def test_serve_tokens_equal_jax_recurrent(arch):
     assert got == want
 
 
+@pytest.mark.parametrize("arch", ["qwen3-moe-235b-a22b", "arctic-480b"])
+def test_serve_tokens_equal_jax_moe(arch):
+    """The MoE archs (prefill routes the batch's 36 tokens as one group,
+    each decode step the 3 new tokens): the same greedy tokens as
+    `repro.launch.serve`."""
+    cfg = dataclasses.replace(jax_configs.get(arch).scaled_down(), dtype="float32",
+                              remat=False)
+    jp, model = both_params(cfg)
+    P, N, B = 12, 5, 3
+    want = jax_serve.serve_requests(cfg, jp, _requests(jax_serve, cfg, P, N, B),
+                                    max_seq=P + N + 1, progress=lambda *_: None)
+    got = serve.serve_requests(model.cfg, model, _requests(serve, cfg, P, N, B),
+                               max_seq=P + N + 1, progress=lambda *_: None,
+                               device="cpu")
+    assert len(got[0]) == N - 2 and all(len(got[i]) == N for i in (1, 2))
+    assert got == want
+
+
 def test_cli_default_arch_is_the_references():
     """The port's `--arch` default is the reference's, read from the source
     of `repro/launch/serve.py`, so that the two cannot drift apart."""
