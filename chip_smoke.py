@@ -12,7 +12,11 @@ Phases, in order; any failure raises and the script exits non-zero:
   3. kernels - every kernel against its plain PyTorch version on the card: the
                forward B1 at the reference test shapes, the serving shapes
                (stablelm-3b; recurrentgemma-9b's local layers; qwen3-moe's
-               GQA 16:1 at D = 128) and the training shape, and ragged
+               GQA 16:1 at D = 128; minicpm3-4b's MLA at D = 96 with V of
+               64, padded by the op; whisper-base's bidirectional encoder,
+               its cross attention in prefill and in decode (one query) and
+               its self attention; internvl2-26b's GQA 6:1 over 1536
+               positions) and the training shape, and ragged
                shapes; the backward B2 (dK/dV)
                and B3 (dQ) at the reference gradient shapes, the training
                shape, ragged shapes, a GQA case on several seeds and a
@@ -27,6 +31,8 @@ Phases, in order; any failure raises and the script exits non-zero:
                (T = 1 runs B4's and B5's step kernels, T > 1 B4's ring and,
                in bf16, B5's two-pass design, each call checked by its
                counters).  B4 in f32 equals its plain version bit for bit.
+               Every bf16 output of B1 is also held to its own rows' scale
+               (BF16_ROW_TOL), which TOL's 5e-2 is not at whisper's shapes.
                B2, B3, B4's ring and B5's two-pass design are bit-identical
                over two runs.  Each check draws its inputs from a generator
                of its own and prints their hash.
@@ -36,7 +42,9 @@ Phases, in order; any failure raises and the script exits non-zero:
                again with the card held busy while its launches are queued
                (`device_ms`: device time only), beside the card's bound, at
                the shape each path gives it: B1 at the serving
-               shapes (qwen3-moe's included) and the training shape, B2 and B3 at the training
+               shapes (qwen3-moe's and the new ones of phase 3 included; MLA's
+               through the op, padding included, and its kernel alone on V
+               padded beforehand) and the training shape, B2 and B3 at the training
                shape, B4 and B5 at the serving prefill and decode shapes.
                No single PyTorch call computes either recurrence over T, so
                their prefill library time is null; B4's decode step is
@@ -48,7 +56,9 @@ Phases, in order; any failure raises and the script exits non-zero:
                `library_device_ms`), and its backend is recorded.
   5. parity  - at full width, f32, depth cut: stablelm-3b (4 layers),
                recurrentgemma-9b (one pattern period: rglru, rglru, local),
-               rwkv6-3b (2 layers) and qwen3-moe-235b-a22b (1 layer, ~15 GB):
+               rwkv6-3b (2 layers), qwen3-moe-235b-a22b (1 layer, ~15 GB),
+               minicpm3-4b (2 layers), whisper-base whole (6 + 6 layers,
+               1500 frames) and internvl2-26b (1 layer, 64 patches):
                the same weights on the card (kernels) and on the CPU (plain
                versions) give the same prefill and decode logits; for the MoE
                arch it also prints how many (token, choice) routing decisions
@@ -57,15 +67,22 @@ Phases, in order; any failure raises and the script exits non-zero:
   6. train parity - stablelm-3b at full width cut to 2 layers, f32, 2 x 128
                tokens: the same weights on the card (B1, B2, B3) and on the CPU
                (plain versions) give the same loss and gradients.
-  7. serve   - stablelm-3b, recurrentgemma-9b and rwkv6-3b, each at its full
-               published config, and qwen3-moe-235b-a22b at its full width
-               cut to 8 of its 94 layers (bf16, random weights from a seed),
-               answer 4 requests of 512-token prompts with 32 new tokens each
-               through `repro_torch.launch.serve.serve_requests`, one model at
-               a time;
+  7. serve   - stablelm-3b, recurrentgemma-9b, rwkv6-3b and minicpm3-4b, each
+               at its full published config, and qwen3-moe-235b-a22b at its
+               full width cut to 8 of its 94 layers (bf16, random weights
+               from a seed), answer 4 requests of 512-token prompts with 32
+               new tokens each through
+               `repro_torch.launch.serve.serve_requests`, one model at a
+               time; whisper-base (6 + 6 layers, 1500 frames, 64-token
+               prompts) and internvl2-26b (48 layers, 1024 patches before
+               512-token prompts), whose inputs that driver does not take,
+               go through the entry points `prefill` and `decode_step` in
+               the same loop;
                the kernel launch counts of each run, in prefill and in decode,
-               are read and checked (B1 once per attention layer in prefill,
-               each in the tensor-core variant; B4 / B5 once per recurrent
+               are read and checked (B1 once per attention or MLA layer in
+               prefill, whisper's once per encoder layer and per cross
+               attention in prefill and in every decode step, each in the
+               tensor-core variant; B4 / B5 once per recurrent
                layer in prefill and in every decode step; every prefill call
                of B4 in the ring design and of B5 in the two-pass design,
                every decode call of both in the step kernel).  Then one more
@@ -166,6 +183,23 @@ WIDE_CASE = (1, 8, 4, 300, 300, 256, True, 100)
 GRIFFIN_CASE = (4, 16, 1, 512, 512, 256, True, 2048)
 # qwen3-moe-235b-a22b's prefill: 64 query heads of 128 on 4 KV heads (GQA 16:1)
 QWEN_CASE = (4, 64, 4, 512, 512, 128, True, None)
+# whisper-base serving 4 requests (8 heads of 64): the encoder over 1500
+# frames (bidirectional), cross attention of the 64-token prompts and of one
+# decode query against the 1500 frames (no mask), and the decoder's causal
+# self attention in prefill
+WHISPER_ENC_CASE = (4, 8, 8, 1500, 1500, 64, False, None)
+WHISPER_CROSS_CASE = (4, 8, 8, 64, 1500, 64, False, None)
+WHISPER_CROSS_DECODE = (4, 8, 8, 1, 1500, 64, False, None)
+WHISPER_SELF_CASE = (4, 8, 8, 64, 64, 64, True, None)
+# minicpm3-4b's MLA prefill: 40 heads, query/key head 96 (nope 64 + rope 32)
+# and value head 64 (the ninth field), scale 96^-0.5, through the op, which
+# pads V to 96
+MLA_CASE = (4, 40, 40, 512, 512, 96, True, None, 64)
+# internvl2-26b's prefill: 1024 patches + 512 tokens, 48 heads of 128 on 8 KV
+# heads (GQA 6:1)
+INTERNVL_CASE = (4, 48, 8, 1536, 1536, 128, True, None)
+NEW_CASES = (WHISPER_ENC_CASE, WHISPER_CROSS_CASE, WHISPER_CROSS_DECODE, WHISPER_SELF_CASE,
+             MLA_CASE, INTERNVL_CASE)
 # ragged Sq and Sk (not multiples of 16 or 64): Sq < Sk under GQA, and MQA
 # with a window
 RAGGED_CASES = [(1, 4, 2, 72, 300, 80, True, None), (2, 4, 1, 300, 300, 80, True, 100)]
@@ -173,6 +207,15 @@ TOL = {torch.float32: 5e-5, torch.bfloat16: 5e-2}  # tests/test_kernels.py bound
 LSE_TOL = {torch.float32: 1e-5,  # f32 lse, same source
            # both sides compute lse in f32 from the same bf16 inputs
            torch.bfloat16: 1e-3}
+# bf16 outputs are held a second time to their own scale: |err| <= BF16_STEP
+# |want| + BF16_ROW_TOL rms(want's row).  TOL[bf16] alone is about the size of
+# whisper's outputs (rms 0.04 over 1500 keys), so it can pass a P.V that lost
+# the keys of the last partial tile (3e-2 at a decode query).  The first term
+# is one bf16 step of the value (both sides round an f32 result to bf16); the
+# second the kernel's rounding of P to bf16 before P.V, which the emulation in
+# tests/test_torch_flash_attention.py keeps below a hundredth of the row's rms.
+BF16_STEP = 2.0 ** -7
+BF16_ROW_TOL = 2e-2
 MODEL_TOL = 2e-3        # prefill/decode bound of tests/test_models_smoke.py
 SEED = 0
 
@@ -240,8 +283,16 @@ EXTREME_TOL = 1e-4
 PATH_DTYPE = {"rg_lru_fwd": torch.float32, "wkv6_fwd": torch.bfloat16}
 # card vs CPU model parity: arch, layers kept (full width otherwise)
 PARITY_ARCHS = (("stablelm-3b", 4), ("recurrentgemma-9b", 3), ("rwkv6-3b", 2),
-                ("qwen3-moe-235b-a22b", 1))
-SERVE_ARCHS = ("stablelm-3b", "recurrentgemma-9b", "rwkv6-3b", "qwen3-moe-235b-a22b")
+                ("qwen3-moe-235b-a22b", 1), ("minicpm3-4b", 2), ("whisper-base", 6),
+                ("internvl2-26b", 1))
+# other cuts of the parity check: internvl2's 1024 patches to 64, so that the
+# CPU side stays in seconds (whisper keeps its 6 encoder layers and 1500 frames)
+PARITY_CUTS = {"internvl2-26b": {"frontend_seq": 64}}
+SERVE_ARCHS = ("stablelm-3b", "recurrentgemma-9b", "rwkv6-3b", "qwen3-moe-235b-a22b",
+               "minicpm3-4b", "whisper-base", "internvl2-26b")
+# served prompt lengths (tokens; 512 unless named): whisper's decoder context
+# is 448 tokens, so 64 + 32 new; internvl2 prepends its 1024 patches to 512
+SERVE_PROMPT = {"whisper-base": 64}
 # served depth where the whole model does not fit one card: qwen3-moe's 94
 # layers are ~470 GB in bf16; 8 layers and the untied embed and unembed are
 # ~42.3 GB.  The other served models keep their full configs.
@@ -291,11 +342,30 @@ def input_hash(*tensors) -> str:
 
 
 def flash_inputs(case):
-    """q, k, v of a B1 case in f32 on the card (cast by the caller)."""
+    """q, k, v of a B1 case in f32 on the card (cast by the caller); v's head
+    is the case's ninth field where it has one (MLA), else D."""
     b, hq, hkv, sq, sk, d = case[:6]
+    dv = case[8] if len(case) > 8 else d
     gen = case_generator("fwd", case)
-    shapes = ((b, hq, sq, d), (b, hkv, sk, d), (b, hkv, sk, d))
+    shapes = ((b, hq, sq, d), (b, hkv, sk, d), (b, hkv, sk, dv))
     return [torch.randn(s, generator=gen, device="cuda") for s in shapes]
+
+
+def flash_call(q, k, v, causal, window):
+    """B1's wrapper at these inputs: (out, lse).  A value head narrower than
+    the query head is zero-padded as `ops.flash_attention` pads it, and the
+    output sliced back; the op's own output must equal it bit for bit."""
+    d, dv = q.shape[-1], v.shape[-1]
+    if dv == d:
+        return flash_kernel.flash_attention_fwd_lse(q, k, v, scale=d ** -0.5,
+                                                    causal=causal, window=window)
+    out, lse = flash_kernel.flash_attention_fwd_lse(
+        q, k, torch.nn.functional.pad(v, (0, d - dv)), scale=d ** -0.5, causal=causal,
+        window=window)
+    via_op = flash_ops.flash_attention(q, k, v, causal, window, d ** -0.5)
+    if not torch.equal(via_op, out[..., :dv]):
+        raise AssertionError("ops.flash_attention differs from the padded kernel call")
+    return out[..., :dv], lse
 
 
 def max_err(got, want, atol, rtol):
@@ -305,30 +375,62 @@ def max_err(got, want, atol, rtol):
     return err.max().item(), bool((err <= atol + rtol * want.abs()).all())
 
 
+def bf16_row_err(got, want) -> tuple[float, bool]:
+    """(the largest |got - want| beyond BF16_STEP |want|, over the rms of its
+    row of want; whether it is within BF16_ROW_TOL): a bf16 output held to
+    its own scale."""
+    got, want = got.float(), want.float()
+    excess = ((got - want).abs() - BF16_STEP * want.abs()).clamp_min(0)
+    rms = want.pow(2).mean(-1, keepdim=True).sqrt().clamp_min(1e-30)
+    ratio = (excess / rms).max().item()
+    return ratio, ratio <= BF16_ROW_TOL
+
+
+def check_flash(case, dtype) -> tuple[float, dict, str]:
+    """B1 at `case` in `dtype` against its plain version: (the output's max
+    abs error, each check's verdict, the printed line)."""
+    d, causal, window = case[5], case[6], case[7]
+    q, k, v = (t.to(dtype) for t in flash_inputs(case))
+    fn = flash_kernel.flash_attention_fwd_lse
+    tc_before = fn.launches_tc
+    out, lse = flash_call(q, k, v, causal, window)
+    torch.cuda.synchronize()
+    want_out, want_lse = flash_ref.attention_fwd_lse(
+        q, k, v, scale=d ** -0.5, causal=causal, window=window)
+    err, ok = max_err(out, want_out, TOL[dtype], TOL[dtype])
+    lse_err, lse_ok = max_err(lse, want_lse, LSE_TOL[dtype], LSE_TOL[dtype])
+    verdicts = {"variant": fn.launches_tc - tc_before
+                == (dtype == torch.bfloat16) * (1 + (len(case) > 8)),
+                "out": ok, "lse": lse_ok,
+                "shape": out.shape == want_out.shape and lse.shape == q.shape[:3]}
+    line = (f"flash {case} {str(dtype)[6:]} inputs {input_hash(q, k, v)}: out "
+            f"max|err| {err:.3e} (tol {TOL[dtype]}), lse max|err| {lse_err:.3e} "
+            f"(tol {LSE_TOL[dtype]})")
+    if dtype == torch.bfloat16:
+        ratio, verdicts["out_row_scaled"] = bf16_row_err(out, want_out)
+        line += f", out row-scaled err {ratio:.4f} (tol {BF16_ROW_TOL})"
+    return err, verdicts, line
+
+
+def flash_check_cases() -> list:
+    """(case, dtype) of every check of B1 against its plain version."""
+    cases = [(c, dt) for dt in (torch.float32, torch.bfloat16) for c in FLASH_CASES]
+    cases += [(c, dt) for c in (SERVE_CASE, TRAIN_FWD_CASE, WIDE_CASE, GRIFFIN_CASE,
+                                QWEN_CASE, *NEW_CASES, *RAGGED_CASES)
+              for dt in (torch.bfloat16, torch.float32)]
+    return cases
+
+
 def check_kernels() -> dict:
     """Kernel vs plain version on the card; returns the bf16 errors at the
     serving and the training shape, keyed by the case."""
     errs = {}
-    cases = [(c, dt) for dt in (torch.float32, torch.bfloat16) for c in FLASH_CASES]
-    cases += [(c, dt) for c in (SERVE_CASE, TRAIN_FWD_CASE, WIDE_CASE, GRIFFIN_CASE,
-                                QWEN_CASE, *RAGGED_CASES)
-              for dt in (torch.bfloat16, torch.float32)]
-    for case, dtype in cases:
-        d, causal, window = case[5], case[6], case[7]
-        q, k, v = (t.to(dtype) for t in flash_inputs(case))
-        out, lse = flash_kernel.flash_attention_fwd_lse(
-            q, k, v, scale=d ** -0.5, causal=causal, window=window)
-        torch.cuda.synchronize()
-        want_out, want_lse = flash_ref.attention_fwd_lse(
-            q, k, v, scale=d ** -0.5, causal=causal, window=window)
-        err, ok = max_err(out, want_out, TOL[dtype], TOL[dtype])
-        lse_err, lse_ok = max_err(lse, want_lse, LSE_TOL[dtype], LSE_TOL[dtype])
-        ok = ok and lse_ok
-        line = (f"flash {case} {str(dtype)[6:]} inputs {input_hash(q, k, v)}: out "
-                f"max|err| {err:.3e} (tol {TOL[dtype]}), lse max|err| {lse_err:.3e} "
-                f"(tol {LSE_TOL[dtype]})")
+    for case, dtype in flash_check_cases():
+        err, verdicts, line = check_flash(case, dtype)
         print(line)
-        if not ok or out.shape != q.shape or lse.shape != q.shape[:3]:
+        if not verdicts["variant"]:
+            raise AssertionError(f"flash {case} {dtype}: not the variant of its dtype")
+        if not all(verdicts.values()):
             raise AssertionError(f"kernel disagrees with its plain version: {line}")
         if dtype == torch.bfloat16:  # the main paths' dtype
             errs[case] = err
@@ -439,37 +541,50 @@ def library_text(times: dict) -> str:
 
 
 def time_flash(case) -> dict:
-    """B1 at `case`, bf16: kernel, plain, library (each SDPA backend), bound."""
-    b, hq, hkv, sq, sk, d, causal, window = case
+    """B1 at `case`, bf16: kernel, plain, library (each SDPA backend), bound.
+    A case with a narrower value head (MLA) times the op's call, padding and
+    slice included, as the path makes it (`ms`, `device_ms`), and the kernel
+    alone on V padded beforehand (`kernel_padded_device_ms`); its bound and
+    library time are those of the unpadded function."""
+    b, hq, hkv, sq, sk, d, causal, window = case[:8]
     q, k, v = (t.to(torch.bfloat16) for t in flash_inputs(case))
+    dv = v.shape[-1]
     scale = d ** -0.5
     # SDPA has no sliding window: the yardstick only where the window
     # covers every causal key (recurrentgemma's 2048 at 512 tokens)
     sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
         q, k, v, is_causal=causal, scale=scale, enable_gqa=hq != hkv)
-    fns = {
-        "ms": lambda: flash_kernel.flash_attention_fwd_lse(
-            q, k, v, scale=scale, causal=causal, window=window),
-        "plain_ms": lambda: flash_ref.attention_fwd_lse(
-            q, k, v, scale=scale, causal=causal, window=window),
-    }
-    fns["device_ms"] = fns["ms"]
+    if dv == d:
+        call = lambda: flash_kernel.flash_attention_fwd_lse(  # noqa: E731
+            q, k, v, scale=scale, causal=causal, window=window)
+    else:
+        call = lambda: flash_ops.flash_attention(q, k, v, causal, window, scale)  # noqa: E731
+    fns = {"ms": call, "device_ms": call,
+           "plain_ms": lambda: flash_ref.attention_fwd_lse(
+               q, k, v, scale=scale, causal=causal, window=window)}
+    if dv < d:
+        v_pad = torch.nn.functional.pad(v, (0, d - dv))
+        fns["kernel_padded_device_ms"] = lambda: flash_kernel.flash_attention_fwd_lse(
+            q, k, v_pad, scale=scale, causal=causal, window=window)
     backends = {}
     sdpa_fns(fns, backends, sdpa_backends(sdpa), sdpa)
     times = time_in_turns(fns, backends, {})
     pick_library(times)
     # bound: each input read once and each output written once, against the
-    # live (query, key) pairs of this mask at 4 D FLOPs each (QK^T and PV)
+    # live (query, key) pairs of this mask at 2 D + 2 Dv FLOPs each (QK^T, PV)
     elem = q.element_size()
-    moved = (q.numel() * 2 + k.numel() + v.numel()) * elem + b * hq * sq * 4
+    moved = (q.numel() + k.numel() + v.numel() + b * hq * sq * dv) * elem + b * hq * sq * 4
     live = int(flash_ref.attention_mask(sq, sk, causal, window).sum())
-    flops = 4 * d * live * b * hq
+    flops = 2 * (d + dv) * live * b * hq
     times["bound_ms"], times["bound_by"] = bound(moved, flops)
+    padded = (f" kernel_padded_device_ms {times['kernel_padded_device_ms']:.4f} (V padded "
+              f"to {d} beforehand: {moved + b * hkv * sk * (d - dv) * elem + b * hq * sq * (d - dv) * elem} "
+              f"bytes)" if dv < d else "")
     print(f"flash timing {case} bf16: kernel_ms {times['ms']:.4f} "
-          f"device_ms {times['device_ms']:.4f} plain_ms {times['plain_ms']:.4f} "
+          f"device_ms {times['device_ms']:.4f}{padded} plain_ms {times['plain_ms']:.4f} "
           f"{library_text(times)} bound_ms {times['bound_ms']:.4f} "
-          f"(by {times['bound_by']}: {moved} bytes, {flops} FLOP; H100 SXM peaks {H100_HBM_BYTES_S:.3g} B/s, "
-          f"{H100_BF16_FLOP_S:.3g} FLOP/s)")
+          f"(by {times['bound_by']}: {moved} bytes, {flops} FLOP; H100 SXM peaks "
+          f"{H100_HBM_BYTES_S:.3g} B/s, {H100_BF16_FLOP_S:.3g} FLOP/s)")
     return times
 
 
@@ -521,9 +636,11 @@ def report_routing(arch: str, records: list, cfg) -> None:
 @torch.inference_mode()
 def check_model_parity(arch: str, num_layers: int) -> float:
     """Same f32 weights on the card and on the CPU: logits within MODEL_TOL.
-    `arch` at its full width, cut to `num_layers`; a MoE arch's routing
-    decisions are compared and printed too."""
-    cfg = dataclasses.replace(configs.get(arch), num_layers=num_layers, dtype="float32")
+    `arch` at its full width, cut to `num_layers` (and by PARITY_CUTS); a MoE
+    arch's routing decisions are compared and printed too.  Whisper gets
+    random frames and internvl2 random patches beside the tokens."""
+    cfg = dataclasses.replace(configs.get(arch), num_layers=num_layers, dtype="float32",
+                              **PARITY_CUTS.get(arch, {}))
     if arch == "stablelm-3b":
         cpu_model = init_params(cfg, torch.Generator().manual_seed(SEED), device="cpu")
         gpu_model = copy.deepcopy(cpu_model).to("cuda")
@@ -532,11 +649,13 @@ def check_model_parity(arch: str, num_layers: int) -> float:
         cpu_model = copy.deepcopy(gpu_model).to("cpu")
     tokens = torch.randint(0, cfg.vocab_size, (1, 131),
                            generator=torch.Generator().manual_seed(SEED + 1))
-    prompt, max_seq = tokens[:, :128], 136
+    extra = extra_inputs(cfg, 1, torch.Generator().manual_seed(SEED + 3))
+    prompt, max_seq = tokens[:, :128], 136 + cfg.frontend_seq
     worst = 0.0
     with recorded_routes([]) as routes:
-        logits_c, caches_c = prefill(cfg, cpu_model, {"tokens": prompt}, max_seq)
-        logits_g, caches_g = prefill(cfg, gpu_model, {"tokens": prompt.cuda()}, max_seq)
+        logits_c, caches_c = prefill(cfg, cpu_model, {"tokens": prompt, **extra}, max_seq)
+        logits_g, caches_g = prefill(cfg, gpu_model, {
+            "tokens": prompt.cuda(), **{k: t.cuda() for k, t in extra.items()}}, max_seq)
         steps = [("prefill", logits_c, logits_g)]
         for t in range(128, 131):
             tok = tokens[:, t:t + 1]
@@ -548,41 +667,99 @@ def check_model_parity(arch: str, num_layers: int) -> float:
     for name, want, got in steps:
         err, ok = max_err(got.cpu(), want, MODEL_TOL, MODEL_TOL)
         worst = max(worst, err)
-        print(f"model parity {arch} ({num_layers} layers, f32) {name}: max|err| {err:.3e} "
-              f"(tol {MODEL_TOL})")
+        print(f"model parity {arch} ({num_layers} layers{cut_text(cfg, arch)}, f32) {name}: "
+              f"max|err| {err:.3e} (tol {MODEL_TOL})")
         if not ok or not torch.isfinite(got).all():
             raise AssertionError(f"card and CPU logits of {arch} disagree at {name}")
     return worst
 
 
+def extra_inputs(cfg, batch: int, gen: torch.Generator) -> dict:
+    """The inputs beside the tokens, f32 on the host: whisper's frame
+    embeddings (B, encoder_seq, d) and internvl2's patch embeddings
+    (B, frontend_seq, d)."""
+    extra = {}
+    if cfg.enc_dec:
+        extra["frames"] = torch.randn((batch, cfg.encoder_seq, cfg.d_model), generator=gen)
+    if cfg.frontend == "patch_stub":
+        extra["patches"] = torch.randn((batch, cfg.frontend_seq, cfg.d_model), generator=gen)
+    return extra
+
+
+def cut_text(cfg, arch: str) -> str:
+    """The cuts of PARITY_CUTS and the encoder's depth, for the printed line."""
+    parts = [f"{k} {v}" for k, v in PARITY_CUTS.get(arch, {}).items()]
+    if cfg.enc_dec:
+        parts.insert(0, f"+ {cfg.num_encoder_layers} encoder layers, {cfg.encoder_seq} frames")
+    return "".join(f", {p}" for p in parts)
+
+
 def expected_serve_launches(cfg, new_tokens: int) -> tuple[dict, dict]:
     """Kernel launches of one served run: (prefill, decode).  B1 once per
-    attention layer in prefill (decode attends in plain PyTorch, as the
-    reference does); B4 / B5 once per recurrent layer in prefill and in each
-    of the new_tokens - 1 decode steps; no backward kernel."""
+    attention or MLA layer in prefill (decode attends in plain PyTorch, as
+    the reference does), and for whisper once per encoder layer and once per
+    decoder layer's cross attention in prefill and in each of the
+    new_tokens - 1 decode steps; B4 / B5 once per recurrent layer in prefill
+    and in each decode step; no backward kernel."""
     kinds = cfg.layer_kinds
-    per_pass = {"flash_attention_fwd": sum(k in ("attn", "local") for k in kinds),
+    cross = cfg.num_layers if cfg.enc_dec else 0
+    per_pass = {"flash_attention_fwd": sum(k in ("attn", "local", "mla") for k in kinds)
+                + cross + (cfg.num_encoder_layers if cfg.enc_dec else 0),
                 "flash_attention_bwd_dkv": 0, "flash_attention_bwd_dq": 0,
                 "rg_lru_fwd": kinds.count("rglru"), "wkv6_fwd": kinds.count("rwkv6")}
-    decode = {k: 0 if k.startswith("flash") else v * (new_tokens - 1)
-              for k, v in per_pass.items()}
+    per_step = dict(per_pass, flash_attention_fwd=cross)
+    decode = {k: v * (new_tokens - 1) for k, v in per_step.items()}
     return per_pass, decode
+
+
+@torch.inference_mode()
+def serve_entry_points(cfg, model, prompts, extra: dict, new_tokens: int, max_seq: int,
+                       progress) -> dict[int, list[int]]:
+    """`serve_requests`' loop through the model entry points `prefill` and
+    `decode_step`, for a model that needs inputs beside the tokens (whisper's
+    frames, internvl2's patches), which the reference's serving driver does
+    not take: prefill timed to the first greedy tokens on the host, then
+    greedy decode of every request to `new_tokens`, with the driver's two
+    progress lines."""
+    batch = prompts.shape[0]
+    t0 = time.perf_counter()
+    logits, caches = prefill(cfg, model, {"tokens": prompts.cuda(), **extra}, max_seq)
+    tok = torch.argmax(logits, dim=-1)[:, None]
+    host = [tok.cpu()]  # waits for the device
+    dt = time.perf_counter() - t0
+    progress(f"prefill: {batch} x {prompts.shape[1]} tokens in {dt:.3f}s "
+             f"({prompts.numel() / dt:.1f} tok/s)")
+    t0 = time.perf_counter()
+    for _ in range(new_tokens - 1):
+        logits, caches = decode_step(cfg, model, tok, caches)
+        tok = torch.argmax(logits, dim=-1)[:, None]
+        host.append(tok.cpu())
+    dt = time.perf_counter() - t0
+    decoded = batch * (new_tokens - 1)
+    progress(f"decode: {decoded} tokens in {new_tokens - 1} steps, {dt:.3f}s "
+             f"({decoded / dt:.1f} tok/s)")
+    out = torch.cat(host, dim=1)
+    return {i: out[i].tolist() for i in range(batch)}
 
 
 def serve_path(arch: str) -> dict:
     """`arch` at its full published config (its depth cut to SERVE_DEPTH
-    where that names it) answers 4 x (512 + 32) tokens through
-    `serve_requests`.  Returns the launch counts of the run, split into
-    prefill and decode."""
+    where that names it) answers 4 requests of 512-token prompts (whisper:
+    64, after encoding 1500 frames; internvl2: after its 1024 patches) and 32
+    new tokens each, through `serve_requests`, or through the model entry
+    points where the model needs frames or patches.  Returns the launch
+    counts of the run, split into prefill and decode."""
     cfg = configs.get(arch)
     if arch in SERVE_DEPTH:
         cfg = dataclasses.replace(cfg, num_layers=SERVE_DEPTH[arch])
-    batch, prompt_len, new_tokens = 4, 512, 32
-    max_seq = prompt_len + new_tokens + 1
+    batch, prompt_len, new_tokens = 4, SERVE_PROMPT.get(arch, 512), 32
+    max_seq = cfg.frontend_seq + prompt_len + new_tokens + 1
     model = init_params(cfg, torch.Generator(device="cuda").manual_seed(SEED), "cuda")
     rng = torch.Generator().manual_seed(SEED + 2)
     prompts = torch.randint(0, cfg.vocab_size, (batch, prompt_len), generator=rng,
                             dtype=torch.int32)
+    extra = {k: t.cuda().to(torch.bfloat16) for k, t in
+             extra_inputs(cfg, batch, torch.Generator().manual_seed(SEED + 3)).items()}
     reqs = [Request(rid=i, prompt=prompts[i].numpy(), max_new_tokens=new_tokens)
             for i in range(batch)]
     messages, at_prefill, designs_at_prefill = [], {}, {}
@@ -597,8 +774,11 @@ def serve_path(arch: str) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
-    out = serve_requests(cfg, model, reqs, max_seq=max_seq, progress=progress,
-                         device="cuda")
+    if extra:
+        out = serve_entry_points(cfg, model, prompts, extra, new_tokens, max_seq, progress)
+    else:
+        out = serve_requests(cfg, model, reqs, max_seq=max_seq, progress=progress,
+                             device="cuda")
     total = read_launches()
     designs_total = read_designs()
     check_tensor_core_launches(f"serve {arch}")
@@ -636,16 +816,18 @@ def serve_path(arch: str) -> dict:
     # capacity drops depend on how the tokens are grouped)
     full = torch.cat([prompts, gen], dim=1).cuda()
     with torch.inference_mode():
-        logits = forward(cfg, model, {"tokens": full}, mode="train").logits
+        logits = forward(cfg, model, {"tokens": full, **extra}, mode="train").logits
     if not torch.isfinite(logits).all():
         raise AssertionError("non-finite logits in the full forward")
-    ref_tok = logits[:, prompt_len - 1:-1].argmax(dim=-1).cpu()
+    first = cfg.frontend_seq + prompt_len - 1  # the patches come before the prompt
+    ref_tok = logits[:, first:-1].argmax(dim=-1).cpu()
+    del logits
     agree = (ref_tok == gen).float().mean().item() * 100
 
     # one more decode step (from a fresh prefill) under the profiler: the
     # device's busy time and idle share in decode
     with torch.inference_mode():
-        _, caches = prefill(cfg, model, {"tokens": prompts.cuda()}, max_seq)
+        _, caches = prefill(cfg, model, {"tokens": prompts.cuda(), **extra}, max_seq)
         step = gen[:, :1].cuda()
         decode_step(cfg, model, step, caches)
         print(f"serve {arch} decode step (batch {batch}) under the profiler: "
@@ -655,9 +837,13 @@ def serve_path(arch: str) -> dict:
 
     prefill_s = float(re.search(r"prefill: .* in ([0-9.]+)s", messages[0]).group(1))
     decode_tps = float(re.search(r"\(([0-9.]+) tok/s\)", messages[1]).group(1))
-    print(f"serve {arch} full config ({cfg.num_layers} layers), "
-          f"{batch} x ({prompt_len} + {new_tokens}): "
-          f"prefill {prefill_s:.3f} s = {batch * prompt_len / prefill_s:.1f} tok/s, "
+    inputs = ", ".join(f"{k} {tuple(t.shape)}" for k, t in extra.items())
+    print(f"serve {arch} full config ({cfg.num_layers} layers"
+          + (f" + {cfg.num_encoder_layers} encoder layers" if cfg.enc_dec else "") + "), "
+          f"{batch} x ({prompt_len} + {new_tokens})" + (f" beside {inputs}" if extra else "")
+          + f": prefill {prefill_s:.3f} s = {batch * prompt_len / prefill_s:.1f} tok/s"
+          + (f" ({batch * (cfg.frontend_seq + prompt_len) / prefill_s:.1f} positions/s)"
+             if cfg.frontend_seq else "") + ", "
           f"decode {decode_tps:.1f} tok/s, peak memory {peak / 2**30:.3f} GiB "
           f"({peak} bytes), greedy agreement with full forward {agree:.1f}%, "
           f"launches prefill {launches['prefill']}, decode {launches['decode']}")
@@ -1476,7 +1662,7 @@ def main() -> None:
     rec_errs = check_recurrent_kernels()
     phase("4 kernel timing")
     fwd_times = {case: time_flash(case)
-                 for case in (TRAIN_FWD_CASE, SERVE_CASE, GRIFFIN_CASE, QWEN_CASE)}
+                 for case in (TRAIN_FWD_CASE, SERVE_CASE, GRIFFIN_CASE, QWEN_CASE, *NEW_CASES)}
     bwd_times = time_bwd()
     rec_times = time_recurrent()
     phase("5 model parity card vs cpu")
@@ -1510,6 +1696,12 @@ def main() -> None:
     # times at the shape that path gives the kernel
     griffin, rwkv = serve_launches["recurrentgemma-9b"], serve_launches["rwkv6-3b"]
     stablelm, qwen = serve_launches["stablelm-3b"], serve_launches["qwen3-moe-235b-a22b"]
+    whisper = serve_launches["whisper-base"]
+    # whisper's prefill runs B1 at three shapes: the entry's numbers are the
+    # encoder's, and the others ride along under other_shapes
+    whisper_prefill = dict(fwd_times[WHISPER_ENC_CASE], other_shapes=[
+        {"shape": list(case), "max_abs_err": fwd_errs[case], **fwd_times[case]}
+        for case in (WHISPER_SELF_CASE, WHISPER_CROSS_CASE)])
     entries = [
         ("train stablelm-3b", "flash_attention_fwd", TRAIN_FWD_CASE, train_launches,
          fwd_errs[TRAIN_FWD_CASE], fwd_times[TRAIN_FWD_CASE]),
@@ -1521,6 +1713,15 @@ def main() -> None:
          griffin["prefill"], fwd_errs[GRIFFIN_CASE], fwd_times[GRIFFIN_CASE]),
         ("serve qwen3-moe-235b-a22b prefill", "flash_attention_fwd", QWEN_CASE,
          qwen["prefill"], fwd_errs[QWEN_CASE], fwd_times[QWEN_CASE]),
+        ("serve minicpm3-4b prefill", "flash_attention_fwd", MLA_CASE,
+         serve_launches["minicpm3-4b"]["prefill"], fwd_errs[MLA_CASE], fwd_times[MLA_CASE]),
+        ("serve whisper-base prefill", "flash_attention_fwd", WHISPER_ENC_CASE,
+         whisper["prefill"], fwd_errs[WHISPER_ENC_CASE], whisper_prefill),
+        ("serve whisper-base decode", "flash_attention_fwd", WHISPER_CROSS_DECODE,
+         whisper["decode"], fwd_errs[WHISPER_CROSS_DECODE], fwd_times[WHISPER_CROSS_DECODE]),
+        ("serve internvl2-26b prefill", "flash_attention_fwd", INTERNVL_CASE,
+         serve_launches["internvl2-26b"]["prefill"], fwd_errs[INTERNVL_CASE],
+         fwd_times[INTERNVL_CASE]),
         *((f"serve recurrentgemma-9b {part}", "rg_lru_fwd", case, griffin[part],
            rec_errs[("rg_lru_fwd", case)], rec_times[("rg_lru_fwd", case)])
           for part, case in (("prefill", LRU_PREFILL), ("decode", LRU_DECODE))),

@@ -8,6 +8,7 @@ Run from the root of a checkout:
     python3 kernel_times.py --edit ko_pv           # a copy with one stage knocked out
     python3 kernel_times.py --host                 # also the B4 / B5 decode wrappers' host parts
     python3 kernel_times.py --only wkv6_fwd        # one kernel's shapes only
+    python3 kernel_times.py --edit ko_v_tail --check  # B1's bf16 checks on a faulty copy
 
 It times, with `chip_smoke.py`'s inputs and timing function, the
 flash-attention forward (B1) at the training shape and the two serving
@@ -27,7 +28,11 @@ build/kernel_times/ and times the copy: knock-outs of one stage of B1's bf16
 tensor-core loop, of one pass or one stage of a pass of B5's two-pass
 design, or of the y store or the chain of B4's ring (their outputs are
 wrong; only their times mean something), and tuning variants (B4's ring
-with one stage: load, wait, compute). Prints one line
+with one stage: load, wait, compute), and faults for `--check` (ko_v_tail:
+V read as zeros in B1's partial last key tile).  `--check` runs, in place
+of the timings, `chip_smoke.py`'s check of B1 against its plain version at
+each of its bf16 cases, and prints each check's verdict: a fault that
+leaves every check passing is one the script cannot see. Prints one line
 per kernel and shape, the card's name and power limit, and a JSON line
 {"src", "edits", "card", "times", "host_us"}. `--host` also times, on the
 host clock, the parts of the WKV-6 and RG-LRU wrappers' work in a decode
@@ -74,6 +79,14 @@ EDITS = {
                     "          tc::mma_bf16(acc[2 * dp + 1], a, b[2], b[3]);",
                "acc[2 * dp][0] += __uint_as_float(a[0] ^ a[2] ^ b[0] ^ b[1]);\n"
                "          acc[2 * dp + 1][0] += __uint_as_float(a[1] ^ a[3] ^ b[2] ^ b[3]);")],
+    # a fault for --check: B1's bf16 loop reads V as zeros in a partial last
+    # key tile (the rows from sk rounded down to the tile)
+    "ko_v_tail": [(FWD, "tc::load_tile_async<D, kBlockK, kThreads>(v_s, v_g, kt_begin, sk);",
+                   "tc::load_tile_async<D, kBlockK, kThreads>(v_s, v_g, kt_begin, "
+                   "sk / kBlockK * kBlockK);"),
+                  (FWD, "v_g, kt + kBlockK,\n                                                sk);",
+                   "v_g, kt + kBlockK,\n                                                "
+                   "sk / kBlockK * kBlockK);")],
     # tuning: no minimum of CTAs an SM (up to 255 registers) at D <= 80
     "no_min_ctas": [(FWD, "__launch_bounds__(kThreads, D <= 80 ? 3 : 1)",
                      "__launch_bounds__(kThreads, 1)")],
@@ -250,6 +263,22 @@ def host_parts(cs) -> dict:
     return out
 
 
+def check(cs, src: Path, edits: list[str]) -> None:
+    """chip_smoke's check of B1 against its plain version at each of its bf16
+    cases, on this tree: prints each check's verdict and a JSON line
+    {"src", "edits", "card", "checks"}; exits 0 whatever the verdicts."""
+    checks = []
+    for case, dtype in cs.flash_check_cases():
+        if dtype != torch.bfloat16:
+            continue
+        err, verdicts, line = cs.check_flash(case, dtype)
+        print(f"{line}; verdicts {verdicts}")
+        checks.append({"shape": list(case), "max_abs_err": err, "verdicts": verdicts})
+    card = cs.nvidia_smi()
+    print(card)
+    print(json.dumps({"src": str(src), "edits": edits, "card": card, "checks": checks}))
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--src", default=str(ROOT / "src"),
@@ -260,6 +289,8 @@ def main() -> None:
                         help="time only this kernel (repeatable; default: all)")
     parser.add_argument("--host", action="store_true",
                         help="also time the parts of the decode wrappers' host work")
+    parser.add_argument("--check", action="store_true",
+                        help="run chip_smoke's bf16 checks of B1 instead of timing")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("kernel_times: no CUDA device; this script runs only on the card")
@@ -276,6 +307,9 @@ def main() -> None:
         raise SystemExit(f"repro_torch came from {repro_torch.__file__}, not {src}")
     torch.backends.cuda.matmul.allow_tf32 = False
     cs._build.library()
+    if args.check:
+        check(cs, src, args.edit)
+        return
     runs: dict = {}
     timed = [case for case in cases(cs) if not args.only or case[0].split()[0] in args.only]
     timed.append(LAUNCH_FLOOR)

@@ -14,10 +14,13 @@ from repro_torch.models.config import SHAPES, ArchConfig, ShapeConfig
 ARCHS: tuple[str, ...] = (
     "arctic-480b",
     "gemma3-4b",
+    "internvl2-26b",
+    "minicpm3-4b",
     "qwen3-moe-235b-a22b",
     "recurrentgemma-9b",
     "rwkv6-3b",
     "stablelm-3b",
+    "whisper-base",
 )
 
 _MODULES = {name: name.replace("-", "_").replace(".", "_") for name in ARCHS}

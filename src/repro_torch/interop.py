@@ -10,7 +10,9 @@ segment's per-period blocks on a leading reps axis; the scan runs
 Projections keep the JAX `(d_in, d_out)` layout: the port computes `x @ w`.
 A block's parameter dicts may nest (a MoE FFN's stacked `(E, ...)` experts
 beside Arctic's dense residual under `ffn["dense"]`); both directions walk
-any depth of dicts.
+any depth of dicts.  Whisper's `encoder` is one segment of
+`num_encoder_layers` reps of an "attn" block, and internvl2's `patch_proj` a
+top-level group beside the embeddings.
 """
 from __future__ import annotations
 
@@ -41,7 +43,7 @@ def params_from_jax(cfg: ArchConfig, tree: dict,
                     device: str | torch.device | None = None) -> Model:
     """tree: JAX `init_params` output as numpy arrays.  Returns a `Model`."""
     dev = resolve_device(device)
-    top = _leaves({k: tree[k] for k in ("embed", "unembed", "final_norm")
+    top = _leaves({k: tree[k] for k in ("embed", "unembed", "final_norm", "patch_proj")
                    if k in tree}, dev)
     blocks = []
     for si, (kinds, reps) in enumerate(segments(cfg)):
@@ -49,7 +51,10 @@ def params_from_jax(cfg: ArchConfig, tree: dict,
         for rep in range(reps):
             for pos in range(len(kinds)):
                 blocks.append(_leaves(per_pos[pos], dev, rep))
-    return Model(cfg, top["embed"], top.get("unembed"), top["final_norm"], blocks)
+    encoder = ([_leaves(tree["encoder"][0][0], dev, rep)
+                for rep in range(cfg.num_encoder_layers)] if "encoder" in tree else [])
+    return Model(cfg, top["embed"], top.get("unembed"), top["final_norm"], blocks,
+                 encoder, top.get("patch_proj"))
 
 
 def _numpy(t: torch.Tensor) -> np.ndarray:
@@ -83,6 +88,9 @@ def tree_from_model(model: Model, attr: str = "data") -> dict:
         return {k: stack([t[k] for t in trees]) if isinstance(v, dict) else
                 np.stack([t[k] for t in trees]) for k, v in trees[0].items()}
 
+    def block_tree(block) -> dict:
+        return {name: leaves(block[name]) for name, _ in block.named_children()}
+
     cfg = model.cfg
     tree = {"embed": leaves(model.embed)}
     if model.unembed is not None:
@@ -93,10 +101,12 @@ def tree_from_model(model: Model, attr: str = "data") -> dict:
         per_pos = [[] for _ in kinds]
         for _rep in range(reps):
             for pos in range(len(kinds)):
-                block = model.blocks[layer]
-                per_pos[pos].append({name: leaves(block[name])
-                                     for name, _ in block.named_children()})
+                per_pos[pos].append(block_tree(model.blocks[layer]))
                 layer += 1
         decoder.append([stack(reps_list) for reps_list in per_pos])
     tree["decoder"] = decoder
+    if len(model.encoder):
+        tree["encoder"] = [[stack([block_tree(b) for b in model.encoder])]]
+    if model.patch_proj is not None:
+        tree["patch_proj"] = leaves(model.patch_proj)
     return tree

@@ -55,6 +55,10 @@
 // one numerical difference from the TPU kernel, which multiplies P in f32.
 // Shared memory: a Q tile and two stages of K and V tiles, (64 + 4 * 64) x
 // (D + 8) bf16 = 56 KB at D = 80 and (64 + 4 * 32) x 264 = 99 KB at D = 256.
+// D = 96 is MLA's query/key head (64 nope + 32 rope): 6 k-slices, rows of
+// 104 elements (208 bytes: 16-byte aligned, and the 8 rows an ldmatrix
+// reads start on 8 distinct 4-bank groups); its value head of 64 arrives
+// zero-padded to 96 by the op, whose sliced output drops the zero columns.
 // What limits it in practice is latency more than any rate: a warp runs its
 // Q K^T products, its softmax and its P V products in order, so other warps
 // must fill the gaps; up to D = 80 the kernel is held to 170 registers so that
@@ -497,6 +501,7 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* o, void*
     FLASH_CASE(32)
     FLASH_CASE(64)
     FLASH_CASE(80)
+    FLASH_CASE(96)
     FLASH_CASE(128)
     FLASH_CASE(256)
     default:

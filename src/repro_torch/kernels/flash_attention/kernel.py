@@ -23,7 +23,7 @@ import torch
 
 from . import ref
 
-HEAD_DIMS = (16, 32, 64, 80, 128, 256)
+HEAD_DIMS = (16, 32, 64, 80, 96, 128, 256)  # 96: MLA's nope 64 + rope 32
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 

@@ -7,10 +7,16 @@ heads, runs the dK/dV and dQ kernels from the saved logsumexp, and sums dK/dV
 over each GQA group, as `repro/kernels/flash_attention/ops.py` does.  Under
 `torch.utils.checkpoint` the forward runs again inside the backward; it keeps
 no state outside `ctx`.
+
+A value head narrower than the query head (MLA: q/k heads of nope + rope,
+value heads of v_head_dim) is zero-padded up to the query head before the
+kernels and the output sliced back after; that is exact, since the padded
+columns of P.V are zero, and autograd carries the gradient through both.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from .kernel import flash_attention_fwd_lse
 from .kernel_bwd import flash_attention_bwd
@@ -46,11 +52,17 @@ def flash_attention(q, k, v, causal: bool = True, window: int | None = None,
                     block_k: int = 512):
     """Attention with online softmax.
 
-    q: (B, Hq, Sq, D); k, v: (B, Hkv, Sk, D), Hkv | Hq.  Returns (B, Hq, Sq, D).
-    `block_q`/`block_k` are kept for signature parity; the kernels pick their
-    own tiles.
+    q: (B, Hq, Sq, D); k: (B, Hkv, Sk, D), Hkv | Hq; v: (B, Hkv, Sk, Dv),
+    Dv <= D.  Returns (B, Hq, Sq, Dv).  `block_q`/`block_k` are kept for
+    signature parity; the kernels pick their own tiles.
     """
     del block_q, block_k
     if scale is None:
         scale = 1.0 / (q.shape[-1] ** 0.5)
+    d, dv = q.shape[-1], v.shape[-1]
+    if dv > d:
+        raise ValueError(f"value head {dv} wider than the query head {d}")
+    if dv < d:
+        out = _FlashAttention.apply(q, k, F.pad(v, (0, d - dv)), causal, window, scale)
+        return out[..., :dv]
     return _FlashAttention.apply(q, k, v, causal, window, scale)

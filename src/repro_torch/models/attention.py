@@ -1,4 +1,4 @@
-"""Attention blocks of the port: GQA (+RoPE), global or sliding window.
+"""Attention blocks of the port: GQA (+RoPE), sliding-window, MLA, cross-attention.
 
 The cache protocol is the JAX package's:
   prefill : attn(x full seq)            -> (y, cache)
@@ -14,7 +14,17 @@ Unlike the JAX version, which returns fresh arrays, the port writes K/V into
 the cache tensors in place (a full-width cache is ~1.4 GB) and returns the
 same dict with `pos` and `slot_pos` advanced.
 
-MLA and cross attention come with the slices that port their architectures.
+MLA (MiniCPM3): the cache holds the *latent* c_kv (B, max_seq, kv_lora_rank)
+and the shared rope key k_rope (B, max_seq, qk_rope), written at `pos`.
+Prefill expands the latents and runs the flash kernel (query/key head nope +
+rope, value head v_head_dim, which the op pads up to the query head); decode
+uses the weight-absorption trick (q_nope folded through W_uk, the output
+through W_uv) in plain f32 einsums, as the JAX package does, so a step
+touches only rank-r tensors.
+
+Cross attention (whisper's decoder) attends to the encoder's K/V without a
+mask: the prompt against every frame in prefill, one query in each decode
+step, both through the flash kernel.
 """
 from __future__ import annotations
 
@@ -71,8 +81,10 @@ def _split_heads(x, n, hd):
     return x.reshape(b, s, n, hd).transpose(1, 2)
 
 
-def attention_block(cfg: ArchConfig, p, x, positions, *, kind: str, cache=None):
-    """x: (B, S, d).  Returns (y, cache) — the cache updated in place."""
+def attention_block(cfg: ArchConfig, p, x, positions, *, kind: str, cache=None,
+                    bidirectional: bool = False):
+    """x: (B, S, d).  Returns (y, cache) — the cache updated in place.
+    `bidirectional` (whisper's encoder) drops the causal mask."""
     b, s, d = x.shape
     hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     window = cfg.window if kind == "local" else None
@@ -92,7 +104,7 @@ def attention_block(cfg: ArchConfig, p, x, positions, *, kind: str, cache=None):
                              window)
         cache["pos"] = pos + 1
     else:  # training / plain forward / prefill
-        out = flash_attention(q, k, v, True, window)
+        out = flash_attention(q, k, v, not bidirectional, window)
         if cache is not None:  # prefill: stash the tail of k/v
             s_cache = cache["k"].shape[2]
             keep = min(s, s_cache)
@@ -114,3 +126,115 @@ def attention_block(cfg: ArchConfig, p, x, positions, *, kind: str, cache=None):
 
     y = out.transpose(1, 2).reshape(b, s, hq * hd)
     return layers.dot(y, p["wo"]).to(x.dtype), cache
+
+
+# --- MLA (multi-head latent attention) ---------------------------------------------
+
+
+def init_mla(cfg: ArchConfig, generator, dtype):
+    m = cfg.mla
+    d, h = cfg.d_model, cfg.num_heads
+    qk_head = m.qk_nope_head_dim + m.qk_rope_head_dim
+    s = d ** -0.5
+    return {
+        "w_dq": layers.normal_init(generator, (d, m.q_lora_rank), s, dtype),
+        "w_uq": layers.normal_init(generator, (m.q_lora_rank, h * qk_head),
+                                   m.q_lora_rank ** -0.5, dtype),
+        "w_dkv": layers.normal_init(generator, (d, m.kv_lora_rank + m.qk_rope_head_dim),
+                                    s, dtype),
+        "w_uk": layers.normal_init(generator, (m.kv_lora_rank, h * m.qk_nope_head_dim),
+                                   m.kv_lora_rank ** -0.5, dtype),
+        "w_uv": layers.normal_init(generator, (m.kv_lora_rank, h * m.v_head_dim),
+                                   m.kv_lora_rank ** -0.5, dtype),
+        "wo": layers.normal_init(generator, (h * m.v_head_dim, d),
+                                 (h * m.v_head_dim) ** -0.5, dtype),
+    }
+
+
+def init_mla_cache(cfg: ArchConfig, batch: int, max_seq: int, dtype, device):
+    m = cfg.mla
+    return {
+        "c_kv": torch.zeros((batch, max_seq, m.kv_lora_rank), dtype=dtype, device=device),
+        "k_rope": torch.zeros((batch, max_seq, m.qk_rope_head_dim), dtype=dtype,
+                              device=device),
+        "pos": 0,
+    }
+
+
+def mla_block(cfg: ArchConfig, p, x, positions, *, cache=None):
+    """x: (B, S, d).  Returns (y, cache) — the latent cache written in place."""
+    m = cfg.mla
+    b, s, _ = x.shape
+    h = cfg.num_heads
+    nope, rope_d, vd = m.qk_nope_head_dim, m.qk_rope_head_dim, m.v_head_dim
+    scale = (nope + rope_d) ** -0.5
+
+    cq = layers.dot(x, p["w_dq"]).to(x.dtype)                      # (B,S,rq)
+    q = layers.dot(cq, p["w_uq"]).to(x.dtype)
+    q = q.reshape(b, s, h, nope + rope_d).transpose(1, 2)
+    q_nope, q_rope = q[..., :nope], q[..., nope:]
+    q_rope = layers.apply_rope(q_rope, positions, cfg.rope_theta)
+
+    dkv = layers.dot(x, p["w_dkv"]).to(x.dtype)                    # (B,S,rkv+rope)
+    c_kv, k_rope = dkv[..., :m.kv_lora_rank], dkv[..., m.kv_lora_rank:]
+    k_rope = layers.apply_rope(k_rope[:, None], positions, cfg.rope_theta)[:, 0]
+
+    if cache is None or s > 1:  # train / prefill: expand latents, full attention
+        k_n = layers.dot(c_kv, p["w_uk"]).to(x.dtype).reshape(b, s, h, nope).transpose(1, 2)
+        v = layers.dot(c_kv, p["w_uv"]).to(x.dtype).reshape(b, s, h, vd).transpose(1, 2)
+        k_r = k_rope[:, None].expand(b, h, s, rope_d)
+        q_full = torch.cat([q_nope, q_rope], dim=-1)
+        k_full = torch.cat([k_n, k_r], dim=-1)
+        out = flash_attention(q_full, k_full, v.contiguous(), True, None, scale)
+        if cache is not None:
+            cache["c_kv"][:, :s] = c_kv
+            cache["k_rope"][:, :s] = k_rope
+            cache["pos"] = s
+    else:  # decode with weight absorption: attend in latent space
+        pos = cache["pos"]
+        cache["c_kv"][:, pos] = c_kv[:, 0]
+        cache["k_rope"][:, pos] = k_rope[:, 0]
+        c_all, kr_all = cache["c_kv"].float(), cache["k_rope"].float()
+        w_uk = p["w_uk"].reshape(m.kv_lora_rank, h, nope).float()
+        # absorb: q_abs[b,h,r] = sum_n q_nope[b,h,n] * w_uk[r,h,n]
+        q_abs = torch.einsum("bhln,rhn->bhlr", q_nope.float(), w_uk)    # (B,H,1,rkv)
+        scores = torch.einsum("bhlr,bsr->bhls", q_abs, c_all)
+        scores = scores + torch.einsum("bhld,bsd->bhls", q_rope.float(), kr_all)
+        scores = scores * scale
+        spos = torch.arange(c_all.shape[1], device=x.device)
+        scores = scores.masked_fill(spos > pos, float("-inf"))
+        w = torch.softmax(scores, dim=-1)
+        lat = torch.einsum("bhls,bsr->bhlr", w, c_all)
+        w_uv = p["w_uv"].reshape(m.kv_lora_rank, h, vd).float()
+        out = torch.einsum("bhlr,rhv->bhlv", lat, w_uv).to(x.dtype)
+        cache["pos"] = pos + 1
+
+    y = out.transpose(1, 2).reshape(b, s, h * vd)
+    return layers.dot(y, p["wo"]).to(x.dtype), cache
+
+
+# --- cross attention (whisper decoder) ------------------------------------------------
+
+
+def init_cross_attention(cfg: ArchConfig, generator, dtype):
+    return init_attention(cfg, generator, dtype)
+
+
+def cross_attention_block(cfg: ArchConfig, p, x, enc_kv):
+    """x: (B, S, d); enc_kv: (k, v) each (B, Hkv, S_enc, hd), contiguous.
+    Every query attends every frame (no mask)."""
+    b, s, _ = x.shape
+    hq, hd = cfg.num_heads, cfg.head_dim
+    q = _split_heads(layers.dot(x, p["wq"]).to(x.dtype), hq, hd).contiguous()
+    k, v = enc_kv
+    out = flash_attention(q, k, v, False, None)
+    y = out.transpose(1, 2).reshape(b, s, hq * hd)
+    return layers.dot(y, p["wo"]).to(x.dtype)
+
+
+def encode_cross_kv(cfg: ArchConfig, p, enc_out):
+    """The encoder output's K/V for one decoder layer, (B, Hkv, S_enc, hd) each."""
+    hkv, hd = cfg.num_kv_heads, cfg.head_dim
+    k = _split_heads(layers.dot(enc_out, p["wk"]).to(enc_out.dtype), hkv, hd)
+    v = _split_heads(layers.dot(enc_out, p["wv"]).to(enc_out.dtype), hkv, hd)
+    return k.contiguous(), v.contiguous()

@@ -73,6 +73,20 @@ def rmsnorm(p, x, eps=1e-6):
     return out.to(x.dtype)
 
 
+def init_layernorm(d, dtype, device):
+    return {"scale": torch.ones((d,), dtype=dtype, device=device),
+            "bias": torch.zeros((d,), dtype=dtype, device=device)}
+
+
+def layernorm(p, x, eps=1e-5):
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = ((xf - mu) ** 2).mean(dim=-1, keepdim=True)
+    out = (xf - mu) * torch.rsqrt(var + eps)
+    out = out * p["scale"].float() + p["bias"].float()
+    return out.to(x.dtype)
+
+
 # --- FFN ------------------------------------------------------------------------
 
 
@@ -90,6 +104,23 @@ def swiglu(p, x):
     u = dot(x, p["w_up"])
     h = (F.silu(g) * u).to(x.dtype)
     return dot(h, p["w_down"]).to(x.dtype)
+
+
+def init_gelu_mlp(generator, d, d_ff, dtype):
+    dev = generator.device
+    return {
+        "w_in": normal_init(generator, (d, d_ff), d ** -0.5, dtype),
+        "b_in": torch.zeros((d_ff,), dtype=dtype, device=dev),
+        "w_out": normal_init(generator, (d_ff, d), d_ff ** -0.5, dtype),
+        "b_out": torch.zeros((d,), dtype=dtype, device=dev),
+    }
+
+
+def gelu_mlp(p, x):
+    """`jax.nn.gelu` defaults to the tanh approximation; `F.gelu` to the
+    exact erf form, so the approximation is named here."""
+    h = F.gelu(dot(x, p["w_in"]) + p["b_in"].float(), approximate="tanh")
+    return (dot(h.to(x.dtype), p["w_out"]) + p["b_out"].float()).to(x.dtype)
 
 
 # --- embeddings / head -----------------------------------------------------------
@@ -130,6 +161,14 @@ def apply_rope(x, positions, theta: float = 10000.0):
     r1 = x1 * cos - x2 * sin
     r2 = x2 * cos + x1 * sin
     return torch.stack([r1, r2], dim=-1).reshape(x.shape).to(x.dtype)
+
+
+def sinusoidal_positions(seq: int, d: int, device=None):
+    """(seq, d) float32: sines of the d / 2 frequencies, then their cosines."""
+    pos = torch.arange(seq, dtype=torch.float32, device=device)[:, None]
+    i = torch.arange(d // 2, dtype=torch.float32, device=device)[None, :]
+    ang = pos / (10000.0 ** (2 * i / d))
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
 # --- misc --------------------------------------------------------------------------

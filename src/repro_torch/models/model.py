@@ -1,4 +1,5 @@
-"""Model assembly of the port: the decoder stack, prefill, decode and the loss.
+"""Model assembly of the port: the decoder stack (and whisper's encoder),
+prefill, decode and the loss.
 
 The JAX package scans each *segment* (whole pattern periods plus a remainder,
 see `segments`) over parameters stacked on a leading reps axis.  The port
@@ -13,11 +14,20 @@ Parameters are trainable `nn.Parameter`s; inference callers run under
 `torch.utils.checkpoint` when `cfg.remat` and `cfg.remat_policy == "full"`,
 as the JAX package wraps its scan body in `jax.checkpoint`.
 
-Block kinds ported so far: "attn" and "local" with a SwiGLU or MoE FFN,
-"rglru" (recurrentgemma) with a SwiGLU FFN, and "rwkv6" with its RWKV
-channel mix.  The others raise `NotImplementedError` naming the ROADMAP item
-that ports them.  Each block returns an auxiliary loss (nonzero only for a
-MoE FFN), summed over the blocks into `ModelOutput.aux_loss`.
+Block kinds: "attn" and "local", "mla" (MiniCPM3), "rglru" (recurrentgemma)
+and "rwkv6" (with its RWKV channel mix); FFNs: SwiGLU, GELU (whisper) and MoE.
+Each block returns an auxiliary loss (nonzero only for a MoE FFN), summed over
+the blocks into `ModelOutput.aux_loss`.
+
+Whisper (`enc_dec`): the encoder is `num_encoder_layers` bidirectional "attn"
+blocks over precomputed frame embeddings plus sinusoidal positions (RoPE
+too, as every "attn" block applies it), ending in the decoder's
+`final_norm`; each decoder block adds cross attention to the encoder output.
+Prefill encodes the frames once and writes each decoder layer's cross K/V
+into its cache during that forward (the reference encodes them a second time
+in `_fill_cross_kv`; the values are the same).  The `patch_stub` frontend
+(internvl2) projects precomputed patch embeddings and prepends them to the
+token embeddings.
 """
 from __future__ import annotations
 
@@ -31,33 +41,21 @@ from .._device import resolve_device
 from . import attention, layers, moe, recurrent
 from .config import ArchConfig
 
-_NOT_PORTED = {
-    "mla": "ROADMAP A5 (other attention variants: MLA)",
-    "gelu": "ROADMAP A5 (other attention variants: whisper)",
-    "enc_dec": "ROADMAP A5 (other attention variants: whisper encoder-decoder)",
-    "frontend": "ROADMAP A5 (other attention variants: patch/audio frontends)",
-}
-
-
-_KINDS = ("attn", "local", "rglru", "rwkv6")
-
-
-def _not_ported(what: str):
-    return NotImplementedError(f"{what!r} is not ported to PyTorch yet: "
-                               f"{_NOT_PORTED[what]}")
+_KINDS = ("attn", "local", "mla", "rglru", "rwkv6")
+_FFNS = ("swiglu", "gelu", "moe")
+_FRONTENDS = ("none", "patch_stub", "audio_stub")
 
 
 def check_supported(cfg: ArchConfig) -> None:
-    """Raise NotImplementedError for any part of `cfg` the port lacks."""
+    """Raise ValueError for a block kind, FFN or frontend that the reference
+    does not define either."""
     for kind in cfg.pattern:
         if kind not in _KINDS:
-            raise _not_ported(kind)
-    if cfg.ffn not in ("swiglu", "moe"):
-        raise _not_ported(cfg.ffn)
-    if cfg.enc_dec:
-        raise _not_ported("enc_dec")
-    if cfg.frontend != "none":
-        raise _not_ported("frontend")
+            raise ValueError(f"unknown block kind {kind!r}")
+    if cfg.ffn not in _FFNS:
+        raise ValueError(f"unknown ffn {cfg.ffn!r}")
+    if cfg.frontend not in _FRONTENDS:
+        raise ValueError(f"unknown frontend {cfg.frontend!r}")
 
 
 # --- layer segmentation ----------------------------------------------------------
@@ -100,46 +98,81 @@ class Block(nn.Module):
     def __getitem__(self, name: str) -> nn.ParameterDict:
         return getattr(self, name)
 
+    def __contains__(self, name: str) -> bool:
+        return name in self._modules
+
 
 class Model(nn.Module):
-    """Parameters of a decoder-only model, with its blocks in layer order."""
+    """Parameters of a model: its decoder blocks in layer order, whisper's
+    encoder blocks (`encoder`, empty otherwise) and internvl2's `patch_proj`
+    (None otherwise)."""
 
     def __init__(self, cfg: ArchConfig, embed: dict, unembed: dict | None,
-                 final_norm: dict, blocks: list[dict]):
+                 final_norm: dict, blocks: list[dict], encoder: list[dict] = (),
+                 patch_proj: dict | None = None):
         super().__init__()
         check_supported(cfg)
         if len(blocks) != cfg.num_layers:
             raise ValueError(f"{len(blocks)} blocks for {cfg.num_layers} layers")
+        n_enc = cfg.num_encoder_layers if cfg.enc_dec else 0
+        if len(encoder) != n_enc:
+            raise ValueError(f"{len(encoder)} encoder blocks for {n_enc} encoder layers")
+        if (patch_proj is None) != (cfg.frontend != "patch_stub"):
+            raise ValueError(f"patch_proj given: {patch_proj is not None}, frontend "
+                             f"{cfg.frontend!r}")
         self.cfg = cfg
         self.embed = _trainable(embed)
         self.unembed = None if unembed is None else _trainable(unembed)
         self.final_norm = _trainable(final_norm)
         self.blocks = nn.ModuleList(
             Block(kind, p) for kind, p in zip(cfg.layer_kinds, blocks, strict=True))
+        self.encoder = nn.ModuleList(Block("attn", p) for p in encoder)
+        self.patch_proj = None if patch_proj is None else _trainable(patch_proj)
 
     @property
     def device(self) -> torch.device:
         return self.embed["table"].device
 
 
-def init_block(cfg: ArchConfig, generator, kind: str, dtype) -> dict:
-    if kind not in _KINDS:
-        raise _not_ported(kind)
+def _init_ffn(cfg: ArchConfig, generator, dtype) -> dict:
+    if cfg.ffn == "moe":
+        return moe.init_moe(cfg, generator, dtype)
+    if cfg.ffn == "gelu":
+        return layers.init_gelu_mlp(generator, cfg.d_model, cfg.d_ff, dtype)
+    return layers.init_swiglu(generator, cfg.d_model, cfg.d_ff, dtype)
+
+
+def _apply_ffn(cfg: ArchConfig, p, x):
+    """(y, aux): aux is the MoE FFN's auxiliary loss, 0.0 for the others."""
+    if cfg.ffn == "moe":
+        return moe.moe_ffn(cfg, p, x)
+    if cfg.ffn == "gelu":
+        return layers.gelu_mlp(p, x), 0.0
+    return layers.swiglu(p, x), 0.0
+
+
+def init_block(cfg: ArchConfig, generator, kind: str, dtype,
+               with_cross: bool = False) -> dict:
     dev = generator.device
     p = {"norm1": layers.init_rmsnorm(cfg.d_model, dtype, dev)}
-    if kind == "rglru":
+    if kind in ("attn", "local"):
+        p["mix"] = attention.init_attention(cfg, generator, dtype)
+    elif kind == "mla":
+        p["mix"] = attention.init_mla(cfg, generator, dtype)
+    elif kind == "rglru":
         p["mix"] = recurrent.init_rglru(cfg, generator, dtype)
     elif kind == "rwkv6":
         p["mix"] = recurrent.init_rwkv6(cfg, generator, dtype)
     else:
-        p["mix"] = attention.init_attention(cfg, generator, dtype)
+        raise ValueError(kind)
     p["norm2"] = layers.init_rmsnorm(cfg.d_model, dtype, dev)
     if kind == "rwkv6":
         p["ffn"] = recurrent.init_rwkv_cmix(cfg, generator, dtype)
-    elif cfg.ffn == "moe":
-        p["ffn"] = moe.init_moe(cfg, generator, dtype)
     else:
-        p["ffn"] = layers.init_swiglu(generator, cfg.d_model, cfg.d_ff, dtype)
+        p["ffn"] = _init_ffn(cfg, generator, dtype)
+    if with_cross:
+        p["cross"] = attention.init_cross_attention(cfg, generator, dtype)
+        p["norm_cross"] = layers.init_rmsnorm(cfg.d_model, dtype, dev)
     return p
 
 
@@ -156,61 +189,90 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
     unembed = (None if cfg.tied_embeddings else
                layers.init_unembed(generator, cfg.d_model, cfg.vocab_size, dtype))
     final_norm = layers.init_rmsnorm(cfg.d_model, dtype, generator.device)
-    blocks = [init_block(cfg, generator, kind, dtype) for kind in cfg.layer_kinds]
-    return Model(cfg, embed, unembed, final_norm, blocks)
+    blocks = [init_block(cfg, generator, kind, dtype, with_cross=cfg.enc_dec)
+              for kind in cfg.layer_kinds]
+    encoder = ([init_block(cfg, generator, "attn", dtype)
+                for _ in range(cfg.num_encoder_layers)] if cfg.enc_dec else [])
+    patch_proj = (layers.init_linear(generator, cfg.d_model, cfg.d_model, dtype)
+                  if cfg.frontend == "patch_stub" else None)
+    return Model(cfg, embed, unembed, final_norm, blocks, encoder, patch_proj)
 
 
 # --- caches -------------------------------------------------------------------------
 
 
 def init_block_cache(cfg: ArchConfig, kind: str, batch: int, max_seq: int,
-                     dtype, device) -> dict:
-    if kind == "rglru":
-        return {"mix": recurrent.init_rglru_state(cfg, batch, dtype, device)}
-    if kind == "rwkv6":
-        return {"mix": recurrent.init_rwkv6_state(cfg, batch, dtype, device),
-                "cmix": torch.zeros((batch, cfg.d_model), dtype=dtype, device=device)}
-    if kind not in _KINDS:
-        raise _not_ported(kind)
-    return {"mix": attention.init_attn_cache(cfg, batch, max_seq, kind, dtype,
-                                             device)}
+                     dtype, device, with_cross: bool = False, enc_seq: int = 0) -> dict:
+    if kind in ("attn", "local"):
+        c = {"mix": attention.init_attn_cache(cfg, batch, max_seq, kind, dtype, device)}
+    elif kind == "mla":
+        c = {"mix": attention.init_mla_cache(cfg, batch, max_seq, dtype, device)}
+    elif kind == "rglru":
+        c = {"mix": recurrent.init_rglru_state(cfg, batch, dtype, device)}
+    elif kind == "rwkv6":
+        c = {"mix": recurrent.init_rwkv6_state(cfg, batch, dtype, device),
+             "cmix": torch.zeros((batch, cfg.d_model), dtype=dtype, device=device)}
+    else:
+        raise ValueError(kind)
+    if with_cross:
+        shape = (batch, cfg.num_kv_heads, enc_seq, cfg.head_dim)
+        c["cross_k"] = torch.zeros(shape, dtype=dtype, device=device)
+        c["cross_v"] = torch.zeros(shape, dtype=dtype, device=device)
+    return c
 
 
 def init_caches(cfg: ArchConfig, batch: int, max_seq: int,
                 device: str | torch.device | None = None) -> list[dict]:
-    """One cache per layer, in layer order."""
+    """One cache per decoder layer, in layer order."""
     dev = resolve_device(device)
     dtype = getattr(torch, cfg.dtype)
-    return [init_block_cache(cfg, kind, batch, max_seq, dtype, dev)
+    return [init_block_cache(cfg, kind, batch, max_seq, dtype, dev,
+                             with_cross=cfg.enc_dec, enc_seq=cfg.encoder_seq)
             for kind in cfg.layer_kinds]
 
 
 # --- stack apply --------------------------------------------------------------------
 
 
-def apply_block(cfg: ArchConfig, p: Block, kind: str, x, positions, *, cache=None):
+def apply_block(cfg: ArchConfig, p: Block, kind: str, x, positions, *, cache=None,
+                enc_out=None, bidirectional: bool = False):
     """Returns (x, cache, aux); the cache is updated in place: attention
-    caches by the attention block, recurrent states here.  aux is the MoE
-    FFN's auxiliary loss (a float32 tensor), 0.0 for the other FFNs."""
-    aux = 0.0
+    caches by the attention blocks, recurrent states and the cross K/V here.
+    aux is the MoE FFN's auxiliary loss (a float32 tensor), 0.0 for the other
+    FFNs.  A block with cross attention attends to `enc_out`'s K/V where it
+    is given (train, prefill: prefill also stores them in the cache) and to
+    the cached ones in decode."""
     h = layers.rmsnorm(p["norm1"], x)
     mix_cache = None if cache is None else cache["mix"]
-    if kind == "rglru":
+    if kind in ("attn", "local"):
+        y, new_mix = attention.attention_block(cfg, p["mix"], h, positions, kind=kind,
+                                               cache=mix_cache, bidirectional=bidirectional)
+    elif kind == "mla":
+        y, new_mix = attention.mla_block(cfg, p["mix"], h, positions, cache=mix_cache)
+    elif kind == "rglru":
         y, new_mix = recurrent.rglru_block(cfg, p["mix"], h, state=mix_cache)
     elif kind == "rwkv6":
         y, new_mix = recurrent.rwkv6_block(cfg, p["mix"], h, state=mix_cache)
     else:
-        y, new_mix = attention.attention_block(cfg, p["mix"], h, positions, kind=kind,
-                                               cache=mix_cache)
+        raise ValueError(kind)
     x = x + y
+    if "cross" in p:
+        hc = layers.rmsnorm(p["norm_cross"], x)
+        if enc_out is not None:  # train / prefill: fresh encoder output
+            enc_kv = attention.encode_cross_kv(cfg, p["cross"], enc_out)
+            if cache is not None:  # written in place, as every cache
+                cache["cross_k"].copy_(enc_kv[0])
+                cache["cross_v"].copy_(enc_kv[1])
+        else:  # decode: cached cross K/V
+            enc_kv = (cache["cross_k"], cache["cross_v"])
+        x = x + attention.cross_attention_block(cfg, p["cross"], hc, enc_kv)
     h = layers.rmsnorm(p["norm2"], x)
     if kind == "rwkv6":
         y, new_cmix = recurrent.rwkv_cmix(cfg, p["ffn"], h,
                                           state=None if cache is None else cache["cmix"])
-    elif cfg.ffn == "moe":
-        y, aux = moe.moe_ffn(cfg, p["ffn"], h)
+        aux = 0.0
     else:
-        y = layers.swiglu(p["ffn"], h)
+        y, aux = _apply_ffn(cfg, p["ffn"], h)
     if cache is not None:
         cache["mix"] = new_mix
         if kind == "rwkv6":
@@ -228,19 +290,44 @@ class ModelOutput:
     aux_loss: torch.Tensor
 
 
+def _embed_inputs(cfg: ArchConfig, params: Model, batch: dict):
+    """(x, positions): the token embeddings, after the projected patches
+    where the frontend is `patch_stub` and the batch has `patches`."""
+    x = layers.embed(params.embed, batch["tokens"].long()) * (cfg.d_model ** 0.5)
+    x = x.to(getattr(torch, cfg.dtype))
+    if cfg.frontend == "patch_stub" and "patches" in batch:
+        px = layers.linear(params.patch_proj, batch["patches"])
+        x = torch.cat([px.to(x.dtype), x], dim=1)
+    b, s = x.shape[:2]
+    return x, torch.arange(s, dtype=torch.int32, device=x.device).expand(b, s)
+
+
+def _encode(cfg: ArchConfig, params: Model, frames):
+    """Whisper encoder on precomputed conv-frontend frames (B, S_enc, d)."""
+    x = frames.to(getattr(torch, cfg.dtype))
+    x = x + layers.sinusoidal_positions(x.shape[1], cfg.d_model, x.device)[None].to(x.dtype)
+    b, s = x.shape[:2]
+    positions = torch.arange(s, dtype=torch.int32, device=x.device).expand(b, s)
+    for block in params.encoder:
+        x, _, _ = apply_block(cfg, block, "attn", x, positions, bidirectional=True)
+    return layers.rmsnorm(params.final_norm, x)
+
+
 def forward(cfg: ArchConfig, params: Model, batch: dict, *, caches=None,
             mode: str = "train") -> ModelOutput:
-    """batch: tokens (B, S) on the model's device.  Logits are float32."""
-    tok = batch["tokens"].long()
-    x = layers.embed(params.embed, tok) * (cfg.d_model ** 0.5)
-    x = x.to(getattr(torch, cfg.dtype))
-    b, s = tok.shape
+    """batch: tokens (B, S) [+ patches (B, P, d) | frames (B, S_enc, d)] on the
+    model's device.  Logits are float32."""
+    enc_out = None
+    if cfg.enc_dec and mode != "decode":
+        if "frames" not in batch:
+            raise ValueError(f"{cfg.name} is an encoder-decoder: the batch needs frames")
+        enc_out = _encode(cfg, params, batch["frames"])
+    x, positions = _embed_inputs(cfg, params, batch)
+    b, s = x.shape[:2]
     if caches is not None and mode == "decode":
         # single-token step: positions come from the cache pointer
         positions = torch.full((b, s), _cache_pos(caches), dtype=torch.int32,
                                device=x.device)
-    else:
-        positions = torch.arange(s, dtype=torch.int32, device=x.device).expand(b, s)
     remat = (mode == "train" and cfg.remat and cfg.remat_policy != "none"
              and torch.is_grad_enabled())
     if remat and cfg.remat_policy != "full":
@@ -252,9 +339,10 @@ def forward(cfg: ArchConfig, params: Model, batch: dict, *, caches=None,
         cache = None if caches is None else caches[i]
         if remat:
             x, _, aux = checkpoint(apply_block, cfg, block, block.kind, x, positions,
-                                   cache=cache, use_reentrant=False)
+                                   cache=cache, enc_out=enc_out, use_reentrant=False)
         else:
-            x, _, aux = apply_block(cfg, block, block.kind, x, positions, cache=cache)
+            x, _, aux = apply_block(cfg, block, block.kind, x, positions, cache=cache,
+                                    enc_out=enc_out)
         total_aux = total_aux + aux
     x = layers.rmsnorm(params.final_norm, x)
     head = params.embed if cfg.tied_embeddings else params.unembed
@@ -276,7 +364,8 @@ def _cache_pos(caches) -> int:
 
 
 def prefill(cfg: ArchConfig, params: Model, batch: dict, max_seq: int):
-    """Run the prompt, build caches.  Returns (last-token logits, caches)."""
+    """Run the prompt (and, for whisper, encode the frames once, filling the
+    cross K/V caches), build caches.  Returns (last-token logits, caches)."""
     b = batch["tokens"].shape[0]
     caches = init_caches(cfg, b, max_seq, params.device)
     out = forward(cfg, params, batch, caches=caches, mode="prefill")

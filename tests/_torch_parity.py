@@ -6,15 +6,16 @@ import numpy as np
 
 from repro.models import init_params as jax_init_params
 from repro_torch.interop import params_from_jax
-from repro_torch.models.config import ArchConfig, MoEConfig
+from repro_torch.models.config import ArchConfig, MLAConfig, MoEConfig
 
 
 def port_cfg(jax_cfg):
     """The port's ArchConfig with the same fields as the JAX one."""
     fields = dataclasses.asdict(jax_cfg)
-    assert fields["mla"] is None
     if fields["moe"] is not None:
         fields["moe"] = MoEConfig(**fields["moe"])
+    if fields["mla"] is not None:
+        fields["mla"] = MLAConfig(**fields["mla"])
     return ArchConfig(**fields)
 
 

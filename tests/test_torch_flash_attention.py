@@ -140,6 +140,63 @@ def test_tensor_core_rounding_fits_reference_bounds(case):
     np.testing.assert_allclose(_np(got_lse), _np(want_lse), atol=1e-3, rtol=1e-3)
 
 
+def _chip_smoke():
+    """The card script's checks, imported from the root of the checkout."""
+    import importlib
+    import sys
+    from pathlib import Path
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    return importlib.import_module("chip_smoke")
+
+
+# chip_smoke.py's B1 serving shapes with fewer heads (whisper-base's encoder,
+# cross attention in prefill and decode; internvl2-26b's GQA 6:1 over 1536;
+# D = 96 as MLA's; D = 256 with a window as recurrentgemma's) and the
+# reference's causal GQA case
+ROW_SCALED_CASES = [
+    (1, 2, 2, 1500, 1500, 64, False, None),
+    (1, 4, 4, 64, 1500, 64, False, None),
+    (4, 8, 8, 1, 1500, 64, False, None),
+    (1, 6, 1, 1536, 1536, 128, True, None),
+    (1, 4, 4, 512, 512, 96, True, None),
+    (1, 4, 1, 512, 512, 256, True, 100),
+    (2, 4, 2, 128, 128, 64, True, None),
+]
+
+
+@pytest.mark.parametrize("case", ROW_SCALED_CASES)
+def test_tensor_core_rounding_fits_the_row_scaled_bf16_check(case):
+    """chip_smoke.py holds every bf16 output of B1 to its own row's scale as
+    well as to TOL; the bf16 variant's rounding of P stays well inside that
+    bound (below half of it)."""
+    cs = _chip_smoke()
+    d, causal, window = case[5], case[6], case[7]
+    tq, tk, tv = _torch_inputs(case, "bfloat16", seed=5)
+    kw = {"scale": d ** -0.5, "causal": causal, "window": window}
+    got, _ = _tc_fwd_emulation(tq, tk, tv, **kw)
+    want, _ = ref.attention_fwd_lse(tq, tk, tv, **kw)
+    ratio, ok = cs.bf16_row_err(got, want)
+    assert ok and ratio < cs.BF16_ROW_TOL / 2, ratio
+
+
+@pytest.mark.parametrize("case", ROW_SCALED_CASES[:3])
+def test_row_scaled_bf16_check_fails_a_lost_partial_key_tile(case):
+    """V read as zeros in the last, partial key tile (1500 = 23 * 64 + 28)
+    moves whisper's outputs, of rms ~0.04, by up to 3e-2 for a decode query:
+    inside TOL[bf16], so that check alone can pass it.  The row-scaled check
+    fails it at every whisper shape."""
+    cs = _chip_smoke()
+    d, causal, window = case[5], case[6], case[7]
+    tq, tk, tv = _torch_inputs(case, "bfloat16", seed=5)
+    kw = {"scale": d ** -0.5, "causal": causal, "window": window}
+    want, _ = ref.attention_fwd_lse(tq, tk, tv, **kw)
+    lost = tv.clone()
+    lost[..., tv.shape[2] // 64 * 64:, :] = 0
+    got, _ = _tc_fwd_emulation(tq, tk, lost, **kw)
+    ratio, ok = cs.bf16_row_err(got, want)
+    assert not ok and ratio > 10 * cs.BF16_ROW_TOL, ratio
+
+
 def _need_cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel runs only on the card")

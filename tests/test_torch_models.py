@@ -158,19 +158,27 @@ def test_sliding_window_ring_buffer_decode_matches_jax():
         _close(got_d, ref_logits[:, t, :], atol=2e-3, rtol=2e-3, err_msg=f"t={t}")
 
 
-def test_unported_kinds_raise():
+@pytest.mark.parametrize("change,error,match", [
+    ({"remat_policy": "dots"}, NotImplementedError, "ROADMAP A13"),
+    ({"pattern": ("conv",)}, ValueError, "conv"),
+])
+def test_unported_kinds_raise(change, error, match):
+    """What the port still lacks raises naming its ROADMAP item (the "dots"
+    remat policy, in a training forward); a block kind that the reference
+    does not define either raises ValueError, as its `init_block` does."""
     from repro_torch.models import init_params
     from repro_torch.models.config import ArchConfig
-    cfg = ArchConfig(name="x", family="moe", num_layers=2, d_model=32, num_heads=1,
-                     num_kv_heads=1, d_ff=64, vocab_size=16, pattern=("mla",),
-                     dtype="float32")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        init_params(cfg, torch.Generator(), device="cpu")
+    cfg = ArchConfig(name="x", family="dense", num_layers=2, d_model=32, num_heads=1,
+                     num_kv_heads=1, d_ff=64, vocab_size=16, dtype="float32", **change)
+    with pytest.raises(error, match=match):
+        model = init_params(cfg, torch.Generator(), device="cpu")
+        forward(cfg, model, {"tokens": torch.zeros((1, 4), dtype=torch.int32)}, mode="train")
 
 
 
 @pytest.mark.parametrize("arch", ["gemma3-4b", "recurrentgemma-9b", "rwkv6-3b", "stablelm-3b",
-                                  "qwen3-moe-235b-a22b", "arctic-480b"])
+                                  "qwen3-moe-235b-a22b", "arctic-480b", "minicpm3-4b",
+                                  "whisper-base", "internvl2-26b"])
 def test_port_configs_equal_the_reference(arch):
     """Each config module of the port is a copy of the reference's: the same
     fields, field by field, and the arch is registered in `ARCHS`."""
