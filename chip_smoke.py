@@ -34,8 +34,19 @@ Phases, in order; any failure raises and the script exits non-zero:
                Every bf16 output of B1 is also held to its own rows' scale
                (BF16_ROW_TOL), which TOL's 5e-2 is not at whisper's shapes.
                B2, B3, B4's ring and B5's two-pass design are bit-identical
-               over two runs.  Each check draws its inputs from a generator
-               of its own and prints their hash.
+               over two runs.  The recurrences' backward B4' (RG-LRU) and
+               B5' (WKV-6) against their plain reverse loops in f32 and bf16:
+               at the reference test shapes, from a nonzero h0 / s0 with a
+               nonzero cotangent on h_last / s_last, at the training shapes
+               (B4' (8, 512, 4096) f32, B5' (8, 40, 512, 64, 64) bf16 from
+               the forward's chunk-entry states), at a ragged T (B4' 1100,
+               B5' 200) and at extreme decay (a = e^-20, log_w = -20); B4'
+               in f32 equals its plain version bit for bit, and every
+               B4' and B5' check gives the same bits in two runs.  B1, B2,
+               B3, B4 and B5 are also checked at the training shapes of
+               recurrentgemma-9b (D = 256 under MQA) and rwkv6-3b.  Each
+               check draws its inputs from a generator of its own and
+               prints their hash.
   4. timing  - each kernel, its plain version and one PyTorch library call
                (CUDA events around queued calls: `ms`, where a wrapper's host
                work counts wherever it outlasts its kernel), and each kernel
@@ -45,7 +56,10 @@ Phases, in order; any failure raises and the script exits non-zero:
                shapes (qwen3-moe's and the new ones of phase 3 included; MLA's
                through the op, padding included, and its kernel alone on V
                padded beforehand) and the training shape, B2 and B3 at the training
-               shape, B4 and B5 at the serving prefill and decode shapes.
+               shape, B4 and B5 at the serving prefill and decode shapes,
+               and at the training shapes of recurrentgemma-9b and rwkv6-3b
+               B1, B2, B3, B4, B5, B4' and B5' (B4' and B5' have no library
+               call: B4' is shown beside a torch.add moving its bytes).
                No single PyTorch call computes either recurrence over T, so
                their prefill library time is null; B4's decode step is
                torch.addcmul(b, a, h0), checked against the plain version
@@ -64,9 +78,11 @@ Phases, in order; any failure raises and the script exits non-zero:
                arch it also prints how many (token, choice) routing decisions
                (expert and kept or dropped) agree between card and CPU, and
                the top-k probability gap of any token that differs.
-  6. train parity - stablelm-3b at full width cut to 2 layers, f32, 2 x 128
-               tokens: the same weights on the card (B1, B2, B3) and on the CPU
-               (plain versions) give the same loss and gradients.
+  6. train parity - stablelm-3b and rwkv6-3b at full width cut to 2 layers,
+               and recurrentgemma-9b cut to its two RG-LRU layers, f32, 2 x
+               128 tokens: the same weights on the card (B1, B2, B3; B4, B4';
+               B5, B5') and on the CPU (plain versions) give the same loss and
+               gradients.
   7. serve   - stablelm-3b, recurrentgemma-9b, rwkv6-3b and minicpm3-4b, each
                at its full published config, and qwen3-moe-235b-a22b at its
                full width cut to 8 of its 94 layers (bf16, random weights
@@ -91,12 +107,18 @@ Phases, in order; any failure raises and the script exits non-zero:
                by device time), and the MoE arch's FFN is timed at the
                prefill and decode shapes: whole, its expert products, and
                its dispatch and combine products, beside its bound.
-  8. train (the main path) - stablelm-3b at its full published config, bf16,
-               full remat, batch 8 x 512, grad_sync "bridge": 1 warm-up step
-               and 3 timed steps through `repro_torch.launch.train.train`; the
-               launch counts of that run are read and checked (B1 64, B2 32,
-               B3 32 per step; every B1, B2 and B3 launch in the
-               tensor-core variant).
+  8. train (the main path) - stablelm-3b at its full published config, then
+               rwkv6-3b whole (32 layers) and recurrentgemma-9b at full width
+               cut to one pattern period (rglru, rglru, local: 3 of 38
+               layers; the whole model's weights, gradients and moments do
+               not fit one card), each bf16, full remat, batch 8 x 512,
+               grad_sync "bridge": 1 warm-up step and 3 timed steps through
+               `repro_torch.launch.train.train`; the launch counts of each
+               run are read and checked per step (stablelm-3b B1 64, B2 32,
+               B3 32; rwkv6-3b B5 64, all two-pass, and B5' 32, all from the
+               forward's states; recurrentgemma-9b B4 4, all ring, B4' 2, B1
+               2, B2 1, B3 1; every B1, B2 and B3 launch in the tensor-core
+               variant).
   9. multi-card - only with two or more cards: torchrun starts min(4, count)
                NCCL ranks (this script with --rank), which run the Bruck, ring
                and Bridge all-reduce against dist.all_reduce and the Bruck
@@ -198,6 +220,8 @@ MLA_CASE = (4, 40, 40, 512, 512, 96, True, None, 64)
 # internvl2-26b's prefill: 1024 patches + 512 tokens, 48 heads of 128 on 8 KV
 # heads (GQA 6:1)
 INTERNVL_CASE = (4, 48, 8, 1536, 1536, 128, True, None)
+# recurrentgemma-9b training 8 x 512: its local layers' MQA at D = 256
+GRIFFIN_TRAIN_CASE = (8, 16, 1, 512, 512, 256, True, 2048)
 NEW_CASES = (WHISPER_ENC_CASE, WHISPER_CROSS_CASE, WHISPER_CROSS_DECODE, WHISPER_SELF_CASE,
              MLA_CASE, INTERNVL_CASE)
 # ragged Sq and Sk (not multiples of 16 or 64): Sq < Sk under GQA, and MQA
@@ -230,6 +254,8 @@ BWD_CASES = [
 # ... the training shape (stablelm-3b, batch 8 x 512, 32 heads of 80) and
 # gemma3's head dim 256 with a sliding window.
 TRAIN_CASE = (8, 32, 512, 512, 80, True, None)
+# recurrentgemma-9b's training shape, its one K/V head expanded to 16
+GRIFFIN_BWD_CASE = (8, 16, 512, 512, 256, True, 2048)
 WIDE_BWD_CASE = (1, 8, 300, 300, 256, True, 100)
 GQA_CASE = (1, 8, 2, 160, 160, 32, True, 64)      # through the op: b, hq, hkv, s, s, d, ...
 GQA_SEEDS = range(5)
@@ -280,7 +306,27 @@ LRU_TOL = {torch.float32: 5e-5, torch.bfloat16: 5e-2}
 WKV_TOL = {torch.float32: 5e-4, torch.bfloat16: 5e-2}
 WKV_STATE_TOL = 5e-4
 EXTREME_TOL = 1e-4
-PATH_DTYPE = {"rg_lru_fwd": torch.float32, "wkv6_fwd": torch.bfloat16}
+PATH_DTYPE = {"rg_lru_fwd": torch.float32, "wkv6_fwd": torch.bfloat16,
+              "rg_lru_bwd": torch.float32, "wkv6_bwd": torch.bfloat16}
+# the recurrent archs' training shapes (8 x 512): recurrentgemma-9b's RG-LRU
+# (width 4096, f32) and rwkv6-3b's WKV-6 (40 heads of 64, bf16), for B4 and
+# B5 and their backward B4' and B5'
+LRU_TRAIN = (8, 512, 4096, False)
+WKV_TRAIN = (8, 40, 512, 64, 64, False)
+LRU_EXTREME = (2, 64, 48, True)   # a = e^-20: each step forgets almost all
+# B4' and B5' against their plain versions: f32 as the CPU tests hold the
+# plain backward to JAX's gradients (1e-5, 1e-4); bf16 2e-2 + 2e-2|want|
+# (both sides round each gradient to bf16, and B4' reads h as the forward's
+# bf16 y, one bf16 step from the plain version's f32 h)
+LRU_BWD_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+WKV_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# card vs CPU training parity: arch, layers kept (recurrentgemma-9b's two
+# RG-LRU layers; full width otherwise)
+TRAIN_PARITY_ARCHS = (("stablelm-3b", 2), ("rwkv6-3b", 2), ("recurrentgemma-9b", 2))
+# trained on the main path: arch, layers kept (None: all).  recurrentgemma-9b
+# whole is ~9.4 G parameters, ~113 GB of bf16 weights and gradients and f32
+# moments: one pattern period (rglru, rglru, local) at full width fits
+TRAIN_ARCHS = (("stablelm-3b", None), ("rwkv6-3b", None), ("recurrentgemma-9b", 3))
 # card vs CPU model parity: arch, layers kept (full width otherwise)
 PARITY_ARCHS = (("stablelm-3b", 4), ("recurrentgemma-9b", 3), ("rwkv6-3b", 2),
                 ("qwen3-moe-235b-a22b", 1), ("minicpm3-4b", 2), ("whisper-base", 6),
@@ -416,7 +462,7 @@ def flash_check_cases() -> list:
     """(case, dtype) of every check of B1 against its plain version."""
     cases = [(c, dt) for dt in (torch.float32, torch.bfloat16) for c in FLASH_CASES]
     cases += [(c, dt) for c in (SERVE_CASE, TRAIN_FWD_CASE, WIDE_CASE, GRIFFIN_CASE,
-                                QWEN_CASE, *NEW_CASES, *RAGGED_CASES)
+                                GRIFFIN_TRAIN_CASE, QWEN_CASE, *NEW_CASES, *RAGGED_CASES)
               for dt in (torch.bfloat16, torch.float32)]
     return cases
 
@@ -706,7 +752,8 @@ def expected_serve_launches(cfg, new_tokens: int) -> tuple[dict, dict]:
     per_pass = {"flash_attention_fwd": sum(k in ("attn", "local", "mla") for k in kinds)
                 + cross + (cfg.num_encoder_layers if cfg.enc_dec else 0),
                 "flash_attention_bwd_dkv": 0, "flash_attention_bwd_dq": 0,
-                "rg_lru_fwd": kinds.count("rglru"), "wkv6_fwd": kinds.count("rwkv6")}
+                "rg_lru_fwd": kinds.count("rglru"), "wkv6_fwd": kinds.count("rwkv6"),
+                "rg_lru_bwd": 0, "wkv6_bwd": 0}
     per_step = dict(per_pass, flash_attention_fwd=cross)
     decode = {k: v * (new_tokens - 1) for k, v in per_step.items()}
     return per_pass, decode
@@ -797,10 +844,12 @@ def serve_path(arch: str) -> dict:
     want_designs = {
         "prefill": {"rg_lru_fwd": {"launches_step": 0},
                     "wkv6_fwd": {"launches_chunked": want_prefill["wkv6_fwd"],
-                                 "launches_step": 0}},
+                                 "launches_step": 0},
+                    "wkv6_bwd": {"launches_entry": 0}},
         "decode": {"rg_lru_fwd": {"launches_step": want_decode["rg_lru_fwd"]},
                    "wkv6_fwd": {"launches_chunked": 0,
-                                "launches_step": want_decode["wkv6_fwd"]}}}
+                                "launches_step": want_decode["wkv6_fwd"]},
+                   "wkv6_bwd": {"launches_entry": 0}}}
     print(f"serve {arch}: B4 / B5 designs {designs}")
     if designs != want_designs:
         raise AssertionError(f"{arch}: B4 / B5 designs in the served run {designs}, "
@@ -962,10 +1011,12 @@ def attention_f64(q, k, v, causal: bool, window: int | None):
 
 def check_bwd_kernels() -> dict:
     """B2 and B3 vs their plain versions on the card; returns their errors at
-    the training shape in bf16 (the main path's dtype)."""
+    the training shapes in bf16 (the main paths' dtype), keyed by (kernel,
+    case)."""
     errs = {}
     cases = [(c, dt) for dt in (torch.float32, torch.bfloat16)
-             for c in BWD_CASES + [TRAIN_CASE, WIDE_BWD_CASE, *BWD_RAGGED_CASES]]
+             for c in BWD_CASES + [TRAIN_CASE, GRIFFIN_BWD_CASE, WIDE_BWD_CASE,
+                                   *BWD_RAGGED_CASES]]
     for case, dtype in cases:
         d, causal, window = case[4], case[5], case[6]
         q, k, v, do, o, lse, dvec = bwd_inputs(case, dtype)
@@ -985,9 +1036,9 @@ def check_bwd_kernels() -> dict:
         if not all(ok for _, ok in results.values()) or dq.shape != q.shape \
                 or dk.shape != k.shape or dv.shape != v.shape:
             raise AssertionError(f"backward kernel disagrees with its plain version: {line}")
-        if case == TRAIN_CASE and dtype == torch.bfloat16:
-            errs = {"flash_attention_bwd_dkv": max(results["dk"][0], results["dv"][0]),
-                    "flash_attention_bwd_dq": results["dq"][0]}
+        if case in (TRAIN_CASE, GRIFFIN_BWD_CASE) and dtype == torch.bfloat16:
+            errs[("flash_attention_bwd_dkv", case)] = max(results["dk"][0], results["dv"][0])
+            errs[("flash_attention_bwd_dq", case)] = results["dq"][0]
     # GQA through the op (K/V expanded, dK/dV group-summed): card vs CPU, f32,
     # on several seeds; both sides are also printed against an f64 truth, so
     # that a jump of the card-vs-CPU error shows which side moved
@@ -1035,10 +1086,14 @@ def check_bwd_kernels() -> dict:
     return errs
 
 
-def time_bwd() -> dict:
-    """B2 and B3 at the training shape, bf16: kernel, plain, library, bound."""
-    b, h, sq, sk, d, causal, window = TRAIN_CASE
-    q, k, v, do, o, lse, dvec = bwd_inputs(TRAIN_CASE, torch.bfloat16)
+def time_bwd(case) -> dict:
+    """B2 and B3 at a training shape, bf16: kernel, plain, library, bound.
+    SDPA has no sliding window: its causal backward is the yardstick where
+    the window covers every causal key (recurrentgemma-9b's 2048 at 512)."""
+    b, h, sq, sk, d, causal, window = case
+    if window is not None and window < sk:
+        raise ValueError(f"{case}: a window shorter than the keys has no SDPA yardstick")
+    q, k, v, do, o, lse, dvec = bwd_inputs(case, torch.bfloat16)
     kw = {"scale": d ** -0.5, "causal": causal, "window": window}
     # the library yardstick: the backward of PyTorch's fused attention on the
     # same inputs (dq, dk and dv together) under each SDPA backend that runs
@@ -1088,7 +1143,7 @@ def time_bwd() -> dict:
                        "plain_ms": med[(name, "plain_ms")],
                        "bound_ms": bound_ms, "bound_by": by, **lib}
         t = times[name]
-        print(f"{name} timing {TRAIN_CASE} bf16: kernel_ms {t['ms']:.4f} device_ms "
+        print(f"{name} timing {case} bf16: kernel_ms {t['ms']:.4f} device_ms "
               f"{t['device_ms']:.4f} plain_ms "
               f"{t['plain_ms']:.4f} SDPA backward (dq dk dv): {library_text(t)} "
               f"bound_ms {bound_ms:.4f} (by {by}: {moved} bytes, {flops} FLOP)")
@@ -1119,10 +1174,11 @@ def wkv_inputs(case, dtype):
 
 def check_recurrent_kernels() -> dict:
     """B4 and B5 vs their plain versions on the card, in f32 and bf16; returns
-    the errors at the serving shapes in the dtype the model runs them in."""
+    the errors at the serving and training shapes in the dtype the model runs
+    them in."""
     errs = {}
     dtypes = (torch.float32, torch.bfloat16)
-    lru_cases = LRU_CASES + [LRU_DECODE, LRU_PREFILL, LRU_RAGGED] + LRU_ODD
+    lru_cases = LRU_CASES + [LRU_DECODE, LRU_PREFILL, LRU_TRAIN, LRU_RAGGED] + LRU_ODD
     for case, dtype in [(c, dt) for c in lru_cases for dt in dtypes]:
         a, x, h0 = lru_inputs(case, dtype)
         y, h = lru_call(a, x, h0)
@@ -1142,7 +1198,7 @@ def check_recurrent_kernels() -> dict:
             raise AssertionError(f"B4 disagrees with its plain version: {line}")
         if dtype == torch.float32 and not same:
             raise AssertionError(f"B4 in f32 differs from its plain version's bits: {line}")
-        if case in (LRU_PREFILL, LRU_DECODE) and dtype == PATH_DTYPE["rg_lru_fwd"]:
+        if case in (LRU_PREFILL, LRU_DECODE, LRU_TRAIN) and dtype == PATH_DTYPE["rg_lru_fwd"]:
             errs[("rg_lru_fwd", case)] = max(ey, eh)
     for dtype in dtypes:
         args = lru_inputs(LRU_RAGGED, dtype)
@@ -1151,7 +1207,7 @@ def check_recurrent_kernels() -> dict:
             raise AssertionError(f"B4's ring differs between two runs on the card ({dtype})")
     print("rg_lru ring: two runs on the card are bit-identical (f32, bf16)")
     for case, dtype in [(c, dt) for c in WKV_CASES + [WKV_DECODE, WKV_PREFILL, WKV_RAGGED]
-                        for dt in dtypes]:
+                        for dt in dtypes] + [(WKV_TRAIN, PATH_DTYPE["wkv6_fwd"])]:
         r, k, v, log_w, u, s0 = wkv_inputs(case, dtype)
         y, s = wkv_call(r, k, v, log_w, u, s0)
         torch.cuda.synchronize()
@@ -1167,7 +1223,7 @@ def check_recurrent_kernels() -> dict:
         if not (ok_y and ok_s) or y.shape != v.shape or y.dtype != r.dtype \
                 or not torch.isfinite(y).all():
             raise AssertionError(f"B5 disagrees with its plain version: {line}")
-        if case in (WKV_PREFILL, WKV_DECODE) and dtype == PATH_DTYPE["wkv6_fwd"]:
+        if case in (WKV_PREFILL, WKV_DECODE, WKV_TRAIN) and dtype == PATH_DTYPE["wkv6_fwd"]:
             errs[("wkv6_fwd", case)] = max(ey, es)
     # extreme decay: every step forgets almost all (log_w = -20); f32 runs the
     # first design, bf16 the two-pass one
@@ -1247,22 +1303,24 @@ def wkv_work(r, v, s0) -> tuple[int, int, int]:
 
 
 def time_recurrent() -> dict:
-    """B4 and B5 at the serving prefill and decode shapes, in the dtype the
-    model runs them in: kernel and plain version (CUDA events), beside the
-    bound.  No single PyTorch call computes either recurrence over T, so
+    """B4 and B5 at the serving prefill and decode shapes and at the training
+    shapes, in the dtype the model runs them in: kernel and plain version
+    (CUDA events), beside the bound.  No single PyTorch call computes either recurrence over T, so
     prefill has no library time; B4's decode step is one torch.addcmul
     (h_1 = b_1 + a_1 h0, its one (B, D) output standing for y and h_last),
     checked against the plain version at LRU_TOL and timed both ways."""
     times = {}
     for name, case in (("rg_lru_fwd", LRU_PREFILL), ("rg_lru_fwd", LRU_DECODE),
-                       ("wkv6_fwd", WKV_PREFILL), ("wkv6_fwd", WKV_DECODE)):
+                       ("rg_lru_fwd", LRU_TRAIN), ("wkv6_fwd", WKV_PREFILL),
+                       ("wkv6_fwd", WKV_DECODE), ("wkv6_fwd", WKV_TRAIN)):
         dtype = PATH_DTYPE[name]
         library = None
         if name == "rg_lru_fwd":
             a, x, h0 = lru_inputs(case, dtype)
             fns = {"ms": lambda: lru_kernel.rg_lru_fwd(a, x, h0),
                    "plain_ms": lambda: lru_ref.rg_lru_scan(a, x, h0)}
-            moved = (3 * a.numel()) * a.element_size() + 2 * h0.numel() * 4
+            moved = (3 * a.numel()) * a.element_size() + (1 + (h0 is not None)) \
+                * a.shape[0] * a.shape[2] * 4
             flops, extra = 2 * a.numel(), ""
             if case[1] == 1:
                 library = lambda: torch.addcmul(x[:, 0], a[:, 0], h0)  # noqa: E731
@@ -1300,20 +1358,216 @@ def time_recurrent() -> dict:
     return times
 
 
-def check_train_parity():
-    """Same f32 weights on the card (B1, B2, B3) and on the CPU (plain
-    versions): loss and every gradient within the stated bounds."""
-    cfg = dataclasses.replace(configs.get("stablelm-3b"), num_layers=2, dtype="float32")
-    cpu_model = init_params(cfg, torch.Generator().manual_seed(SEED), device="cpu")
-    gpu_model = copy.deepcopy(cpu_model).to("cuda")
+def lru_bwd_inputs(case, dtype, decay=None):
+    """a, b and the cotangent gy (in `dtype`), h0 and the cotangent gh_last
+    (f32, or None without h0) of a B4' case; a = e^decay where given."""
+    b, t, d, with_h0 = case
+    gen = case_generator("lru_bwd", case, decay)
+    a = torch.rand((b, t, d), generator=gen, device="cuda") * 0.79 + 0.2
+    if decay is not None:
+        a = torch.full_like(a, math.exp(decay))
+    x, gy = (torch.randn((b, t, d), generator=gen, device="cuda") for _ in range(2))
+    h0, gh = ((torch.randn((b, d), generator=gen, device="cuda") for _ in range(2))
+              if with_h0 else (None, None))
+    return a.to(dtype), x.to(dtype), h0, gy.to(dtype), gh
+
+
+def wkv_bwd_inputs(case, dtype, log_w=None):
+    """r, k, v, log_w and the cotangent gy (in `dtype`), u, s0 and the
+    cotangent gs_last (f32, or None without s0) of a B5' case; log_w fixed
+    where given."""
+    b, h, t, dk, dv, with_s0 = case
+    gen = case_generator("wkv_bwd", case, log_w)
+    r, k = (torch.randn((b, h, t, dk), generator=gen, device="cuda") for _ in range(2))
+    v, gy = (torch.randn((b, h, t, dv), generator=gen, device="cuda") for _ in range(2))
+    lw = -torch.exp(torch.randn((b, h, t, dk), generator=gen, device="cuda"))
+    if log_w is not None:
+        lw = torch.full_like(lw, log_w)
+    u = torch.randn((h, dk), generator=gen, device="cuda")
+    s0, gs = ((torch.randn((b, h, dk, dv), generator=gen, device="cuda") for _ in range(2))
+              if with_s0 else (None, None))
+    return (*(x.to(dtype) for x in (r, k, v, lw)), u, s0, gy.to(dtype), gs)
+
+
+def lru_bwd_call(a, x, h0, y, gy, gh):
+    """B4' through its wrapper, counted."""
+    fn = lru_kernel.rg_lru_bwd
+    before = fn.launches
+    out = fn(a, x, h0, y, gy, gh)
+    if fn.launches != before + 1:
+        raise AssertionError(f"B4' at {tuple(a.shape)}: launches {fn.launches}, expected "
+                             f"{before + 1}")
+    return out
+
+
+def wkv_bwd_call(r, k, v, log_w, u, s0, gy, gs, ws):
+    """B5' through its wrapper, checking by the counters that it walked the
+    chunk-entry states itself exactly when the forward left none."""
+    fn = wkv_kernel.wkv6_bwd
+    before = (fn.launches, fn.launches_entry)
+    out = fn(r, k, v, log_w, u, s0, gy, gs, ws)
+    want = (before[0] + 1, before[1] + (ws is None))
+    if (fn.launches, fn.launches_entry) != want:
+        raise AssertionError(f"B5' at {tuple(r.shape)} {r.dtype}: (launches, entry) "
+                             f"{(fn.launches, fn.launches_entry)}, expected {want}")
+    return out
+
+
+def grads_text(names, results) -> str:
+    return ", ".join(f"{n} max|err| {e:.3e}" for n, (e, _) in zip(names, results, strict=True))
+
+
+def check_recurrent_bwd_kernels() -> dict:
+    """B4' and B5' vs their plain versions on the card, in f32 and bf16, each
+    run twice (the same bits); returns their errors at the training shapes."""
+    errs = {}
+    dtypes = (torch.float32, torch.bfloat16)
+    lru_cases = [(c, dt, None) for c in LRU_CASES + [LRU_RAGGED] for dt in dtypes] \
+        + [(LRU_TRAIN, PATH_DTYPE["rg_lru_bwd"], None)] \
+        + [(LRU_EXTREME, dt, -20.0) for dt in dtypes]
+    for case, dtype, decay in lru_cases:
+        a, x, h0, gy, gh = lru_bwd_inputs(case, dtype, decay)
+        y, _ = lru_kernel.rg_lru_fwd(a, x, h0)
+        got, again = (lru_bwd_call(a, x, h0, y, gy, gh) for _ in range(2))
+        torch.cuda.synchronize()
+        want = lru_ref.rg_lru_scan_bwd(a, x, h0, gy, gh)
+        tol = LRU_BWD_TOL[dtype]
+        results = [max_err(g, w, tol, tol) for g, w in zip(got, want, strict=True)]
+        runs = all(torch.equal(g, z) for g, z in zip(got, again, strict=True))
+        plain = all(torch.equal(g, w) for g, w in zip(got, want, strict=True))
+        line = (f"rg_lru_bwd {case} {str(dtype)[6:]}{'' if decay is None else ' a = e^-20'} "
+                f"inputs {input_hash(a, x, gy, *([h0, gh] if case[3] else []))}: "
+                f"{grads_text(('da', 'db', 'dh0'), results)} (tol {tol} + {tol}|want|), "
+                f"bit-identical to the plain version {plain}, two runs bit-identical {runs}")
+        print(line)
+        if not all(ok for _, ok in results) or not runs \
+                or not all(torch.isfinite(g).all() for g in got):
+            raise AssertionError(f"B4' disagrees with its plain version: {line}")
+        # one add and two multiplies a step, each rounded, in the plain
+        # version's order, from the forward's y, which in f32 is h itself
+        if dtype == torch.float32 and not plain:
+            raise AssertionError(f"B4' in f32 differs from its plain version's bits: {line}")
+        if case == LRU_TRAIN:
+            errs[("rg_lru_bwd", case)] = max(e for e, _ in results)
+    wkv_cases = [(c, dt, None) for c in WKV_CASES + [WKV_RAGGED] for dt in dtypes] \
+        + [(WKV_TRAIN, PATH_DTYPE["wkv6_bwd"], None)] \
+        + [(WKV_EXTREME, dt, -20.0) for dt in dtypes]
+    names = ("dr", "dk", "dv", "dlog_w", "du", "ds0")
+    for case, dtype, log_w in wkv_cases:
+        r, k, v, lw, u, s0, gy, gs = wkv_bwd_inputs(case, dtype, log_w)
+        # bf16 with T > 1: from the two-pass forward's chunk-entry states
+        _, _, ws = wkv_kernel.wkv6_fwd(r, k, v, lw, u, s0, with_workspace=True)
+        got, again = (wkv_bwd_call(r, k, v, lw, u, s0, gy, gs, ws) for _ in range(2))
+        torch.cuda.synchronize()
+        want = wkv_ref.wkv6_scan_bwd(r, k, v, lw, u, s0, gy, gs)
+        tol = WKV_BWD_TOL[dtype]
+        results = [max_err(g, w, tol, tol) for g, w in zip(got, want, strict=True)]
+        runs = all(torch.equal(g, z) for g, z in zip(got, again, strict=True))
+        line = (f"wkv6_bwd {case} {str(dtype)[6:]}{'' if log_w is None else ' log_w = -20'} "
+                f"states {'forward' if ws is not None else 'own'} inputs "
+                f"{input_hash(r, k, v, lw, u, gy, *([s0, gs] if case[5] else []))}: "
+                f"{grads_text(names, results)} (tol {tol} + {tol}|want|), two runs "
+                f"bit-identical {runs}")
+        print(line)
+        if not all(ok for _, ok in results) or not runs \
+                or not all(torch.isfinite(g).all() for g in got):
+            raise AssertionError(f"B5' disagrees with its plain version: {line}")
+        if case == WKV_TRAIN:
+            errs[("wkv6_bwd", case)] = max(e for e, _ in results)
+    return errs
+
+
+def wkv_bwd_work(r, v, s0, ws) -> tuple[int, int]:
+    """(bytes, FLOPs) B5' needs for these inputs: r, k, v, log_w, gy, u, the
+    chunk-entry states (and s0, gs_last) read once, dr, dk, dv, dlog_w, du
+    and ds0 written once; per state entry and step a multiply-add each for
+    dr, dk, dv and dlog_w, three operations for G_{t-1} = w G + r gy and three
+    to recompute S once (a multiply-add counts 2), and per step the bonus
+    terms (v . gy and sum_i u r k; dr, dk, dlog_w and du per row)."""
+    b, h, t, dk = r.shape
+    dv = v.shape[-1]
+    elem = r.element_size()
+    state = b * h * dk * dv * 4
+    moved = (3 * r.numel() + 2 * v.numel()) * elem + h * dk * 4 + ws.numel() * 4 \
+        + (2 * state if s0 is not None else 0) \
+        + (3 * r.numel() + v.numel()) * elem + h * dk * 4 + state
+    flops = b * h * t * (14 * dk * dv + 2 * dv + 13 * dk)
+    return moved, flops
+
+
+def time_recurrent_bwd() -> dict:
+    """B4' and B5' at the training shapes, in the dtype the model runs them
+    in: kernel (`ms`, `device_ms`) and plain version (fewer calls), beside the
+    bound.  No single PyTorch call computes either; B4' is shown beside a
+    torch.add that moves its bytes (`yardstick_ms`, `yardstick_device_ms`)."""
+    times = {}
+    a, x, h0, gy, gh = lru_bwd_inputs(LRU_TRAIN, PATH_DTYPE["rg_lru_bwd"])
+    y, _ = lru_kernel.rg_lru_fwd(a, x, h0)
+    n = a.numel()
+    moved = 5 * n * a.element_size()               # a, y, gy read; da, db written
+    m = -(-moved // (3 * 4))                       # torch.add: two f32 reads, one write
+    p, q, o = (torch.randn(m, device="cuda") for _ in range(3))
+    fns = {"ms": lambda: lru_kernel.rg_lru_bwd(a, x, h0, y, gy, gh),
+           "plain_ms": lambda: lru_ref.rg_lru_scan_bwd(a, x, h0, gy, gh),
+           "yardstick_ms": lambda: torch.add(p, q, out=o)}
+    fns["device_ms"], fns["yardstick_device_ms"] = fns["ms"], fns["yardstick_ms"]
+    t = time_in_turns(fns, {}, {"plain_ms": 3})
+    t["bound_ms"], t["bound_by"] = bound(moved, 3 * n, PEAK_FLOP_S[a.dtype])
+    t["library_ms"] = t["library_device_ms"] = None
+    times[("rg_lru_bwd", LRU_TRAIN)] = t
+    print(f"rg_lru_bwd timing {LRU_TRAIN} {str(a.dtype)[6:]}: kernel_ms {t['ms']:.4f} device_ms "
+          f"{t['device_ms']:.4f} plain_ms {t['plain_ms']:.4f} library_ms none (no PyTorch "
+          f"call computes the gradient); torch.add moving its {3 * m * 4} bytes "
+          f"yardstick_ms {t['yardstick_ms']:.4f} yardstick_device_ms "
+          f"{t['yardstick_device_ms']:.4f}; bound_ms {t['bound_ms']:.4f} (by {t['bound_by']}: "
+          f"{moved} bytes, {3 * n} FLOP)")
+    r, k, v, lw, u, s0, gy, gs = wkv_bwd_inputs(WKV_TRAIN, PATH_DTYPE["wkv6_bwd"])
+    _, _, ws = wkv_kernel.wkv6_fwd(r, k, v, lw, u, s0, with_workspace=True)
+    fns = {"ms": lambda: wkv_kernel.wkv6_bwd(r, k, v, lw, u, s0, gy, gs, ws),
+           "plain_ms": lambda: wkv_ref.wkv6_scan_bwd(r, k, v, lw, u, s0, gy, gs)}
+    fns["device_ms"] = fns["ms"]
+    t = time_in_turns(fns, {}, {"plain_ms": 1})
+    moved, flops = wkv_bwd_work(r, v, s0, ws)
+    t["bound_ms"], t["bound_by"] = bound(moved, flops, H100_F32_FLOP_S)
+    t["library_ms"] = t["library_device_ms"] = None
+    times[("wkv6_bwd", WKV_TRAIN)] = t
+    print(f"wkv6_bwd timing {WKV_TRAIN} {str(r.dtype)[6:]}: kernel_ms {t['ms']:.4f} device_ms "
+          f"{t['device_ms']:.4f} plain_ms {t['plain_ms']:.4f} library_ms none (no PyTorch "
+          f"call computes the gradient) bound_ms {t['bound_ms']:.4f} (by {t['bound_by']}: "
+          f"{moved} bytes, {flops} FLOP on the CUDA cores in f32, peak "
+          f"{H100_F32_FLOP_S:.3g} FLOP/s)")
+    return times
+
+
+def check_train_parity(arch: str, num_layers: int) -> float:
+    """Same f32 weights on the card (kernels, forward and backward) and on
+    the CPU (plain versions): loss and every gradient within the stated
+    bounds.  `arch` at its full width cut to `num_layers`; the card's run
+    must launch each backward kernel of its layers once per layer."""
+    cfg = dataclasses.replace(configs.get(arch), num_layers=num_layers, dtype="float32")
+    if arch == "stablelm-3b":
+        cpu_model = init_params(cfg, torch.Generator().manual_seed(SEED), device="cpu")
+        gpu_model = copy.deepcopy(cpu_model).to("cuda")
+    else:  # drawn on the card: a 256k x 4096 f32 table is slow to draw on the host
+        gpu_model = init_params(cfg, torch.Generator(device="cuda").manual_seed(SEED), "cuda")
+        cpu_model = copy.deepcopy(gpu_model).to("cpu")
     data = SyntheticLM(cfg.vocab_size, 128, seed=SEED)
     batch = {k: torch.from_numpy(v) for k, v in data.global_batch(0, 2, 1).items()}
     losses = []
+    reset_launches()
     for model in (gpu_model, cpu_model):
         loss, _ = loss_fn(cfg, model, {k: v.to(model.device) for k, v in batch.items()})
         loss.backward()
         losses.append(loss.item())
-    print(f"train parity loss card {losses[0]:.7f} cpu {losses[1]:.7f}")
+    launches, kinds = read_launches(), cfg.layer_kinds
+    want = {"flash_attention_bwd_dkv": sum(k in ("attn", "local") for k in kinds),
+            "rg_lru_bwd": kinds.count("rglru"), "wkv6_bwd": kinds.count("rwkv6")}
+    got = {name: launches[name] for name in want}
+    text = f"{arch} ({num_layers} layers {kinds}, f32, 2 x 128 tokens)"
+    print(f"train parity {text}: loss card {losses[0]:.7f} cpu {losses[1]:.7f}; backward "
+          f"launches on the card {got}")
+    if got != want:
+        raise AssertionError(f"{text}: backward launches {got}, expected {want}")
     if not math.isclose(losses[0], losses[1], rel_tol=TRAIN_LOSS_RTOL):
         raise AssertionError(f"card and CPU losses differ beyond rtol {TRAIN_LOSS_RTOL}")
     worst = 0.0
@@ -1323,8 +1577,8 @@ def check_train_parity():
         worst = max(worst, rel)
         if not rel <= TRAIN_GRAD_RTOL:
             raise AssertionError(f"gradient {name}: card vs CPU relative error {rel:.3e}")
-    print(f"train parity gradients: worst per-leaf ||card - cpu|| / ||cpu|| {worst:.3e} "
-          f"(tol {TRAIN_GRAD_RTOL}) over {len(list(cpu_model.parameters()))} leaves")
+    print(f"train parity {text} gradients: worst per-leaf ||card - cpu|| / ||cpu|| "
+          f"{worst:.3e} (tol {TRAIN_GRAD_RTOL}) over {len(list(cpu_model.parameters()))} leaves")
     return worst
 
 
@@ -1334,15 +1588,19 @@ LAUNCH_COUNTERS = {
     "flash_attention_bwd_dq": flash_bwd.flash_attention_bwd_dq,
     "rg_lru_fwd": lru_kernel.rg_lru_fwd,
     "wkv6_fwd": wkv_kernel.wkv6_fwd,
+    "rg_lru_bwd": lru_kernel.rg_lru_bwd,
+    "wkv6_bwd": wkv_kernel.wkv6_bwd,
 }
 
 
 # the kernels with a tensor-core (bf16) variant, counted apart in launches_tc
 TC_COUNTERS = ("flash_attention_fwd", "flash_attention_bwd_dkv", "flash_attention_bwd_dq")
-# the recurrences' designs, counted apart: B4's and B5's T = 1 kernels and
-# B5's two-pass one (bf16, T > 1)
+# the recurrences' designs, counted apart: B4's and B5's T = 1 kernels, B5's
+# two-pass one (bf16, T > 1), and B5' calls that walked the chunk-entry
+# states themselves (no forward workspace)
 DESIGN_COUNTERS = {"rg_lru_fwd": ("launches_step",),
-                   "wkv6_fwd": ("launches_chunked", "launches_step")}
+                   "wkv6_fwd": ("launches_chunked", "launches_step"),
+                   "wkv6_bwd": ("launches_entry",)}
 
 
 def reset_launches() -> None:
@@ -1373,15 +1631,21 @@ def check_tensor_core_launches(path: str) -> None:
                              f"tensor-core variant: {counts}")
 
 
-def train_main_path() -> tuple[dict, list[float]]:
-    """The main path: full-config stablelm-3b trains TRAIN_STEPS steps.
+def train_path(arch: str, num_layers: int | None) -> tuple[dict, list[float]]:
+    """A main path: `arch` at its full published config (cut to `num_layers`
+    where given, full width) trains TRAIN_STEPS steps through `train()`.
     Returns the launch counts of the run and its losses."""
     b, _, seq = TRAIN_CASE[0], TRAIN_CASE[1], TRAIN_CASE[2]
-    tc = train_mod.TrainConfig(arch="stablelm-3b", scale="full", steps=TRAIN_STEPS,
+    tc = train_mod.TrainConfig(arch=arch, scale="full", steps=TRAIN_STEPS,
                                batch_size=b, seq_len=seq, grad_sync="bridge", seed=SEED)
     cfg = train_mod.model_config(tc)
-    if (cfg.dtype, cfg.remat, cfg.remat_policy, cfg.num_layers) != ("bfloat16", True, "full", 32):
+    if (cfg.dtype, cfg.remat, cfg.remat_policy) != ("bfloat16", True, "full") \
+            or cfg != configs.get(arch):
         raise AssertionError(f"not the full config: {cfg}")
+    model = None
+    if num_layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=num_layers)
+        model = init_params(cfg, torch.Generator(device="cuda").manual_seed(SEED), "cuda")
     lines = []
 
     def progress(msg):
@@ -1391,27 +1655,40 @@ def train_main_path() -> tuple[dict, list[float]]:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
-    _, _, losses = train_mod.train(tc, progress=progress, device="cuda")
-    launches = read_launches()
-    check_tensor_core_launches("train stablelm-3b")
+    trained, _, losses = train_mod.train(tc, progress=progress, device="cuda", model=model)
+    launches, designs = read_launches(), read_designs()
+    check_tensor_core_launches(f"train {arch}")
     peak = torch.cuda.max_memory_allocated()
-    per_step = {"flash_attention_fwd": 2 * cfg.num_layers,   # forward + remat recompute
-                "flash_attention_bwd_dkv": cfg.num_layers,
-                "flash_attention_bwd_dq": cfg.num_layers,
-                "rg_lru_fwd": 0, "wkv6_fwd": 0}
+    kinds = cfg.layer_kinds
+    attn = sum(k in ("attn", "local") for k in kinds)
+    rglru, rwkv = kinds.count("rglru"), kinds.count("rwkv6")
+    per_step = {"flash_attention_fwd": 2 * attn,   # forward + remat recompute
+                "flash_attention_bwd_dkv": attn, "flash_attention_bwd_dq": attn,
+                "rg_lru_fwd": 2 * rglru, "wkv6_fwd": 2 * rwkv,
+                "rg_lru_bwd": rglru, "wkv6_bwd": rwkv}
     want = {k: v * TRAIN_STEPS for k, v in per_step.items()}
-    if launches != want:
-        raise AssertionError(f"launches in the training run {launches}, expected {want}")
+    # every B4 call in the ring (T = 512), every B5 call two-pass (bf16), and
+    # every B5' call from the forward's chunk-entry states
+    want_designs = {"rg_lru_fwd": {"launches_step": 0},
+                    "wkv6_fwd": {"launches_chunked": want["wkv6_fwd"], "launches_step": 0},
+                    "wkv6_bwd": {"launches_entry": 0}}
+    if launches != want or designs != want_designs:
+        raise AssertionError(f"train {arch}: launches {launches}, designs {designs}; "
+                             f"expected {want}, {want_designs}")
     if len(losses) != TRAIN_STEPS or not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"losses not finite: {losses}")
     dts = [float(re.search(r"dt ([0-9.]+)s", line).group(1)) for line in lines]
     timed = dts[1:]
     step_s = sum(timed) / len(timed)
-    print(f"train stablelm-3b full config (bf16, remat full, grad_sync bridge, 1 rank), "
-          f"batch {b} x {seq}: losses {losses}, warm-up step {dts[0]:.4f} s, timed steps "
-          f"{timed} s, mean {step_s:.4f} s = {b * seq / step_s:.1f} tokens/s, peak memory "
-          f"{peak / 2**30:.3f} GiB ({peak} bytes), launches {launches} "
-          f"(per step {per_step})")
+    params = sum(p.numel() for p in trained.parameters())
+    cut = "" if num_layers is None else \
+        f" cut to {num_layers} of {configs.get(arch).num_layers} layers {kinds}"
+    print(f"train {arch} full config{cut} "
+          f"(bf16, remat full, grad_sync bridge, 1 rank, {params} parameters), batch {b} x "
+          f"{seq}: losses {losses}, warm-up step {dts[0]:.4f} s, timed steps {timed} s, mean "
+          f"{step_s:.4f} s = {b * seq / step_s:.1f} tokens/s, peak memory "
+          f"{peak / 2**30:.3f} GiB ({peak} bytes), launches {launches} (per step {per_step}), "
+          f"designs {designs}")
     return launches, losses
 
 
@@ -1660,17 +1937,22 @@ def main() -> None:
     fwd_errs = check_kernels()
     bwd_errs = check_bwd_kernels()
     rec_errs = check_recurrent_kernels()
+    rec_errs.update(check_recurrent_bwd_kernels())
     phase("4 kernel timing")
     fwd_times = {case: time_flash(case)
-                 for case in (TRAIN_FWD_CASE, SERVE_CASE, GRIFFIN_CASE, QWEN_CASE, *NEW_CASES)}
-    bwd_times = time_bwd()
+                 for case in (TRAIN_FWD_CASE, SERVE_CASE, GRIFFIN_CASE, GRIFFIN_TRAIN_CASE,
+                              QWEN_CASE, *NEW_CASES)}
+    bwd_times = {case: time_bwd(case) for case in (TRAIN_CASE, GRIFFIN_BWD_CASE)}
     rec_times = time_recurrent()
+    rec_times.update(time_recurrent_bwd())
     phase("5 model parity card vs cpu")
     for arch, num_layers in PARITY_ARCHS:
         check_model_parity(arch, num_layers)
         gc.collect()
     phase("6 train parity card vs cpu")
-    check_train_parity()
+    for arch, num_layers in TRAIN_PARITY_ARCHS:
+        check_train_parity(arch, num_layers)
+        gc.collect()
     phase("7 serve")
     serve_launches = {}
     for arch in SERVE_ARCHS:  # one model at a time: each is freed before the next
@@ -1678,12 +1960,16 @@ def main() -> None:
         gc.collect()
         torch.cuda.empty_cache()
     phase("8 train (main path)")
-    train_launches, train_losses = train_main_path()
+    train_launches, train_losses = {}, {}
+    for arch, num_layers in TRAIN_ARCHS:  # one model at a time
+        train_launches[arch], train_losses[arch] = train_path(arch, num_layers)
+        gc.collect()
+        torch.cuda.empty_cache()
     phase("9 multi-card")
     if count >= 2:
         gc.collect()
         torch.cuda.empty_cache()  # rank 0 shares this card
-        multi_card(min(4, count), train_losses)
+        multi_card(min(4, count), train_losses["stablelm-3b"])
     else:
         print(f"multi-card phase: not run ({count} device)")
 
@@ -1691,7 +1977,10 @@ def main() -> None:
                "flash_attention_bwd_dkv": ("flash_attention_bwd.cu", "flash_attention/kernel_bwd.py:48"),
                "flash_attention_bwd_dq": ("flash_attention_bwd.cu", "flash_attention/kernel_bwd.py:92"),
                "rg_lru_fwd": ("rg_lru.cu", "rg_lru/kernel.py:25"),
-               "wkv6_fwd": ("wkv6.cu", "wkv6/kernel.py:34")}
+               "wkv6_fwd": ("wkv6.cu", "wkv6/kernel.py:34"),
+               # no pallas_call: the JAX ops' custom_vjp backward
+               "rg_lru_bwd": ("rg_lru.cu", "rg_lru/ops.py:24"),
+               "wkv6_bwd": ("wkv6_bwd.cu", "wkv6/ops.py:25")}
     # one entry per kernel and path: launches of that path's run, error and
     # times at the shape that path gives the kernel
     griffin, rwkv = serve_launches["recurrentgemma-9b"], serve_launches["rwkv6-3b"]
@@ -1702,11 +1991,23 @@ def main() -> None:
     whisper_prefill = dict(fwd_times[WHISPER_ENC_CASE], other_shapes=[
         {"shape": list(case), "max_abs_err": fwd_errs[case], **fwd_times[case]}
         for case in (WHISPER_SELF_CASE, WHISPER_CROSS_CASE)])
+    bwd_names = ("flash_attention_bwd_dkv", "flash_attention_bwd_dq")
+    rwkv_train, griffin_train = train_launches["rwkv6-3b"], train_launches["recurrentgemma-9b"]
     entries = [
-        ("train stablelm-3b", "flash_attention_fwd", TRAIN_FWD_CASE, train_launches,
-         fwd_errs[TRAIN_FWD_CASE], fwd_times[TRAIN_FWD_CASE]),
-        *(("train stablelm-3b", name, TRAIN_CASE, train_launches, bwd_errs[name],
-           bwd_times[name]) for name in ("flash_attention_bwd_dkv", "flash_attention_bwd_dq")),
+        ("train stablelm-3b", "flash_attention_fwd", TRAIN_FWD_CASE,
+         train_launches["stablelm-3b"], fwd_errs[TRAIN_FWD_CASE], fwd_times[TRAIN_FWD_CASE]),
+        *(("train stablelm-3b", name, TRAIN_CASE, train_launches["stablelm-3b"],
+           bwd_errs[(name, TRAIN_CASE)], bwd_times[TRAIN_CASE][name]) for name in bwd_names),
+        *(("train rwkv6-3b", name, WKV_TRAIN, rwkv_train, rec_errs[(name, WKV_TRAIN)],
+           rec_times[(name, WKV_TRAIN)]) for name in ("wkv6_fwd", "wkv6_bwd")),
+        *(("train recurrentgemma-9b", name, LRU_TRAIN, griffin_train,
+           rec_errs[(name, LRU_TRAIN)], rec_times[(name, LRU_TRAIN)])
+          for name in ("rg_lru_fwd", "rg_lru_bwd")),
+        ("train recurrentgemma-9b", "flash_attention_fwd", GRIFFIN_TRAIN_CASE, griffin_train,
+         fwd_errs[GRIFFIN_TRAIN_CASE], fwd_times[GRIFFIN_TRAIN_CASE]),
+        *(("train recurrentgemma-9b", name, GRIFFIN_BWD_CASE, griffin_train,
+           bwd_errs[(name, GRIFFIN_BWD_CASE)], bwd_times[GRIFFIN_BWD_CASE][name])
+          for name in bwd_names),
         ("serve stablelm-3b prefill", "flash_attention_fwd", SERVE_CASE, stablelm["prefill"],
          fwd_errs[SERVE_CASE], fwd_times[SERVE_CASE]),
         ("serve recurrentgemma-9b prefill", "flash_attention_fwd", GRIFFIN_CASE,

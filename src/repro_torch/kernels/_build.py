@@ -112,4 +112,10 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     fn = lib.wkv6_fwd
     fn.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, p]
     fn.restype = i
+    fn = lib.rg_lru_bwd
+    fn.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, p]
+    fn.restype = i
+    fn = lib.wkv6_bwd
+    fn.argtypes = [p, p, p, p, p, p, p, p, p, i, p, p, p, p, p, p, p, p, i, i, i, i, i, i, p]
+    fn.restype = i
     return lib

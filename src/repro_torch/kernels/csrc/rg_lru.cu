@@ -217,6 +217,68 @@ rg_lru_step_kernel(const T* __restrict__ a, const T* __restrict__ b,
   }
 }
 
+// ---- The backward (B4'): a reverse walk along T --------------------------------
+//
+// The JAX op has no backward kernel: its custom_vjp differentiates the jnp
+// reference scan (src/repro/kernels/rg_lru/ops.py:24).  With dh_t the
+// gradient of h_t, dh_{T-1} = gy_{T-1} + gh_last and dh_t = gy_t + a_{t+1}
+// dh_{t+1}; da_t = dh_t h_{t-1} (h_{-1} = h0, or 0), db_t = dh_t and
+// dh0 = a_0 dh_0.  h is the forward's y, saved by the op: in f32 it is h
+// itself, in bf16 h rounded (one bf16 step in h_{t-1}, under the bf16 bound
+// of da).
+//
+// What bounds it on the H100: bytes.  It reads a, y and gy once and writes
+// da and db once: 5 x 67.1 MB at the training shape (8, 512, 4096, f32),
+// 0.100 ms at 3.35 TB/s; one add and two multiplies a step bound nothing.
+// Design: one thread a lane (b, d), a CTA 64 neighbouring lanes, so each
+// load and store of a warp is one 128-byte row of a step (64 bytes in
+// bf16).  The thread walks T backwards in groups of kBwdSteps steps, the
+// group's 3 kBwdSteps loads issued before its chain runs, which puts ~3 MB
+// in flight over the card at the training shape.  Adds and multiplies are
+// rounded one by one, in the plain version's order, so in f32 the two agree
+// bit for bit.
+constexpr int kBwdThreads = 64;
+constexpr int kBwdSteps = 8;
+
+template <typename T>
+__global__ void __launch_bounds__(kBwdThreads)
+rg_lru_bwd_kernel(const T* __restrict__ a, const T* __restrict__ y,
+                  const float* __restrict__ h0, const T* __restrict__ gy,
+                  const float* __restrict__ gh_last, T* __restrict__ da, T* __restrict__ db,
+                  float* __restrict__ dh0, int steps, int d, int64_t lanes) {
+  const int64_t lane = static_cast<int64_t>(blockIdx.x) * kBwdThreads + threadIdx.x;
+  if (lane >= lanes) return;
+  const int64_t bi = lane / d;
+  const int64_t base = bi * steps * d + (lane - bi * d);  // (bi, t = 0, di)
+  const float h_init = h0 != nullptr ? h0[lane] : 0.f;
+  float dh = gh_last != nullptr ? gh_last[lane] : 0.f;
+  for (int t0 = ((steps - 1) / kBwdSteps) * kBwdSteps; t0 >= 0; t0 -= kBwdSteps) {
+    float av[kBwdSteps], hv[kBwdSteps], gv[kBwdSteps];
+#pragma unroll
+    for (int i = 0; i < kBwdSteps; ++i) {
+      const int t = t0 + i;
+      if (t < steps) {
+        const int64_t at = base + static_cast<int64_t>(t) * d;
+        av[i] = to_float(a[at]);
+        gv[i] = to_float(gy[at]);
+        hv[i] = t > 0 ? to_float(y[at - d]) : h_init;
+      }
+    }
+#pragma unroll
+    for (int i = kBwdSteps - 1; i >= 0; --i) {
+      const int t = t0 + i;
+      if (t < steps) {
+        const int64_t at = base + static_cast<int64_t>(t) * d;
+        dh = __fadd_rn(dh, gv[i]);
+        db[at] = from_float<T>(dh);
+        da[at] = from_float<T>(__fmul_rn(dh, hv[i]));
+        dh = __fmul_rn(av[i], dh);
+      }
+    }
+  }
+  dh0[lane] = dh;
+}
+
 bool aligned(const void* p, size_t bytes) {
   return reinterpret_cast<uintptr_t>(p) % bytes == 0;
 }
@@ -270,4 +332,32 @@ extern "C" int rg_lru_fwd(const void* a, const void* b, const void* h0, void* y,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16) return launch<__nv_bfloat16>(a, b, h0, y, h_last, batch, steps, d, s);
   return launch<float>(a, b, h0, y, h_last, batch, steps, d, s);
+}
+
+// The backward.  a, y (the forward's output), gy (B, T, D) contiguous, all f32
+// (is_bf16 = 0) or all bf16; h0, gh_last (B, D) f32 or null (zeros).  Writes
+// da, db (B, T, D) in the input type and dh0 (B, D) f32.  Launches on `stream`
+// and returns the launch's cudaError_t (0 on success).
+extern "C" int rg_lru_bwd(const void* a, const void* y, const void* h0, const void* gy,
+                          const void* gh_last, void* da, void* db, void* dh0, int batch,
+                          int steps, int d, int is_bf16, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int64_t lanes = static_cast<int64_t>(batch) * d;
+  const int64_t blocks = (lanes + kBwdThreads - 1) / kBwdThreads;
+  if (steps < 1 || blocks < 1 || blocks > 0x7fffffff) return cudaErrorInvalidConfiguration;
+  const float* th0 = static_cast<const float*>(h0);
+  const float* tgh = static_cast<const float*>(gh_last);
+  float* tdh0 = static_cast<float*>(dh0);
+  if (is_bf16) {
+    using T = __nv_bfloat16;
+    rg_lru_bwd_kernel<T><<<static_cast<unsigned>(blocks), kBwdThreads, 0, s>>>(
+        static_cast<const T*>(a), static_cast<const T*>(y), th0, static_cast<const T*>(gy), tgh,
+        static_cast<T*>(da), static_cast<T*>(db), tdh0, steps, d, lanes);
+  } else {
+    rg_lru_bwd_kernel<float><<<static_cast<unsigned>(blocks), kBwdThreads, 0, s>>>(
+        static_cast<const float*>(a), static_cast<const float*>(y), th0,
+        static_cast<const float*>(gy), tgh, static_cast<float*>(da), static_cast<float*>(db),
+        tdh0, steps, d, lanes);
+  }
+  return cudaGetLastError();
 }

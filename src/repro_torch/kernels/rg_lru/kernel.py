@@ -13,6 +13,10 @@ flight while the chain runs).  `launches` counts every call that launches,
 The TPU version padded T and D to its blocks with a = 1, b = 0; the CUDA
 kernels bound their loops instead, so nothing is padded.
 
+`rg_lru_bwd` wraps the backward kernel (B4', the same file), a reverse
+walk along T from the forward's y; on a CPU tensor it runs the plain
+`ref.rg_lru_scan_bwd`.  Its `launches` counts its calls that launch.
+
 The wrapper's host work is what a decode call costs beyond its few
 microseconds of device time, so the bound C function is looked up once, the
 current stream is read without building a Stream object and h0 is converted
@@ -84,3 +88,40 @@ def rg_lru_fwd(a, b, h0=None):
 
 rg_lru_fwd.launches = 0       # calls that launched; never counts a CPU call
 rg_lru_fwd.launches_step = 0  # of which the T = 1 kernel
+
+
+def rg_lru_bwd(a, b, h0, y, gy, gh_last=None):
+    """The gradients of `rg_lru_fwd(a, b, h0) = (y, h_last)`.  y: the forward's
+    output, which the kernel reads as h (in bf16, h rounded); gy: (B, T, D)
+    in a's dtype, the cotangent of y; gh_last: (B, D) or None (zeros), that
+    of h_last.
+
+    Returns (da, db in a's dtype, dh0 (B, D) float32; on a CPU tensor the
+    plain version's, dh0 in h0's dtype)."""
+    dev = a.device
+    if dev.type == "cpu":
+        return ref.rg_lru_scan_bwd(a, b, h0, gy, gh_last)
+    _check(a, b, h0)
+    bsz, _, d = a.shape
+    for name, t in (("y", y), ("gy", gy)):
+        if t.device != dev or t.dtype != a.dtype or t.shape != a.shape or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous {tuple(a.shape)} {a.dtype} tensor "
+                             f"on {dev}; got {tuple(t.shape)} {t.dtype} on {t.device}")
+    if gh_last is not None and (gh_last.device != dev or gh_last.shape != (bsz, d)):
+        raise ValueError(f"gh_last {tuple(gh_last.shape)} on {gh_last.device} is not (B, D) = "
+                         f"{(bsz, d)} on {dev}")
+    h0, gh_last = (None if t is None else t.float().contiguous() for t in (h0, gh_last))
+    da, db = torch.empty_like(a), torch.empty_like(a)
+    dh0 = torch.empty((bsz, d), dtype=torch.float32, device=dev)
+    from .._build import library
+    err = library().rg_lru_bwd(
+        a.data_ptr(), y.data_ptr(), None if h0 is None else h0.data_ptr(), gy.data_ptr(),
+        None if gh_last is None else gh_last.data_ptr(), da.data_ptr(), db.data_ptr(),
+        dh0.data_ptr(), bsz, a.shape[1], d, _DTYPES[a.dtype], torch._C._cuda_getCurrentRawStream(dev.index))
+    if err:
+        raise RuntimeError(f"rg_lru_bwd launch failed: cudaError {err}")
+    rg_lru_bwd.launches += 1
+    return da, db, dh0
+
+
+rg_lru_bwd.launches = 0  # calls that launched; never counts a CPU call

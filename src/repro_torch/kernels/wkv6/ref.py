@@ -32,3 +32,51 @@ def wkv6_scan(r, k, v, w, u, s0=None):
         ys.append(torch.einsum("bhk,bhkv->bhv", rf[:, :, t], att))
         s = wf[:, :, t, :, None] * s + kv
     return torch.stack(ys, dim=2).to(r.dtype), s
+
+
+def wkv6_scan_bwd(r, k, v, log_w, u, s0, gy, gs_last=None):
+    """The gradients of the recurrence with the decay w = exp(log_w): a
+    reverse loop in float32.
+
+    gy: (B, H, T, dv), the cotangent of y; gs_last: (B, H, dk, dv) or None
+    (zeros), that of s_last.  With G_t the gradient of S_t (G_{T-1} =
+    gs_last), for t = T-1 .. 0:
+        dr_t[i] = sum_j gy_t[j] (S_{t-1}[i,j] + u_i k_t[i] v_t[j])
+        dk_t[i] = sum_j G_t[i,j] v_t[j] + u_i r_t[i] (v_t . gy_t)
+        dv_t[j] = sum_i G_t[i,j] k_t[i] + gy_t[j] sum_i u_i r_t[i] k_t[i]
+        dlog_w_t[i] = w_t[i] sum_j G_t[i,j] S_{t-1}[i,j]
+        du[i] += r_t[i] k_t[i] (v_t . gy_t)        (over batch and time)
+        G_{t-1} = diag(w_t) G_t + r_t gy_t^T
+    and ds0 = G_{-1}.  The states S_{t-1} are recomputed forward first.
+    Returns (dr, dk, dv, dlog_w, du, ds0), each in its input's dtype (ds0
+    float32 without s0)."""
+    bsz, heads, steps, dk = r.shape
+    dv = v.shape[-1]
+    rf, kf, vf, gyf = (x.float() for x in (r, k, v, gy))
+    wf = torch.exp(log_w.float())
+    uf = u.float()[None]                                           # (1, H, dk)
+    s = (torch.zeros((bsz, heads, dk, dv), dtype=torch.float32, device=r.device)
+         if s0 is None else s0.float())
+    states = []                                                    # S_{t-1}
+    for t in range(steps):
+        states.append(s)
+        s = wf[:, :, t, :, None] * s + kf[:, :, t, :, None] * vf[:, :, t, None, :]
+    g = (torch.zeros((bsz, heads, dk, dv), dtype=torch.float32, device=r.device)
+         if gs_last is None else gs_last.float())
+    d_r, d_k, d_lw = (torch.empty((bsz, heads, steps, dk), dtype=torch.float32,
+                                  device=r.device) for _ in range(3))
+    d_v = torch.empty((bsz, heads, steps, dv), dtype=torch.float32, device=r.device)
+    d_u = torch.zeros(uf.shape[1:], dtype=torch.float32, device=r.device)
+    for t in range(steps - 1, -1, -1):
+        rt, kt, vt, wt, gt, sp = rf[:, :, t], kf[:, :, t], vf[:, :, t], wf[:, :, t], \
+            gyf[:, :, t], states[t]
+        vg = (vt * gt).sum(-1, keepdim=True)                       # v_t . gy_t
+        d_r[:, :, t] = torch.einsum("bhkv,bhv->bhk", sp, gt) + uf * kt * vg
+        d_k[:, :, t] = torch.einsum("bhkv,bhv->bhk", g, vt) + uf * rt * vg
+        d_v[:, :, t] = torch.einsum("bhkv,bhk->bhv", g, kt) \
+            + gt * (uf * rt * kt).sum(-1, keepdim=True)
+        d_lw[:, :, t] = wt * (g * sp).sum(-1)
+        d_u += (rt * kt * vg).sum(0)
+        g = wt[..., None] * g + rt[..., None] * gt[:, :, None, :]
+    return (d_r.to(r.dtype), d_k.to(k.dtype), d_v.to(v.dtype), d_lw.to(log_w.dtype),
+            d_u.to(u.dtype), g if s0 is None else g.to(s0.dtype))

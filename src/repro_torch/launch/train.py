@@ -24,7 +24,8 @@ Not ported yet, and refused with NotImplementedError: checkpoint/restart
 (ROADMAP A11) and 2-D meshes (A9).
 
 Run (random weights from a seed, scaled-down config unless --scale full):
-  PYTHONPATH=src python -m repro_torch.launch.train --arch stablelm-3b
+  PYTHONPATH=src python -m repro_torch.launch.train            # rwkv6-3b
+  PYTHONPATH=src python -m repro_torch.launch.train --scale full --arch stablelm-3b
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu
   PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
       --grad-sync bridge
@@ -52,11 +53,9 @@ from repro_torch.optim import adamw_init, adamw_update, cosine_warmup_schedule
 
 @dataclasses.dataclass
 class TrainConfig:
-    """The reference's fields and defaults, except `arch`: the reference's
-    default (rwkv6-3b) is served by the port but not trained on the card yet
-    (a CUDA rwkv6-3b step raises until ROADMAP A14)."""
+    """The reference's fields and defaults (`repro.launch.train.TrainConfig`)."""
 
-    arch: str = "stablelm-3b"
+    arch: str = "rwkv6-3b"
     scale: str = "smoke"             # smoke (scaled_down) | full
     steps: int = 20
     batch_size: int = 8              # global
@@ -181,9 +180,11 @@ def train(tc: TrainConfig, progress=print, device=None, model: Model | None = No
 
     Runs on `device` (default `cuda:{LOCAL_RANK}`).  `model` is a test seam,
     not a feature: the parity tests pass the weights converted from the JAX
-    package's initialisation (it must live on `device` and match `tc`'s
-    config); by default the weights are drawn from `tc.seed`.  Either way,
-    rank 0's weights are broadcast so every rank starts from the same ones."""
+    package's initialisation, and `chip_smoke.py` a model cut in depth where
+    the whole one does not fit a card (it must live on `device` and match
+    `tc`'s config but for `num_layers`, whose value it keeps); by default the
+    weights are drawn from `tc.seed`.  Either way, rank 0's weights are
+    broadcast so every rank starts from the same ones."""
     _check_supported(tc)
     cfg = model_config(tc)
     world = current_world()
@@ -197,9 +198,11 @@ def train(tc: TrainConfig, progress=print, device=None, model: Model | None = No
 
     if model is None:
         model = init_params(cfg, torch.Generator(device=dev).manual_seed(tc.seed), dev)
-    elif model.cfg != cfg or model.device != dev:
+    elif dataclasses.replace(cfg, num_layers=model.cfg.num_layers) != model.cfg \
+            or model.device != dev:
         raise ValueError(f"model ({model.cfg.name} on {model.device}) does not match "
                          f"the run ({cfg.name} on {dev})")
+    cfg = model.cfg
     if world.size > 1:
         with torch.no_grad():
             for p in model.parameters():
@@ -227,9 +230,9 @@ def train(tc: TrainConfig, progress=print, device=None, model: Model | None = No
     return model, opt_state, losses
 
 
-def main():
+def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="stablelm-3b", choices=list(configs.ARCHS))
+    ap.add_argument("--arch", default="rwkv6-3b", choices=list(configs.ARCHS))
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--batch-size", type=int, default=8)
     ap.add_argument("--seq-len", type=int, default=64)
@@ -238,7 +241,11 @@ def main():
     ap.add_argument("--checkpoint-dir", default=None)
     ap.add_argument("--device", default=None,
                     help="default cuda:{LOCAL_RANK}; 'cpu' runs the plain versions")
-    args = ap.parse_args()
+    return ap
+
+
+def main():
+    args = build_parser().parse_args()
     tc = TrainConfig(arch=args.arch, steps=args.steps,
                      batch_size=args.batch_size, seq_len=args.seq_len,
                      scale=args.scale, grad_sync=args.grad_sync,

@@ -127,8 +127,8 @@ def test_plain_rg_lru_from_h0_matches_jax_scan(shape, dtype):
 
 
 def test_rg_lru_grad_on_cpu_matches_jax():
-    """On the CPU the op's gradient is autograd through the plain version, as
-    the JAX op differentiates its reference scan (tests/test_kernels.py)."""
+    """On the CPU the op's gradient is the plain backward, as the JAX op
+    differentiates its reference scan (tests/test_kernels.py)."""
     a, b, _ = _lru_arrays((1, 20, 8), seed=2)
     want = jax.grad(lambda a_, b_: jax_rg_lru(a_, b_)[0].sum(), argnums=(0, 1))(
         jnp.asarray(a), jnp.asarray(b))
@@ -182,8 +182,8 @@ def test_plain_wkv6_extreme_decay_matches_jax():
 
 
 def test_wkv6_grad_on_cpu_matches_jax():
-    """On the CPU the op's gradient is autograd through the plain version, as
-    the JAX op differentiates its reference scan."""
+    """On the CPU the op's gradient is the plain backward, as the JAX op
+    differentiates its reference scan."""
     arrays = _wkv_arrays((1, 2, 12, 8, 8), seed=4)[:5]
     want = jax.grad(lambda *xs: jax_wkv6(*xs)[0].sum(), argnums=(0, 1, 2, 3, 4))(
         *(jnp.asarray(x) for x in arrays))
@@ -319,18 +319,6 @@ def test_cpu_calls_never_count_a_launch():
     assert (lru_kernel.rg_lru_fwd.launches, wkv_kernel.wkv6_fwd.launches) == (lru0, wkv0) == (0, 0)
     assert lru_kernel.rg_lru_fwd.launches_step == 0
     assert wkv_kernel.wkv6_fwd.launches_chunked == wkv_kernel.wkv6_fwd.launches_step == 0
-
-
-def test_ops_raise_off_the_cpu_when_a_gradient_is_needed():
-    """Off the CPU the ops have no backward: a call that needs one raises
-    (naming the ROADMAP item) instead of taking the plain version."""
-    a = torch.rand(1, 4, 8, device="meta", requires_grad=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP A14"):
-        lru_ops.rg_lru(a, a)
-    r = torch.rand(1, 2, 4, 8, device="meta", requires_grad=True)
-    u = torch.rand(2, 8, device="meta")
-    with pytest.raises(NotImplementedError, match="ROADMAP A14"):
-        wkv_ops.wkv6(r, r, r, r, u)
 
 
 def test_wrappers_reject_a_tensor_neither_on_cpu_nor_on_cuda():
@@ -619,17 +607,6 @@ def test_cuda_wkv6_two_pass_extreme_decay_and_bits():
     assert torch.isfinite(got_y.float()).all()
     assert torch.equal(got_y, again_y) and torch.equal(got_s, again_s)
     np.testing.assert_allclose(_np(got_y.cpu()), _np(want_y.cpu()), **wkv_tol("bfloat16"))
-
-
-@pytest.mark.cuda
-def test_cuda_ops_raise_when_a_gradient_is_needed():
-    _need_cuda()
-    a = torch.rand(1, 4, 8, device="cuda", requires_grad=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP A14"):
-        lru_ops.rg_lru(a, a.detach())
-    r = torch.rand(1, 2, 4, 8, device="cuda")
-    with pytest.raises(NotImplementedError, match="ROADMAP A14"):
-        wkv_ops.wkv6(r, r, r, -r, torch.rand(2, 8, device="cuda", requires_grad=True))
 
 
 @pytest.mark.cuda

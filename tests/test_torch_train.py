@@ -9,8 +9,10 @@ leaf.  All at f32.  Bounds:
   - training losses over 4 steps rtol 2e-4, the bound of the reference's own
     bridge-vs-gspmd check (tests/_distributed_worker.py).
 """
+import ast
 import dataclasses
 import json
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -24,14 +26,16 @@ from _torch_parity import assert_trees_close, both_params, flatten  # noqa: E402
 
 from repro import configs as jax_configs  # noqa: E402
 from repro.data import SyntheticLM as JaxSyntheticLM  # noqa: E402
+from repro.launch import train as jax_train_mod  # noqa: E402
 from repro.launch.train import TrainConfig as JaxTrainConfig  # noqa: E402
 from repro.launch.train import model_config as jax_model_config  # noqa: E402
 from repro.launch.train import train as jax_train  # noqa: E402
 from repro.models import loss_fn as jax_loss_fn  # noqa: E402
 from repro_torch.data import SyntheticLM  # noqa: E402
 from repro_torch.interop import tree_from_model  # noqa: E402
-from repro_torch.launch.train import TrainConfig, train  # noqa: E402
-from repro_torch.models import forward  # noqa: E402
+from repro_torch.launch.train import TrainConfig, build_parser, train  # noqa: E402
+from repro_torch.launch.train import model_config as port_model_config  # noqa: E402
+from repro_torch.models import forward, init_params  # noqa: E402
 from repro_torch.models.model import loss_fn  # noqa: E402
 
 GRAD_TOL = {"atol": 1e-5, "rtol": 1e-4}
@@ -77,6 +81,40 @@ def test_loss_and_grads_match_jax(arch, remat):
     assert_trees_close(tree_from_model(model, "grad"), want_g, **GRAD_TOL)
 
 
+def _loss_and_grads(cfg, batch):
+    _, model = both_params(cfg)
+    loss, metrics = loss_fn(model.cfg, model, {k: torch.from_numpy(v) for k, v in batch.items()})
+    loss.backward()
+    return loss.item(), metrics, flatten(tree_from_model(model, "grad"))
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-3b", "recurrentgemma-9b"])
+def test_recurrent_loss_and_grads_match_jax(arch):
+    """The recurrent archs (recurrentgemma-9b scaled down has both of its
+    segments: rglru, rglru, local, rglru): their gradients pass through the
+    ops' backward (the plain reverse loops on the CPU).  The port with and
+    without remat gives the same bits, and both equal JAX's loss and
+    gradients leaf by leaf.  JAX's side is taken without remat: its
+    `jax.checkpoint` moves rwkv6-3b's embedding gradient by up to 5e-6, and
+    an f64 evaluation of the port's model puts JAX's remat gradient 1.3e-5
+    from it and the port's 7.6e-6, so JAX's remat path is not the nearer
+    reference."""
+    cfg = _cfg(arch, False)
+    batch = JaxSyntheticLM(cfg.vocab_size, 32, seed=1).global_batch(0, 4, 1)
+    jp, _ = both_params(cfg)
+    (want_loss, want_m), want_g = jax.value_and_grad(
+        lambda p: jax_loss_fn(cfg, p, {k: jnp.asarray(v) for k, v in batch.items()}),
+        has_aux=True)(jp)
+    runs = [_loss_and_grads(_cfg(arch, remat), batch) for remat in (True, False)]
+    for key in runs[0][2]:
+        np.testing.assert_array_equal(runs[0][2][key], runs[1][2][key], err_msg=key)
+    for loss, metrics, grads in runs:
+        assert loss == runs[0][0]
+        np.testing.assert_allclose(loss, float(want_loss), rtol=1e-5)
+        np.testing.assert_allclose(metrics["nll"].item(), float(want_m["nll"]), rtol=1e-5)
+        assert_trees_close(grads, flatten(jax.tree.map(np.asarray, want_g)), **GRAD_TOL)
+
+
 def test_remat_gives_the_same_gradients():
     """Full remat (torch.utils.checkpoint per block) changes nothing but memory."""
     grads = []
@@ -110,6 +148,53 @@ def test_single_rank_train_losses_track_jax():
                               device="cpu", model=model)
     assert out_model is model and len(lines) == TRAIN_KW["steps"]
     np.testing.assert_allclose(got, want, rtol=LOSS_RTOL)
+
+
+def test_single_rank_rwkv6_train_losses_track_jax():
+    """4 steps of rwkv6-3b smoke (the reference's default training arch),
+    gspmd, from the same converted weights: the WKV-6 backward in every step."""
+    kw = {**TRAIN_KW, "arch": "rwkv6-3b"}
+    jtc = JaxTrainConfig(grad_sync="gspmd", **kw)
+    _, _, want = jax_train(jtc, lambda *_: None)
+    _, model = both_params(jax_model_config(jtc), seed=jtc.seed)
+    _, _, got = train(TrainConfig(grad_sync="gspmd", **kw), lambda *_: None, device="cpu",
+                      model=model)
+    assert len(got) == kw["steps"] and np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, rtol=LOSS_RTOL)
+
+
+def test_train_takes_a_model_cut_in_depth_only():
+    """`train` takes a model of its config cut to fewer layers (the card's
+    smoke run trains recurrentgemma-9b's first pattern period so) and keeps
+    its depth; a model that differs in anything else is refused."""
+    tc = TrainConfig(**{**TRAIN_KW, "arch": "recurrentgemma-9b", "steps": 2})
+    cfg = dataclasses.replace(port_model_config(tc), num_layers=3)
+    model = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    out, _, losses = train(tc, lambda *_: None, device="cpu", model=model)
+    assert out is model and out.cfg.layer_kinds == ("rglru", "rglru", "local")
+    assert len(losses) == 2 and np.isfinite(losses).all()
+    other = init_params(dataclasses.replace(cfg, dtype="bfloat16"),
+                        torch.Generator().manual_seed(0), "cpu")
+    with pytest.raises(ValueError, match="does not match"):
+        train(tc, lambda *_: None, device="cpu", model=other)
+
+
+def test_train_cli_default_arch_is_the_references():
+    """`TrainConfig.arch` and the `--arch` default are the reference's, read
+    from the source of `repro/launch/train.py`, so that the two cannot drift
+    apart."""
+    tree = ast.parse(Path(jax_train_mod.__file__).read_text())
+    flag = [kw.value.value for node in ast.walk(tree)
+            if isinstance(node, ast.Call) and getattr(node.func, "attr", None) == "add_argument"
+            and node.args and getattr(node.args[0], "value", None) == "--arch"
+            for kw in node.keywords if kw.arg == "default"]
+    field = [node.value.value for cls in ast.walk(tree)
+             if isinstance(cls, ast.ClassDef) and cls.name == "TrainConfig"
+             for node in cls.body
+             if isinstance(node, ast.AnnAssign) and getattr(node.target, "id", None) == "arch"]
+    assert len(flag) == len(field) == 1
+    assert TrainConfig().arch == build_parser().parse_args([]).arch == field[0] == flag[0] \
+        == "rwkv6-3b"
 
 
 @pytest.mark.parametrize("option,match", [
