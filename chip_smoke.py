@@ -1243,7 +1243,7 @@ def check_recurrent_kernels() -> dict:
             raise AssertionError(f"B5 at extreme decay: {line}")
     # the two-pass design sums in a fixed order: a second run gives the same bits
     args = wkv_inputs(WKV_PREFILL, torch.bfloat16)
-    first, second = (wkv_kernel.wkv6_fwd(*args) for _ in range(2))
+    first, second = (wkv_kernel.wkv6_fwd(*args)[:2] for _ in range(2))
     if not all(torch.equal(a, b) for a, b in zip(first, second, strict=True)):
         raise AssertionError("B5's two-pass design differs between two runs on the card")
     print("wkv6 two-pass design: two runs on the card are bit-identical")
@@ -1276,7 +1276,7 @@ def wkv_call(r, k, v, log_w, u, s0=None):
         raise AssertionError(f"B5 at {tuple(r.shape)} {r.dtype}: (launches, chunked, step) "
                              f"{(fn.launches, fn.launches_chunked, fn.launches_step)}, "
                              f"expected {want}")
-    return out
+    return out[:2]
 
 
 def wkv_work(r, v, s0) -> tuple[int, int, int]:
@@ -1456,7 +1456,7 @@ def check_recurrent_bwd_kernels() -> dict:
     for case, dtype, log_w in wkv_cases:
         r, k, v, lw, u, s0, gy, gs = wkv_bwd_inputs(case, dtype, log_w)
         # bf16 with T > 1: from the two-pass forward's chunk-entry states
-        _, _, ws = wkv_kernel.wkv6_fwd(r, k, v, lw, u, s0, with_workspace=True)
+        _, _, ws = wkv_kernel.wkv6_fwd(r, k, v, lw, u, s0)
         got, again = (wkv_bwd_call(r, k, v, lw, u, s0, gy, gs, ws) for _ in range(2))
         torch.cuda.synchronize()
         want = wkv_ref.wkv6_scan_bwd(r, k, v, lw, u, s0, gy, gs)
@@ -1522,20 +1522,21 @@ def time_recurrent_bwd() -> dict:
           f"{t['yardstick_device_ms']:.4f}; bound_ms {t['bound_ms']:.4f} (by {t['bound_by']}: "
           f"{moved} bytes, {3 * n} FLOP)")
     r, k, v, lw, u, s0, gy, gs = wkv_bwd_inputs(WKV_TRAIN, PATH_DTYPE["wkv6_bwd"])
-    _, _, ws = wkv_kernel.wkv6_fwd(r, k, v, lw, u, s0, with_workspace=True)
+    _, _, ws = wkv_kernel.wkv6_fwd(r, k, v, lw, u, s0)
     fns = {"ms": lambda: wkv_kernel.wkv6_bwd(r, k, v, lw, u, s0, gy, gs, ws),
            "plain_ms": lambda: wkv_ref.wkv6_scan_bwd(r, k, v, lw, u, s0, gy, gs)}
     fns["device_ms"] = fns["ms"]
     t = time_in_turns(fns, {}, {"plain_ms": 1})
     moved, flops = wkv_bwd_work(r, v, s0, ws)
-    t["bound_ms"], t["bound_by"] = bound(moved, flops, H100_F32_FLOP_S)
+    t["bound_ms"], t["bound_by"] = bound(moved, flops, PEAK_FLOP_S[r.dtype])
     t["library_ms"] = t["library_device_ms"] = None
     times[("wkv6_bwd", WKV_TRAIN)] = t
     print(f"wkv6_bwd timing {WKV_TRAIN} {str(r.dtype)[6:]}: kernel_ms {t['ms']:.4f} device_ms "
           f"{t['device_ms']:.4f} plain_ms {t['plain_ms']:.4f} library_ms none (no PyTorch "
           f"call computes the gradient) bound_ms {t['bound_ms']:.4f} (by {t['bound_by']}: "
-          f"{moved} bytes, {flops} FLOP on the CUDA cores in f32, peak "
-          f"{H100_F32_FLOP_S:.3g} FLOP/s)")
+          f"{moved} bytes, {flops} FLOP, peak {PEAK_FLOP_S[r.dtype]:.3g} FLOP/s); the same "
+          f"FLOP on the CUDA cores in f32 (this design's) take "
+          f"{flops / H100_F32_FLOP_S * 1e3:.4f} ms")
     return times
 
 

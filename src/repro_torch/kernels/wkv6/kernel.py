@@ -21,12 +21,11 @@ CUDA kernels bound their last chunk instead, so nothing is padded.
 
 `wkv6_bwd` wraps the backward (B5', `csrc/wkv6_bwd.cu`): from the states
 entering each chunk (the two-pass forward's workspace, rounded to TF32,
-which `wkv6_fwd` hands back on request; else the backward walks them
-forward first, in f32), a
-reverse walk over row blocks of the state, then a fixed-order sum of dv
-and du.  On a CPU tensor it runs the plain `ref.wkv6_scan_bwd`.  Its
-`launches` counts its calls that launch, `launches_entry` those that had
-to walk the chunk-entry states first.
+which `wkv6_fwd` returns as its third result; else the backward walks
+them forward first, in f32), a reverse walk over row blocks of the
+state, then a fixed-order sum of dv and du.  On a CPU tensor it runs the
+plain `ref.wkv6_scan_bwd`.  Its `launches` counts its calls that launch,
+`launches_entry` those that had to walk the chunk-entry states first.
 
 The wrapper's host work is what a decode call costs beyond its few
 microseconds of device time, so the bound C function is looked up once and
@@ -88,19 +87,18 @@ def _check(r, k, v, log_w, u, s0):
         raise ValueError("r, k, v, log_w must be contiguous")
 
 
-def wkv6_fwd(r, k, v, log_w, u, s0=None, *, with_workspace=False):
+def wkv6_fwd(r, k, v, log_w, u, s0=None):
     """r, k, log_w: (B, H, T, dk); v: (B, H, T, dv); u: (H, dk); s0:
     (B, H, dk, dv) or None (zeros).  log_w is the log-space decay (<= 0).
 
-    Returns (y (B, H, T, dv) in r's dtype, s_last (B, H, dk, dv) float32),
-    and with `with_workspace` a third item: the state entering each chunk,
+    Returns (y (B, H, T, dv) in r's dtype, s_last (B, H, dk, dv) float32,
+    workspace): the workspace holds the state entering each chunk,
     (B*H, ceil(T / 64), 64, 64) float32, where the design writes it (bf16,
-    T > 1), else None.
+    T > 1), and is None elsewhere.
     """
     dev = r.device
     if dev.type == "cpu":
-        out = ref.wkv6_scan(r, k, v, torch.exp(log_w.float()), u, s0)
-        return (*out, None) if with_workspace else out
+        return (*ref.wkv6_scan(r, k, v, torch.exp(log_w.float()), u, s0), None)
     _check(r, k, v, log_w, u, s0)
     bsz, heads, steps, dk = r.shape
     dtype, dv = r.dtype, v.shape[3]
@@ -124,7 +122,7 @@ def wkv6_fwd(r, k, v, log_w, u, s0=None, *, with_workspace=False):
     wkv6_fwd.launches += 1
     wkv6_fwd.launches_chunked += chunked
     wkv6_fwd.launches_step += steps == 1
-    return (y, s_last, workspace) if with_workspace else (y, s_last)
+    return y, s_last, workspace
 
 
 wkv6_fwd.launches = 0          # calls that launched; never counts a CPU call
@@ -133,10 +131,10 @@ wkv6_fwd.launches_step = 0     # of which the T = 1 kernel
 
 
 def wkv6_bwd(r, k, v, log_w, u, s0, gy, gs_last=None, workspace=None):
-    """The gradients of `wkv6_fwd(r, k, v, log_w, u, s0) = (y, s_last)`.  gy:
+    """The gradients of (y, s_last) = `wkv6_fwd(r, k, v, log_w, u, s0)[:2]`.  gy:
     (B, H, T, dv) in r's dtype, the cotangent of y; gs_last: (B, H, dk, dv)
     or None (zeros), that of s_last; workspace: the forward's chunk-entry
-    states (`with_workspace`), or None.
+    states (its third result), or None.
 
     Returns (dr, dk, dv, dlog_w in r's dtype, du (H, dk) float32, ds0
     (B, H, dk, dv) float32; on a CPU tensor the plain version's, du in u's

@@ -20,7 +20,7 @@ from .kernel import wkv6_bwd, wkv6_fwd
 class _Wkv6(torch.autograd.Function):
     @staticmethod
     def forward(ctx, r, k, v, log_w, u, s0):
-        y, s_last, workspace = wkv6_fwd(r, k, v, log_w, u, s0, with_workspace=True)
+        y, s_last, workspace = wkv6_fwd(r, k, v, log_w, u, s0)
         ctx.save_for_backward(r, k, v, log_w, u, s0, workspace)
         ctx.set_materialize_grads(False)
         return y, s_last

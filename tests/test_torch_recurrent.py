@@ -147,7 +147,7 @@ def test_plain_wkv6_matches_jax_kernel(dims, dtype):
     r, k, v, lw, u, _ = _wkv_arrays(dims, seed=0)
     pairs = [_pair(x, dtype) for x in (r, k, v, lw, u)]
     want_y, want_s = jax_wkv6(*(j for j, _ in pairs))     # Pallas, interpret mode
-    got_y, got_s = wkv_kernel.wkv6_fwd(*(t for _, t in pairs))  # CPU: the plain version
+    got_y, got_s, _ = wkv_kernel.wkv6_fwd(*(t for _, t in pairs))  # CPU: the plain version
     assert got_y.dtype == pairs[0][1].dtype and got_s.dtype == torch.float32
     np.testing.assert_allclose(_np(got_y), _np(want_y), **wkv_tol(dtype))
     np.testing.assert_allclose(_np(got_s), _np(want_s), **STATE_TOL)
@@ -550,7 +550,7 @@ def test_cuda_wkv6_matches_plain(dims, dtype, s0):
     ts = None if s is None else torch.from_numpy(s).cuda()
     fn = wkv_kernel.wkv6_fwd
     before = (fn.launches, fn.launches_chunked, fn.launches_step)
-    got_y, got_s = fn(tr, tk, tv, tl, tu, ts)
+    got_y, got_s, _ = fn(tr, tk, tv, tl, tu, ts)
     torch.cuda.synchronize()
     # T = 1 runs the step kernel, bf16 above it the two-pass design
     step, chunked = dims[2] == 1, dims[2] > 1 and dtype == "bfloat16"
@@ -568,7 +568,7 @@ def test_cuda_wkv6_extreme_decay_is_finite_and_close():
     ts = [torch.from_numpy(x).cuda() for x in (r, k, v)]
     lw = torch.full(ts[0].shape, -20.0, device="cuda")
     u = torch.ones((1, 16), device="cuda")
-    got_y, _ = wkv_kernel.wkv6_fwd(*ts, lw, u)
+    got_y, _, _ = wkv_kernel.wkv6_fwd(*ts, lw, u)
     want_y, _ = wkv_ref.wkv6_scan(*ts, torch.exp(lw), u)
     assert torch.isfinite(got_y).all()
     np.testing.assert_allclose(_np(got_y.cpu()), _np(want_y.cpu()), atol=1e-4, rtol=1e-4)
@@ -585,7 +585,7 @@ def test_cuda_wkv6_two_pass_matches_its_emulation(dims, s0):
     tr, tk, tv, tl = (torch.from_numpy(x).bfloat16().cuda() for x in (r, k, v, lw))
     tu = torch.from_numpy(u).cuda()
     ts = None if s is None else torch.from_numpy(s).cuda()
-    got_y, got_s = wkv_kernel.wkv6_fwd(tr, tk, tv, tl, tu, ts)
+    got_y, got_s, _ = wkv_kernel.wkv6_fwd(tr, tk, tv, tl, tu, ts)
     want_y, want_s = _wkv6_two_pass_emulation(*(t.cpu() for t in (tr, tk, tv, tl, tu)),
                                               None if ts is None else ts.cpu())
     np.testing.assert_allclose(_np(got_y.cpu()), _np(want_y), **wkv_tol("bfloat16"))
@@ -601,8 +601,8 @@ def test_cuda_wkv6_two_pass_extreme_decay_and_bits():
     ts = [torch.from_numpy(x).bfloat16().cuda() for x in (r, k, v)]
     lw = torch.full(ts[0].shape, -20.0, device="cuda", dtype=torch.bfloat16)
     u = torch.ones((1, 16), device="cuda")
-    got_y, got_s = wkv_kernel.wkv6_fwd(*ts, lw, u)
-    again_y, again_s = wkv_kernel.wkv6_fwd(*ts, lw, u)
+    got_y, got_s, _ = wkv_kernel.wkv6_fwd(*ts, lw, u)
+    again_y, again_s, _ = wkv_kernel.wkv6_fwd(*ts, lw, u)
     want_y, _ = wkv_ref.wkv6_scan(*ts, torch.exp(lw.float()), u)
     assert torch.isfinite(got_y.float()).all()
     assert torch.equal(got_y, again_y) and torch.equal(got_s, again_s)
