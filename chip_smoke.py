@@ -41,7 +41,8 @@ Phases, in order; any failure raises and the script exits non-zero:
                (B4' (8, 512, 4096) f32, B5' (8, 40, 512, 64, 64) bf16 from
                the forward's chunk-entry states), at a ragged T (B4' 1100,
                B5' 200) and at extreme decay (a = e^-20, log_w = -20); B4'
-               in f32 equals its plain version bit for bit, and every
+               in f32 equals its plain version bit for bit, every bf16 B5'
+               check takes the chunked design (`launches_chunked`), and every
                B4' and B5' check gives the same bits in two runs.  B1, B2,
                B3, B4 and B5 are also checked at the training shapes of
                recurrentgemma-9b (D = 256 under MQA) and rwkv6-3b.  Each
@@ -59,7 +60,9 @@ Phases, in order; any failure raises and the script exits non-zero:
                shape, B4 and B5 at the serving prefill and decode shapes,
                and at the training shapes of recurrentgemma-9b and rwkv6-3b
                B1, B2, B3, B4, B5, B4' and B5' (B4' and B5' have no library
-               call: B4' is shown beside a torch.add moving its bytes).
+               call: B4' is shown beside a torch.add moving its bytes, B5''s
+               chunked design's FLOP beside its bound, priced at the TF32
+               peak).
                No single PyTorch call computes either recurrence over T, so
                their prefill library time is null; B4's decode step is
                torch.addcmul(b, a, h0), checked against the plain version
@@ -115,8 +118,9 @@ Phases, in order; any failure raises and the script exits non-zero:
                grad_sync "bridge": 1 warm-up step and 3 timed steps through
                `repro_torch.launch.train.train`; the launch counts of each
                run are read and checked per step (stablelm-3b B1 64, B2 32,
-               B3 32; rwkv6-3b B5 64, all two-pass, and B5' 32, all from the
-               forward's states; recurrentgemma-9b B4 4, all ring, B4' 2, B1
+               B3 32; rwkv6-3b B5 64, all two-pass, and B5' 32, all chunked
+               and from the forward's states; recurrentgemma-9b B4 4, all
+               ring, B4' 2, B1
                2, B2 1, B3 1; every B1, B2 and B3 launch in the tensor-core
                variant).
   9. multi-card - only with two or more cards: torchrun starts min(4, count)
@@ -182,6 +186,7 @@ from repro_torch.models.model import loss_fn  # noqa: E402
 H100_HBM_BYTES_S = 3.35e12
 H100_BF16_FLOP_S = 989e12
 H100_F32_FLOP_S = 67e12
+H100_TF32_FLOP_S = 495e12
 PEAK_FLOP_S = {torch.bfloat16: H100_BF16_FLOP_S, torch.float32: H100_F32_FLOP_S}
 
 # b, hq, hkv, sq, sk, d, causal, window: the reference's kernel test shapes
@@ -845,11 +850,11 @@ def serve_path(arch: str) -> dict:
         "prefill": {"rg_lru_fwd": {"launches_step": 0},
                     "wkv6_fwd": {"launches_chunked": want_prefill["wkv6_fwd"],
                                  "launches_step": 0},
-                    "wkv6_bwd": {"launches_entry": 0}},
+                    "wkv6_bwd": {"launches_chunked": 0, "launches_entry": 0}},
         "decode": {"rg_lru_fwd": {"launches_step": want_decode["rg_lru_fwd"]},
                    "wkv6_fwd": {"launches_chunked": 0,
                                 "launches_step": want_decode["wkv6_fwd"]},
-                   "wkv6_bwd": {"launches_entry": 0}}}
+                   "wkv6_bwd": {"launches_chunked": 0, "launches_entry": 0}}}
     print(f"serve {arch}: B4 / B5 designs {designs}")
     if designs != want_designs:
         raise AssertionError(f"{arch}: B4 / B5 designs in the served run {designs}, "
@@ -1401,15 +1406,17 @@ def lru_bwd_call(a, x, h0, y, gy, gh):
 
 
 def wkv_bwd_call(r, k, v, log_w, u, s0, gy, gs, ws):
-    """B5' through its wrapper, checking by the counters that it walked the
-    chunk-entry states itself exactly when the forward left none."""
+    """B5' through its wrapper, checking by the counters that a bf16 call
+    took the chunked design and that it walked the chunk-entry states itself
+    exactly when the forward left none."""
     fn = wkv_kernel.wkv6_bwd
-    before = (fn.launches, fn.launches_entry)
+    before = (fn.launches, fn.launches_chunked, fn.launches_entry)
     out = fn(r, k, v, log_w, u, s0, gy, gs, ws)
-    want = (before[0] + 1, before[1] + (ws is None))
-    if (fn.launches, fn.launches_entry) != want:
-        raise AssertionError(f"B5' at {tuple(r.shape)} {r.dtype}: (launches, entry) "
-                             f"{(fn.launches, fn.launches_entry)}, expected {want}")
+    want = (before[0] + 1, before[1] + (r.dtype == torch.bfloat16), before[2] + (ws is None))
+    got = (fn.launches, fn.launches_chunked, fn.launches_entry)
+    if got != want:
+        raise AssertionError(f"B5' at {tuple(r.shape)} {r.dtype}: (launches, chunked, entry) "
+                             f"{got}, expected {want}")
     return out
 
 
@@ -1495,6 +1502,20 @@ def wkv_bwd_work(r, v, s0, ws) -> tuple[int, int]:
     return moved, flops
 
 
+def wkv_bwd_tc_flops(r) -> int:
+    """The FLOP that B5''s chunked design (bf16) runs on TF32 mma.sync for
+    r's shape, each m16n8k8 product 2,048 FLOP, T padded to 64-step chunks.
+    A chunk takes 512 in the gradient-state pass (8 warps x 8 k-steps x 4
+    tiles x 2 parts of r e^{c}) and, in the gradient pass, 456 - 16 w for
+    warp w: dA 8 (2 w + 2), the products with S_in and G_out 3 x 64, A's
+    quarter 8, A's block 16, the intra-chunk ones with their decayed operand
+    in two parts 2 x (8 x 6 + 2 x 8), and A past the block and its product
+    with gy 16 (6 - 2 w)."""
+    b, h, t, _ = r.shape
+    per_chunk = 512 + sum(456 - 16 * w for w in range(4))
+    return b * h * -(-t // 64) * per_chunk * 2048
+
+
 def time_recurrent_bwd() -> dict:
     """B4' and B5' at the training shapes, in the dtype the model runs them
     in: kernel (`ms`, `device_ms`) and plain version (fewer calls), beside the
@@ -1534,9 +1555,10 @@ def time_recurrent_bwd() -> dict:
     print(f"wkv6_bwd timing {WKV_TRAIN} {str(r.dtype)[6:]}: kernel_ms {t['ms']:.4f} device_ms "
           f"{t['device_ms']:.4f} plain_ms {t['plain_ms']:.4f} library_ms none (no PyTorch "
           f"call computes the gradient) bound_ms {t['bound_ms']:.4f} (by {t['bound_by']}: "
-          f"{moved} bytes, {flops} FLOP, peak {PEAK_FLOP_S[r.dtype]:.3g} FLOP/s); the same "
-          f"FLOP on the CUDA cores in f32 (this design's) take "
-          f"{flops / H100_F32_FLOP_S * 1e3:.4f} ms")
+          f"{moved} bytes, {flops} FLOP, peak {PEAK_FLOP_S[r.dtype]:.3g} FLOP/s); this "
+          f"design's {wkv_bwd_tc_flops(r)} FLOP on TF32 mma.sync take "
+          f"{wkv_bwd_tc_flops(r) / H100_TF32_FLOP_S * 1e3:.4f} ms at the TF32 peak "
+          f"({H100_TF32_FLOP_S:.3g} FLOP/s)")
     return times
 
 
@@ -1597,11 +1619,11 @@ LAUNCH_COUNTERS = {
 # the kernels with a tensor-core (bf16) variant, counted apart in launches_tc
 TC_COUNTERS = ("flash_attention_fwd", "flash_attention_bwd_dkv", "flash_attention_bwd_dq")
 # the recurrences' designs, counted apart: B4's and B5's T = 1 kernels, B5's
-# two-pass one (bf16, T > 1), and B5' calls that walked the chunk-entry
-# states themselves (no forward workspace)
+# two-pass one (bf16, T > 1), B5''s chunked one (bf16), and B5' calls that
+# walked the chunk-entry states themselves (no forward workspace)
 DESIGN_COUNTERS = {"rg_lru_fwd": ("launches_step",),
                    "wkv6_fwd": ("launches_chunked", "launches_step"),
-                   "wkv6_bwd": ("launches_entry",)}
+                   "wkv6_bwd": ("launches_chunked", "launches_entry")}
 
 
 def reset_launches() -> None:
@@ -1669,10 +1691,10 @@ def train_path(arch: str, num_layers: int | None) -> tuple[dict, list[float]]:
                 "rg_lru_bwd": rglru, "wkv6_bwd": rwkv}
     want = {k: v * TRAIN_STEPS for k, v in per_step.items()}
     # every B4 call in the ring (T = 512), every B5 call two-pass (bf16), and
-    # every B5' call from the forward's chunk-entry states
+    # every B5' call chunked (bf16), from the forward's chunk-entry states
     want_designs = {"rg_lru_fwd": {"launches_step": 0},
                     "wkv6_fwd": {"launches_chunked": want["wkv6_fwd"], "launches_step": 0},
-                    "wkv6_bwd": {"launches_entry": 0}}
+                    "wkv6_bwd": {"launches_chunked": want["wkv6_bwd"], "launches_entry": 0}}
     if launches != want or designs != want_designs:
         raise AssertionError(f"train {arch}: launches {launches}, designs {designs}; "
                              f"expected {want}, {want_designs}")

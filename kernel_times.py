@@ -13,9 +13,10 @@ Run from the root of a checkout:
 It times, with `chip_smoke.py`'s inputs and timing function, the
 flash-attention forward (B1) at the training shape and the two serving
 prefill shapes, the dK/dV (B2) and dQ (B3) backward at the training shape,
-and the RG-LRU (B4) and WKV-6 (B5) recurrences at the serving prefill and
-decode shapes, each in the dtype its path gives it, and the card's launch
-floor (`torch.cuda._sleep(0)`, always timed):
+the RG-LRU (B4) and WKV-6 (B5) recurrences at the serving prefill and
+decode shapes, their backward (B4', B5') at the training shapes, each in
+the dtype its path gives it, and the card's launch floor
+(`torch.cuda._sleep(0)`, always timed):
   ms         CUDA events around 20 queued calls; the wrapper's host work
              counts wherever it outlasts the kernel (chip_smoke's `ms`);
   device_ms  the same with the card held by a sleep kernel while the calls
@@ -26,10 +27,13 @@ timed by the same code on the same card in one run.  `--edit` applies
 named edits (EDITS) to a copy of that tree's kernel sources under
 build/kernel_times/ and times the copy: knock-outs of one stage of B1's bf16
 tensor-core loop, of one pass or one stage of a pass of B5's two-pass
-design, or of the y store or the chain of B4's ring (their outputs are
-wrong; only their times mean something), and tuning variants (B4's ring
-with one stage: load, wait, compute), and faults for `--check` (ko_v_tail:
-V read as zeros in B1's partial last key tile).  `--check` runs, in place
+design, of the y store or the chain of B4's ring, of one pass or one part
+of B5''s chunked design (bf16), or of the da/db store or the copies of
+B4''s ring (their outputs are wrong; only their times mean something),
+and tuning variants (B4's ring with one stage: load, wait, compute; B5''s
+intra-chunk products with their decayed operand in one TF32 part, not
+two), and faults for
+`--check` (ko_v_tail: V read as zeros in B1's partial last key tile).  `--check` runs, in place
 of the timings, `chip_smoke.py`'s check of B1 against its plain version at
 each of its bf16 cases, and prints each check's verdict: a fault that
 leaves every check passing is one the script cannot see. Prints one line
@@ -61,6 +65,7 @@ ROOT = Path(__file__).resolve().parent
 FWD = "kernels/csrc/flash_attention_fwd.cu"
 BWD = "kernels/csrc/flash_attention_bwd.cu"
 WKV = "kernels/csrc/wkv6.cu"
+WKV_BWD = "kernels/csrc/wkv6_bwd.cu"
 LRU = "kernels/csrc/rg_lru.cu"
 # name -> [(file under repro_torch/, text, replacement)]; each text must
 # appear exactly once.  ko_* take one stage out of B1's bf16 loop and keep
@@ -140,6 +145,45 @@ EDITS = {
                        "              *reinterpret_cast<const uint4*>(sy + i * kLanes + col);",
                   "__stcs(reinterpret_cast<uint4*>(y + (row0 + t0 + i) * d + d0 + col),\n"
                   "              *reinterpret_cast<const uint4*>(sy + i * kLanes + col));")],
+    # B5''s chunked design (bf16) with one pass left out, or one part of its
+    # gradient pass: the diagonal quarters per element, A past the sub-block
+    # (dv); and with the intra-chunk products' decayed operand in one TF32
+    # part, not two (outputs outside the bound: times only)
+    "ko_bwd_state": [(WKV_BWD, "  wkv6_bwd_state_kernel<<<", "  if (false) wkv6_bwd_state_kernel<<<")],
+    "ko_bwd_grad": [(WKV_BWD, "  wkv6_bwd_grad_kernel<<<", "  if (false) wkv6_bwd_grad_kernel<<<")],
+    "ko_bwd_diag": [(WKV_BWD, "  for (int m = 0; m < 7; ++m) {", "  for (int m = 0; m < 0; ++m) {")],
+    "ko_bwd_dv_off": [(WKV_BWD, "  if (warp + 1 < kWarps) {  // A^T[j, t] for t past the block",
+                       "  if (false) {  // A^T[j, t] for t past the block")],
+    "bwd_one_tf32": [(WKV_BWD, "  tc::mma_tf32(c, a, __float_as_uint(b0 - __uint_as_float(bb0)),\n"
+                                "               __float_as_uint(b1 - __uint_as_float(bb1)));\n", "")],
+    # ... and parts of either pass: the gradient-state pass's G_out writes and
+    # its update of G
+    "ko_bwd_state_store": [(WKV_BWD, "kMaxDim * kMaxDim;\n#pragma unroll\n    for (int n = 0; n < 4; ++n) {",
+                            "kMaxDim * kMaxDim;\n#pragma unroll\n    for (int n = 0; n < 0; ++n) {")],
+    "ko_bwd_state_update": [(WKV_BWD, "        tc::mma_tf32(G[n], big, b0, b1);\n        tc::mma_tf32(G[n], small, b0, b1);",
+                             "        G[n][0] += __uint_as_float(big[0] ^ small[1] ^ b0 ^ b1);")],
+    # ... more parts of the gradient pass: the products with G_out (dk's and
+    # dv's first terms), the off-diagonal products of dr and dk, the sums of
+    # dlog_w over later steps; of the gradient-state pass: its exps of r e^{c},
+    # its copies
+    "ko_bwd_dki": [(WKV_BWD, "tc::mma_tf32(dki[n], a, __float_as_uint(grow[e]), __float_as_uint(grow[e + 4]));",
+                    "dki[n][0] += __uint_as_float(a[0] ^ __float_as_uint(grow[e]));")],
+    "ko_bwd_dv_inter": [(WKV_BWD, "tc::mma_tf32(dvv[n], a, __float_as_uint(gsm[d * kFStride + 8 * n + g]),",
+                         "dvv[n][0] += __uint_as_float(a[0] ^ __float_as_uint(gsm[d * kFStride + 8 * n + g])); if (false) tc::mma_tf32(dvv[n], a, 0u,")],
+    "ko_bwd_dr_off": [(WKV_BWD, "    for (int kk = 0; kk < 2 * warp; ++kk) {  // warp-uniform",
+                       "    for (int kk = 0; kk < 0; ++kk) {  // warp-uniform")],
+    "ko_bwd_dk_off": [(WKV_BWD, "    for (int kk = 2 * warp + 2; kk < 8; ++kk) {  // warp-uniform; A = dA^T",
+                       "    for (int kk = 8; kk < 8; ++kk) {  // warp-uniform; A = dA^T")],
+    "ko_bwd_sums": [(WKV_BWD, "    for (int i = kSub - 1; i >= 0; --i) {\n      float2* at",
+                     "    for (int i = -1; i >= 0; --i) {\n      float2* at")],
+    "ko_bwd_state_exp": [(WKV_BWD, "*at = t < len ? __bfloat162float(rb[i]) * tc::ex2(*at) : 0.f;",
+                          "*at = t < len ? __bfloat162float(rb[i]) * (*at) : 0.f;")],
+    "ko_bwd_state_load": [(WKV_BWD, "    if (c > 0) load(c - 1);", "    if (false) load(c - 1);")],
+    # B4''s ring with its da/db store stage or its copies left out
+    "ko_lru_bwd_store": [(LRU, "        if (col < d - d0) {", "        if (false) {")],
+    "ko_lru_bwd_load": [(LRU, "    if (k < groups) load(k);", "    if (false) load(k);"),
+                        (LRU, "    if (k + kStages - 1 < groups) load(k + kStages - 1);",
+                         "    if (false) load(k + kStages - 1);")],
     "lru_direct_y": [(LRU, "        if constexpr (kVec) {\n"
                            "          sy[i * kLanes + lane] = from_float<T>(h);\n"
                            "        } else if (live) {", "        if (live) {"),
@@ -192,6 +236,16 @@ def cases(cs) -> list:
     for case in (cs.WKV_PREFILL, cs.WKV_DECODE):
         args = cs.wkv_inputs(case, cs.PATH_DTYPE["wkv6_fwd"])
         out.append(("wkv6_fwd", case, lambda args=args: cs.wkv_kernel.wkv6_fwd(*args)))
+    # the backward at the training shapes, from the forward's y and workspace
+    a, x, h0, gy, gh = cs.lru_bwd_inputs(cs.LRU_TRAIN, cs.PATH_DTYPE["rg_lru_bwd"])
+    y, _ = cs.lru_kernel.rg_lru_fwd(a, x, h0)
+    out.append(("rg_lru_bwd", cs.LRU_TRAIN,
+                lambda a=a, x=x, h0=h0, y=y, gy=gy, gh=gh:
+                cs.lru_kernel.rg_lru_bwd(a, x, h0, y, gy, gh)))
+    r, k, v, lw, u, s0, gy, gs = cs.wkv_bwd_inputs(cs.WKV_TRAIN, cs.PATH_DTYPE["wkv6_bwd"])
+    ws = cs.wkv_kernel.wkv6_fwd(r, k, v, lw, u, s0)[2]
+    out.append(("wkv6_bwd", cs.WKV_TRAIN,
+                lambda args=(r, k, v, lw, u, s0, gy, gs, ws): cs.wkv_kernel.wkv6_bwd(*args)))
     return out
 
 

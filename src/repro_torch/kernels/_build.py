@@ -116,6 +116,6 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     fn.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, p]
     fn.restype = i
     fn = lib.wkv6_bwd
-    fn.argtypes = [p, p, p, p, p, p, p, p, p, i, p, p, p, p, p, p, p, p, i, i, i, i, i, i, p]
+    fn.argtypes = [p, p, p, p, p, p, p, p, p, i, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, p]
     fn.restype = i
     return lib

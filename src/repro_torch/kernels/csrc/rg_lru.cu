@@ -217,7 +217,7 @@ rg_lru_step_kernel(const T* __restrict__ a, const T* __restrict__ b,
   }
 }
 
-// ---- The backward (B4'): a reverse walk along T --------------------------------
+// ---- The backward (B4'): B4's ring walked backwards ----------------------------
 //
 // The JAX op has no backward kernel: its custom_vjp differentiates the jnp
 // reference scan (src/repro/kernels/rg_lru/ops.py:24).  With dh_t the
@@ -230,53 +230,139 @@ rg_lru_step_kernel(const T* __restrict__ a, const T* __restrict__ b,
 // What bounds it on the H100: bytes.  It reads a, y and gy once and writes
 // da and db once: 5 x 67.1 MB at the training shape (8, 512, 4096, f32),
 // 0.100 ms at 3.35 TB/s; one add and two multiplies a step bound nothing.
-// Design: one thread a lane (b, d), a CTA 64 neighbouring lanes, so each
-// load and store of a warp is one 128-byte row of a step (64 bytes in
-// bf16).  The thread walks T backwards in groups of kBwdSteps steps, the
-// group's 3 kBwdSteps loads issued before its chain runs, which puts ~3 MB
-// in flight over the card at the training shape.  Adds and multiplies are
-// rounded one by one, in the plain version's order, so in f32 the two agree
-// bit for bit.
-constexpr int kBwdThreads = 64;
-constexpr int kBwdSteps = 8;
+// Design: the forward's ring, walked from the end of T to 0.  A CTA takes
+// one 128-byte row of lanes (32 in f32, 64 in bf16), a thread a lane; a
+// kStages-stage cp.async ring of kSteps steps holds a, gy and y shifted one
+// step back (the stage of steps [t0, t0 + kSteps) holds y rows [t0 - 1,
+// t0 + kSteps - 1), and h0 or 0 stands in at t = 0), kStages - 1 stages in
+// flight while a stage's chain runs.  The chain writes db and da over the
+// stage's gy and a, each lane its own entries once it has read them, and
+// the CTA stores them with 16-byte stores; where the rows are not 16-byte
+// aligned each lane copies and stores its own values.  So a CTA holds 24 KB
+// of shared memory, 9 an SM: the 1,024 CTAs of the training shape (f32)
+// run in one wave (a separate da/db stage, 28 KB, left 7 an SM and two
+// waves).  Adds and multiplies are rounded one by one, in the plain
+// version's order, so in f32 the two agree bit for bit.
 
-template <typename T>
-__global__ void __launch_bounds__(kBwdThreads)
-rg_lru_bwd_kernel(const T* __restrict__ a, const T* __restrict__ y,
-                  const float* __restrict__ h0, const T* __restrict__ gy,
-                  const float* __restrict__ gh_last, T* __restrict__ da, T* __restrict__ db,
-                  float* __restrict__ dh0, int steps, int d, int64_t lanes) {
-  const int64_t lane = static_cast<int64_t>(blockIdx.x) * kBwdThreads + threadIdx.x;
-  if (lane >= lanes) return;
-  const int64_t bi = lane / d;
-  const int64_t base = bi * steps * d + (lane - bi * d);  // (bi, t = 0, di)
-  const float h_init = h0 != nullptr ? h0[lane] : 0.f;
-  float dh = gh_last != nullptr ? gh_last[lane] : 0.f;
-  for (int t0 = ((steps - 1) / kBwdSteps) * kBwdSteps; t0 >= 0; t0 -= kBwdSteps) {
-    float av[kBwdSteps], hv[kBwdSteps], gv[kBwdSteps];
-#pragma unroll
-    for (int i = 0; i < kBwdSteps; ++i) {
-      const int t = t0 + i;
-      if (t < steps) {
-        const int64_t at = base + static_cast<int64_t>(t) * d;
-        av[i] = to_float(a[at]);
-        gv[i] = to_float(gy[at]);
-        hv[i] = t > 0 ? to_float(y[at - d]) : h_init;
-      }
+// Copies steps [t0, t0 + kSteps) of a and gy and rows [t0 - 1, t0 + kSteps -
+// 1) of y, lanes [d0, d0 + kLanes), into one stage of each (kSteps x kLanes).
+// Steps past T, lanes past D and y's row -1 are zero-filled (kVec) or left as
+// they are; the chain never reads them into a stored value.
+template <typename T, bool kVec>
+__device__ __forceinline__ void load_bwd_stage(T* sa, T* sg, T* sh, const T* __restrict__ a,
+                                               const T* __restrict__ gy, const T* __restrict__ y,
+                                               int64_t row0, int t0, int steps, int d, int d0) {
+  constexpr int kLanes = kRowBytes / sizeof(T);
+  if constexpr (kVec) {  // rows of D elements are 16-byte aligned
+    constexpr int kPer = 16 / sizeof(T);     // elements a copy
+    constexpr int kCopies = kLanes / kPer;   // copies a row
+    for (int c = threadIdx.x; c < 3 * kSteps * kCopies; c += kLanes) {
+      const int row = c / kCopies;           // a's steps, then gy's, then y's
+      const int which = row / kSteps, i = row % kSteps;
+      const int col = (c % kCopies) * kPer;
+      const int t = t0 + i - (which == 2);   // y one step back
+      const bool ok = t >= 0 && t0 + i < steps && d0 + col < d;
+      const int64_t at = ok ? (row0 + t) * d + d0 + col : 0;
+      T* dst = (which == 0 ? sa : which == 1 ? sg : sh) + i * kLanes + col;
+      tc::cp_async16(dst, (which == 0 ? a : which == 1 ? gy : y) + at, ok ? 16 : 0);
     }
-#pragma unroll
-    for (int i = kBwdSteps - 1; i >= 0; --i) {
-      const int t = t0 + i;
-      if (t < steps) {
-        const int64_t at = base + static_cast<int64_t>(t) * d;
-        dh = __fadd_rn(dh, gv[i]);
-        db[at] = from_float<T>(dh);
-        da[at] = from_float<T>(__fmul_rn(dh, hv[i]));
-        dh = __fmul_rn(av[i], dh);
+  } else {  // each thread its own lane
+    const int lane = threadIdx.x;
+    for (int i = 0; i < kSteps; ++i) {
+      const bool ok = t0 + i < steps && d0 + lane < d;
+      const bool ok_y = ok && t0 + i > 0;
+      const int64_t at = ok ? (row0 + t0 + i) * d + d0 + lane : 0;
+      const int64_t at_y = ok_y ? at - d : 0;
+      if constexpr (sizeof(T) == 4) {
+        tc::cp_async4(sa + i * kLanes + lane, a + at, ok ? 4 : 0);
+        tc::cp_async4(sg + i * kLanes + lane, gy + at, ok ? 4 : 0);
+        tc::cp_async4(sh + i * kLanes + lane, y + at_y, ok_y ? 4 : 0);
+      } else if (ok) {  // no 2-byte cp.async: a plain copy
+        sa[i * kLanes + lane] = a[at];
+        sg[i * kLanes + lane] = gy[at];
+        if (ok_y) sh[i * kLanes + lane] = y[at_y];
       }
     }
   }
-  dh0[lane] = dh;
+}
+
+// One CTA: batch row blockIdx.x / d_tiles, lanes d0 .. d0 + kLanes - 1.
+template <typename T, bool kVec>
+__global__ void __launch_bounds__(kRowBytes / sizeof(T))
+rg_lru_bwd_kernel(const T* __restrict__ a, const T* __restrict__ y,
+                  const float* __restrict__ h0, const T* __restrict__ gy,
+                  const float* __restrict__ gh_last, T* __restrict__ da, T* __restrict__ db,
+                  float* __restrict__ dh0, int steps, int d, int d_tiles) {
+  constexpr int kLanes = kRowBytes / sizeof(T);
+  __shared__ __align__(16) T sa[kStages][kSteps * kLanes];
+  __shared__ __align__(16) T sg[kStages][kSteps * kLanes];
+  __shared__ __align__(16) T sh[kStages][kSteps * kLanes];
+  const int bi = blockIdx.x / d_tiles;
+  const int d0 = (blockIdx.x - bi * d_tiles) * kLanes;
+  const int lane = threadIdx.x;
+  const bool live = d0 + lane < d;
+  const int64_t row0 = static_cast<int64_t>(bi) * steps;  // row (bi, t = 0) of (B*T, D)
+  const int64_t at = static_cast<int64_t>(bi) * d + d0 + lane;  // (bi, d) in (B, D)
+  const int groups = (steps + kSteps - 1) / kSteps;
+  const float h_init = live && h0 != nullptr ? h0[at] : 0.f;
+  float dh = live && gh_last != nullptr ? gh_last[at] : 0.f;
+
+  // the k-th group from the end, steps [(groups - 1 - k) kSteps, + kSteps),
+  // sits in stage k % kStages; group j of this thread's copies holds the j-th
+  auto load = [&](int k) {
+    load_bwd_stage<T, kVec>(sa[k % kStages], sg[k % kStages], sh[k % kStages], a, gy, y, row0,
+                            (groups - 1 - k) * kSteps, steps, d, d0);
+  };
+  for (int k = 0; k < kStages - 1; ++k) {
+    if (k < groups) load(k);
+    tc::cp_async_commit();
+  }
+  for (int k = 0; k < groups; ++k) {
+    if (k + kStages - 1 < groups) load(k + kStages - 1);  // flies while this stage's chain runs
+    tc::cp_async_commit();
+    tc::cp_async_wait<kStages - 1>();
+    __syncthreads();  // every thread's copies of this stage have landed
+    T* ra = sa[k % kStages];  // a, then da
+    T* rg = sg[k % kStages];  // gy, then db
+    const T* rh = sh[k % kStages];
+    const int t0 = (groups - 1 - k) * kSteps;
+    const int n = min(kSteps, steps - t0);
+    T* dap = da + (row0 + t0) * d + d0 + lane;
+    T* dbp = db + (row0 + t0) * d + d0 + lane;
+#pragma unroll
+    for (int i = kSteps - 1; i >= 0; --i) {
+      if (i < n) {
+        const float hv = t0 + i == 0 ? h_init : to_float(rh[i * kLanes + lane]);
+        const float av = to_float(ra[i * kLanes + lane]);
+        dh = __fadd_rn(dh, to_float(rg[i * kLanes + lane]));
+        const float dav = __fmul_rn(dh, hv);
+        if constexpr (kVec) {
+          rg[i * kLanes + lane] = from_float<T>(dh);
+          ra[i * kLanes + lane] = from_float<T>(dav);
+        } else if (live) {
+          dbp[static_cast<int64_t>(i) * d] = from_float<T>(dh);
+          dap[static_cast<int64_t>(i) * d] = from_float<T>(dav);
+        }
+        dh = __fmul_rn(av, dh);
+      }
+    }
+    if constexpr (kVec) {  // the stage's da and db rows, 16 bytes a store
+      constexpr int kPer = 16 / sizeof(T);
+      constexpr int kCopies = kLanes / kPer;
+      __syncthreads();
+      for (int c = lane; c < n * kCopies; c += kLanes) {
+        const int i = c / kCopies;
+        const int col = (c % kCopies) * kPer;
+        if (col < d - d0) {
+          const int64_t o = (row0 + t0 + i) * d + d0 + col;
+          *reinterpret_cast<uint4*>(da + o) = *reinterpret_cast<const uint4*>(ra + i * kLanes + col);
+          *reinterpret_cast<uint4*>(db + o) = *reinterpret_cast<const uint4*>(rg + i * kLanes + col);
+        }
+      }
+    }
+    __syncthreads();  // the stage is read before it is refilled
+  }
+  if (live) dh0[at] = dh;
 }
 
 bool aligned(const void* p, size_t bytes) {
@@ -321,6 +407,33 @@ cudaError_t launch(const void* a, const void* b, const void* h0, void* y, void* 
   return cudaGetLastError();
 }
 
+template <typename T>
+cudaError_t launch_bwd(const void* a, const void* y, const void* h0, const void* gy,
+                       const void* gh_last, void* da, void* db, void* dh0, int batch, int steps,
+                       int d, cudaStream_t stream) {
+  constexpr int kLanes = kRowBytes / sizeof(T);
+  const int d_tiles = (d + kLanes - 1) / kLanes;
+  const int64_t blocks = static_cast<int64_t>(batch) * d_tiles;
+  if (steps < 1 || blocks < 1 || blocks > 0x7fffffff) return cudaErrorInvalidConfiguration;
+  const bool vec = (static_cast<size_t>(d) * sizeof(T)) % 16 == 0 && aligned(a, 16) &&
+                   aligned(y, 16) && aligned(gy, 16) && aligned(da, 16) && aligned(db, 16);
+  const T* ta = static_cast<const T*>(a);
+  const T* ty = static_cast<const T*>(y);
+  const T* tg = static_cast<const T*>(gy);
+  const float* th0 = static_cast<const float*>(h0);
+  const float* tgh = static_cast<const float*>(gh_last);
+  if (vec) {
+    rg_lru_bwd_kernel<T, true><<<static_cast<unsigned>(blocks), kLanes, 0, stream>>>(
+        ta, ty, th0, tg, tgh, static_cast<T*>(da), static_cast<T*>(db),
+        static_cast<float*>(dh0), steps, d, d_tiles);
+  } else {
+    rg_lru_bwd_kernel<T, false><<<static_cast<unsigned>(blocks), kLanes, 0, stream>>>(
+        ta, ty, th0, tg, tgh, static_cast<T*>(da), static_cast<T*>(db),
+        static_cast<float*>(dh0), steps, d, d_tiles);
+  }
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // a, b (B, T, D) contiguous, both f32 (is_bf16 = 0) or both bf16; h0 (B, D) f32
@@ -342,22 +455,8 @@ extern "C" int rg_lru_bwd(const void* a, const void* y, const void* h0, const vo
                           const void* gh_last, void* da, void* db, void* dh0, int batch,
                           int steps, int d, int is_bf16, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int64_t lanes = static_cast<int64_t>(batch) * d;
-  const int64_t blocks = (lanes + kBwdThreads - 1) / kBwdThreads;
-  if (steps < 1 || blocks < 1 || blocks > 0x7fffffff) return cudaErrorInvalidConfiguration;
-  const float* th0 = static_cast<const float*>(h0);
-  const float* tgh = static_cast<const float*>(gh_last);
-  float* tdh0 = static_cast<float*>(dh0);
   if (is_bf16) {
-    using T = __nv_bfloat16;
-    rg_lru_bwd_kernel<T><<<static_cast<unsigned>(blocks), kBwdThreads, 0, s>>>(
-        static_cast<const T*>(a), static_cast<const T*>(y), th0, static_cast<const T*>(gy), tgh,
-        static_cast<T*>(da), static_cast<T*>(db), tdh0, steps, d, lanes);
-  } else {
-    rg_lru_bwd_kernel<float><<<static_cast<unsigned>(blocks), kBwdThreads, 0, s>>>(
-        static_cast<const float*>(a), static_cast<const float*>(y), th0,
-        static_cast<const float*>(gy), tgh, static_cast<float*>(da), static_cast<float*>(db),
-        tdh0, steps, d, lanes);
+    return launch_bwd<__nv_bfloat16>(a, y, h0, gy, gh_last, da, db, dh0, batch, steps, d, s);
   }
-  return cudaGetLastError();
+  return launch_bwd<float>(a, y, h0, gy, gh_last, da, db, dh0, batch, steps, d, s);
 }

@@ -99,6 +99,12 @@ __device__ __forceinline__ uint32_t to_tf32(float x) {
   return y;
 }
 
+// The same rounding of a finite x, as an mma_tf32 operand, in one integer add:
+// half a TF32 unit in the last place is added to the magnitude, and the
+// tensor core ignores the 13 low bits that remain (cvt.rna takes three
+// instructions on sm_90a).  Not for a value that is read back as f32.
+__device__ __forceinline__ uint32_t tf32_operand(float x) { return __float_as_uint(x) + 0x1000u; }
+
 // 2^x on the special-function unit, subnormal results flushed to zero (a
 // probability below 2^-126 adds nothing that an f32 sum of them keeps).
 __device__ __forceinline__ float ex2(float x) {

@@ -13,9 +13,10 @@ flight while the chain runs).  `launches` counts every call that launches,
 The TPU version padded T and D to its blocks with a = 1, b = 0; the CUDA
 kernels bound their loops instead, so nothing is padded.
 
-`rg_lru_bwd` wraps the backward kernel (B4', the same file), a reverse
-walk along T from the forward's y; on a CPU tensor it runs the plain
-`ref.rg_lru_scan_bwd`.  Its `launches` counts its calls that launch.
+`rg_lru_bwd` wraps the backward kernel (B4', the same file): the ring
+walked from the end of T to 0, reading the forward's y as h; on a CPU
+tensor it runs the plain `ref.rg_lru_scan_bwd`.  Its `launches` counts its
+calls that launch.
 
 The wrapper's host work is what a decode call costs beyond its few
 microseconds of device time, so the bound C function is looked up once, the

@@ -19,12 +19,18 @@ Three kernels, chosen by T and the inputs' dtype:
 The TPU version padded T to its 64-step blocks with log_w = 0, k = 0; the
 CUDA kernels bound their last chunk instead, so nothing is padded.
 
-`wkv6_bwd` wraps the backward (B5', `csrc/wkv6_bwd.cu`): from the states
-entering each chunk (the two-pass forward's workspace, rounded to TF32,
-which `wkv6_fwd` returns as its third result; else the backward walks
-them forward first, in f32), a reverse walk over row blocks of the
-state, then a fixed-order sum of dv and du.  On a CPU tensor it runs the
-plain `ref.wkv6_scan_bwd`.  Its `launches` counts its calls that launch,
+`wkv6_bwd` wraps the backward (B5', `csrc/wkv6_bwd.cu`), which starts
+from the states entering each chunk (the two-pass forward's workspace,
+rounded to TF32, which `wkv6_fwd` returns as its third result; else the
+backward walks them forward first, in f32).  Two designs, chosen by dtype:
+  bf16: the chunked form on the tensor cores, two passes: the gradient of
+    the state leaving each chunk, walked from the last chunk to the first
+    into a second workspace this wrapper allocates, then one CTA a chunk
+    for dr, dk, dv, dlog_w and a du partial, summed in a fixed order;
+  f32: the first design, a reverse walk over row blocks of the state, then
+    a fixed-order sum of dv and du.
+On a CPU tensor it runs the plain `ref.wkv6_scan_bwd`.  Its `launches`
+counts its calls that launch, `launches_chunked` the bf16 ones and
 `launches_entry` those that had to walk the chunk-entry states first.
 
 The wrapper's host work is what a decode call costs beyond its few
@@ -160,30 +166,39 @@ def wkv6_bwd(r, k, v, log_w, u, s0, gy, gs_last=None, workspace=None):
     u = u.float().contiguous()
     s0, gs_last = (None if t is None else t.float().contiguous() for t in (s0, gs_last))
     have_states = workspace is not None
-    if not have_states:
-        workspace = torch.empty((bsz * heads, n_chunks, MAX_DIM, MAX_DIM), dtype=torch.float32,
-                                device=dev)
+    state_shape = (bsz * heads, n_chunks, MAX_DIM, MAX_DIM)
+    if not have_states:  # zeros: the entry pass writes only the rows of dk's row blocks
+        workspace = torch.zeros(state_shape, dtype=torch.float32, device=dev)
     d_r, d_k, d_lw = (torch.empty_like(r) for _ in range(3))
     d_v = torch.empty_like(v)
     d_u = torch.empty((heads, dk), dtype=torch.float32, device=dev)
     ds0 = torch.empty((bsz, heads, dk, dv), dtype=torch.float32, device=dev)
-    dv_part = torch.empty((bsz * heads, -(-dk // ROWS), steps, MAX_DIM), dtype=torch.float32,
-                          device=dev)
-    du_part = torch.empty((bsz, heads, dk), dtype=torch.float32, device=dev)
+    chunked = r.dtype == torch.bfloat16
+    if chunked:  # the gradient entering each chunk's end, one du partial a chunk
+        dv_part = None
+        g_states = torch.empty(state_shape, dtype=torch.float32, device=dev)
+        du_part = torch.empty((bsz * heads, n_chunks, MAX_DIM), dtype=torch.float32, device=dev)
+    else:
+        dv_part = torch.empty((bsz * heads, -(-dk // ROWS), steps, MAX_DIM), dtype=torch.float32,
+                              device=dev)
+        g_states = None
+        du_part = torch.empty((bsz, heads, dk), dtype=torch.float32, device=dev)
     from .._build import library
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     err = library().wkv6_bwd(
         r.data_ptr(), k.data_ptr(), v.data_ptr(), log_w.data_ptr(), u.data_ptr(), ptr(s0),
         gy.data_ptr(), ptr(gs_last), workspace.data_ptr(), int(have_states), d_r.data_ptr(),
         d_k.data_ptr(), d_v.data_ptr(), d_lw.data_ptr(), d_u.data_ptr(), ds0.data_ptr(),
-        dv_part.data_ptr(), du_part.data_ptr(), bsz, heads, steps, dk, dv, _DTYPES[r.dtype],
-        torch._C._cuda_getCurrentRawStream(dev.index))
+        ptr(dv_part), ptr(g_states), du_part.data_ptr(), bsz, heads, steps, dk, dv,
+        _DTYPES[r.dtype], torch._C._cuda_getCurrentRawStream(dev.index))
     if err:
         raise RuntimeError(f"wkv6_bwd launch failed: cudaError {err}")
     wkv6_bwd.launches += 1
+    wkv6_bwd.launches_chunked += chunked
     wkv6_bwd.launches_entry += not have_states
     return d_r, d_k, d_v, d_lw, d_u, ds0
 
 
-wkv6_bwd.launches = 0        # calls that launched; never counts a CPU call
-wkv6_bwd.launches_entry = 0  # of which walked the chunk-entry states first
+wkv6_bwd.launches = 0          # calls that launched; never counts a CPU call
+wkv6_bwd.launches_chunked = 0  # of which the chunked design (bf16)
+wkv6_bwd.launches_entry = 0    # of which walked the chunk-entry states first

@@ -36,7 +36,7 @@ def wkv6_scan(r, k, v, w, u, s0=None):
 
 def wkv6_scan_bwd(r, k, v, log_w, u, s0, gy, gs_last=None):
     """The gradients of the recurrence with the decay w = exp(log_w): a
-    reverse loop in float32.
+    reverse loop in float32 (float64 for float64 inputs).
 
     gy: (B, H, T, dv), the cotangent of y; gs_last: (B, H, dk, dv) or None
     (zeros), that of s_last.  With G_t the gradient of S_t (G_{T-1} =
@@ -49,24 +49,25 @@ def wkv6_scan_bwd(r, k, v, log_w, u, s0, gy, gs_last=None):
         G_{t-1} = diag(w_t) G_t + r_t gy_t^T
     and ds0 = G_{-1}.  The states S_{t-1} are recomputed forward first.
     Returns (dr, dk, dv, dlog_w, du, ds0), each in its input's dtype (ds0
-    float32 without s0)."""
+    in the loop's dtype without s0)."""
     bsz, heads, steps, dk = r.shape
     dv = v.shape[-1]
-    rf, kf, vf, gyf = (x.float() for x in (r, k, v, gy))
-    wf = torch.exp(log_w.float())
-    uf = u.float()[None]                                           # (1, H, dk)
-    s = (torch.zeros((bsz, heads, dk, dv), dtype=torch.float32, device=r.device)
-         if s0 is None else s0.float())
+    acc = torch.float64 if r.dtype == torch.float64 else torch.float32
+    rf, kf, vf, gyf = (x.to(acc) for x in (r, k, v, gy))
+    wf = torch.exp(log_w.to(acc))
+    uf = u.to(acc)[None]                                           # (1, H, dk)
+    s = (torch.zeros((bsz, heads, dk, dv), dtype=acc, device=r.device)
+         if s0 is None else s0.to(acc))
     states = []                                                    # S_{t-1}
     for t in range(steps):
         states.append(s)
         s = wf[:, :, t, :, None] * s + kf[:, :, t, :, None] * vf[:, :, t, None, :]
-    g = (torch.zeros((bsz, heads, dk, dv), dtype=torch.float32, device=r.device)
-         if gs_last is None else gs_last.float())
-    d_r, d_k, d_lw = (torch.empty((bsz, heads, steps, dk), dtype=torch.float32,
-                                  device=r.device) for _ in range(3))
-    d_v = torch.empty((bsz, heads, steps, dv), dtype=torch.float32, device=r.device)
-    d_u = torch.zeros(uf.shape[1:], dtype=torch.float32, device=r.device)
+    g = (torch.zeros((bsz, heads, dk, dv), dtype=acc, device=r.device)
+         if gs_last is None else gs_last.to(acc))
+    d_r, d_k, d_lw = (torch.empty((bsz, heads, steps, dk), dtype=acc, device=r.device)
+                      for _ in range(3))
+    d_v = torch.empty((bsz, heads, steps, dv), dtype=acc, device=r.device)
+    d_u = torch.zeros(uf.shape[1:], dtype=acc, device=r.device)
     for t in range(steps - 1, -1, -1):
         rt, kt, vt, wt, gt, sp = rf[:, :, t], kf[:, :, t], vf[:, :, t], wf[:, :, t], \
             gyf[:, :, t], states[t]

@@ -8,8 +8,10 @@ Pallas forward in interpret mode) or of its reference scan (which takes an
 initial state, the op does not), and through the port's plain backward
 (`ref.rg_lru_scan_bwd`, `ref.wkv6_scan_bwd`) and the op's autograd.  Bounds:
 f32 1e-5 (B4) and 1e-4 (B5), as the forward tests' gradient checks; bf16
-2e-2 + 2e-2|want|.  On the card, B4' and B5' are held to their plain
-versions (`cuda` marker; these cases need no JAX).
+2e-2 + 2e-2|want|.  An emulation of B5''s bf16 design (its rounding
+included) is held to the same JAX gradients, its identities unrounded in
+float64 to the plain reverse loop.  On the card, B4' and B5' are held to
+their plain versions (`cuda` marker; these cases need no JAX).
 """
 import numpy as np
 import pytest
@@ -146,7 +148,7 @@ def test_rg_lru_bwd_matches_jax_op_vjp(shape, dtype):
     _assert_close(got_op, want, LRU_NAMES, tol(dtype, 1e-5))
 
 
-# (2, 1100, 48): a T over many 8-step groups of B4', not a multiple of one
+# (2, 1100, 48): a T over many 16-step stages of B4''s ring, not a multiple of one
 @pytest.mark.parametrize("shape", [(2, 100, 48), (3, 17, 8), (4, 1, 64), (2, 1100, 48)])
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_rg_lru_bwd_from_h0_matches_jax_scan_vjp(shape, dtype):
@@ -313,14 +315,17 @@ def test_wkv6_plain_bwd_gives_the_same_bits_around_jax_work(dims, dtype):
 def test_cpu_backward_counts_no_launch():
     """On the CPU the op's backward is the plain version, not a launch."""
     before = (lru_kernel.rg_lru_bwd.launches, wkv_kernel.wkv6_bwd.launches,
-              wkv_kernel.wkv6_bwd.launches_entry)
+              wkv_kernel.wkv6_bwd.launches_chunked, wkv_kernel.wkv6_bwd.launches_entry)
     a = torch.rand(1, 5, 8, requires_grad=True)
     lru_ops.rg_lru(a, a * 0.5)[0].sum().backward()
     r = torch.rand(1, 1, 5, 8, requires_grad=True)
     wkv_ops.wkv6(r, r, r, -r, torch.rand(1, 8))[0].sum().backward()
-    assert a.grad is not None and r.grad is not None
+    rb = torch.rand(1, 1, 5, 8, dtype=torch.bfloat16, requires_grad=True)
+    wkv_ops.wkv6(rb, rb, rb, -rb, torch.rand(1, 8))[0].float().sum().backward()
+    assert a.grad is not None and r.grad is not None and rb.grad is not None
     assert before == (lru_kernel.rg_lru_bwd.launches, wkv_kernel.wkv6_bwd.launches,
-                      wkv_kernel.wkv6_bwd.launches_entry) == (0, 0, 0)
+                      wkv_kernel.wkv6_bwd.launches_chunked,
+                      wkv_kernel.wkv6_bwd.launches_entry) == (0, 0, 0, 0)
 
 
 def test_backward_wrappers_reject_a_tensor_neither_on_cpu_nor_on_cuda():
@@ -330,6 +335,221 @@ def test_backward_wrappers_reject_a_tensor_neither_on_cpu_nor_on_cuda():
     r = torch.rand(1, 2, 4, 8, device="meta")
     with pytest.raises(ValueError, match="CUDA device"):
         wkv_kernel.wkv6_bwd(r, r, r, r, torch.rand(2, 8, device="meta"), None, r)
+
+
+# --- B5''s chunked design (bf16), emulated -----------------------------------------
+
+
+def _tf32(x):
+    """f32 rounded to TF32 as cvt.rna.tf32.f32 does: to nearest, ties away
+    from zero, the low 13 mantissa bits cleared."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _tf32_trunc(x):
+    """f32 truncated to TF32 (the low 13 mantissa bits cleared), as the
+    tensor core reads an f32 operand."""
+    return (x.contiguous().view(torch.int32) & -0x2000).view(torch.float32)
+
+
+def _wkv6_chunked_bwd_emulation(r, k, v, log_w, u, s0, gy, gs_last, exact=False, chunk=64,
+                                sub=16):
+    """What B5''s bf16 design computes, in plain PyTorch, chunk by chunk (each
+    padded to 64 steps with zeros and log_w = 0, as the kernel's tiles are),
+    with c the chunk-local cumulative sum of log_w (c_{-1} = 0), S_in the
+    state entering a chunk and G_out the gradient of the state leaving it:
+      the forward's chunk-entry states (its state pass: k~ in two TF32 parts),
+        stored rounded to TF32;
+      pass 1, chunks last to first: G_out stored rounded to TF32, then
+        G_in = e^{c_L} G_out + (r e^{c_{t-1}})^T gy, r e^{c_{t-1}} in two TF32 parts;
+      pass 2, per chunk, rows in sub-blocks of 16 starting at s, dA = gy v^T:
+        dr: e^{c_{t-1}} (gy S_in^T) + e^{c_{t-1} - c_{s-1}} (dA[:, <s] k~) with
+          k~_j = k_j e^{c_{s-1} - c_j}; in the sub-block's lower-left 8 x 8
+          quarter the same against step s + 7; per element in its two
+          diagonal 8 x 8 quarters;
+        dk: e^{c_L - c_j} (v G_out^T) apart (it feeds dlog_w), and
+          e^{c_{s+15} - c_j} dA[>s+15, :]^T r^ with r^_t = r_t e^{c_{t-1} - c_{s+15}};
+          the quarter against s + 7; the diagonal quarters per element;
+        dv: (k e^{c_L - c}) G_out + A^T gy over t past the sub-block (A from
+          operands against s + 15) and inside it (the quarter against s + 7,
+          the diagonal quarters per element), the bonus term in f32 apart;
+        dlog_w = e^{c_L} rowsum(G_out S_in) + sum_j k_j dk_j^inter
+          + sum_{tau > t} r dr' - sum_{j >= t} k dk' (dr', dk' without the
+          bonus), taken as X + sum_{tau > t} Z_tau - Q_t with P = r dr',
+          Q = k dk', Z = P - Q.
+    The products of dr's and dk's intra-chunk terms, which dlog_w's reverse
+    sums take apart, take their decayed operand (k~, r^) in two TF32 parts
+    (the truncated value and the rest, truncated in its turn) and dA in one
+    (rounded alike in both, its rounding cancels there), and so does the
+    gradient-state pass's r e^{c_{t-1}}; the other products round their
+    derived operands to TF32 once, to nearest; bf16 operands, S_in and
+    G_out are TF32 values already.  With `exact` nothing is rounded and
+    everything runs in float64: the identities alone.
+    Returns (dr, dk, dv, dlog_w, du, ds0), unrounded to the output dtype."""
+    dt = torch.float64 if exact else torch.float32
+    rnd = (lambda x: x) if exact else _tf32
+    trunc = (lambda x: x) if exact else _tf32_trunc
+
+    def mm2(a, b):  # b in two truncated TF32 parts, a in one
+        if exact:
+            return a @ b
+        bb = trunc(b)
+        return _tf32(a) @ bb + _tf32(a) @ trunc(b - bb)
+
+    def mm3(a, b):  # both operands in two parts, the small x small product dropped
+        if exact:
+            return a @ b
+        ab, bb = _tf32(a), _tf32(b)
+        return ab @ bb + ab @ _tf32(b - bb) + _tf32(a - ab) @ bb
+
+    bsz, heads, steps, dk = r.shape
+    dv = v.shape[-1]
+    n_chunks = -(-steps // chunk)
+    pad = n_chunks * chunk - steps
+    rf, kf, vf, gf, lw = (torch.nn.functional.pad(x.to(dt), (0, 0, 0, pad))
+                          for x in (r, k, v, gy, log_w))
+    uf = u.to(dt)[None, :, None, :]
+
+    def part(x, i):
+        return x[:, :, i * chunk:(i + 1) * chunk]
+
+    cs = [torch.cumsum(part(lw, i), dim=2) for i in range(n_chunks)]
+    s = torch.zeros(bsz, heads, dk, dv, dtype=dt) if s0 is None else s0.to(dt)
+    s_in = []
+    for i in range(n_chunks):                                    # the forward's states
+        s_in.append(rnd(s))
+        c_l = cs[i][:, :, -1]
+        kt = part(kf, i) * torch.exp(c_l[:, :, None] - cs[i])
+        s = torch.exp(c_l)[..., None] * s + mm3(kt.transpose(-1, -2), part(vf, i))
+    g = torch.zeros(bsz, heads, dk, dv, dtype=dt) if gs_last is None else gs_last.to(dt)
+    g_out = [None] * n_chunks
+    for i in reversed(range(n_chunks)):                          # pass 1
+        g_out[i] = rnd(g)
+        c = cs[i]
+        cprev = torch.cat([torch.zeros_like(c[:, :, :1]), c[:, :, :-1]], 2)
+        rt = part(rf, i) * torch.exp(cprev)
+        big = trunc(rt)                                         # gy is exact in TF32
+        g = torch.exp(c[:, :, -1])[..., None] * g + big.transpose(-1, -2) @ part(gf, i) \
+            + trunc(rt - big).transpose(-1, -2) @ part(gf, i)
+    ds0 = g
+    outs = {name: [] for name in ("dr", "dk", "dv", "dlw")}
+    du = torch.zeros(heads, dk, dtype=dt)
+    strict = torch.ones(8, 8, dtype=torch.bool).tril(-1)[:, :, None]
+    for i in range(n_chunks):                                    # pass 2
+        rc, kc, vc, gc, c = part(rf, i), part(kf, i), part(vf, i), part(gf, i), cs[i]
+        c_l = c[:, :, -1:]
+        cprev = torch.cat([torch.zeros_like(c[:, :, :1]), c[:, :, :-1]], 2)
+        sin, gout = s_in[i], g_out[i]
+        da = gc @ vc.transpose(-1, -2)                           # dA[t, j] = gy_t . v_j
+        vg = torch.diagonal(da, dim1=-2, dim2=-1)[..., None]     # v_t . gy_t
+        dr, dki, dko = (torch.zeros(bsz, heads, chunk, dk, dtype=dt) for _ in range(3))
+        dvv = torch.zeros(bsz, heads, chunk, dv, dtype=dt)
+        for s_ in range(0, chunk, sub):
+            blk, lo, hi = slice(s_, s_ + sub), slice(s_, s_ + 8), slice(s_ + 8, s_ + sub)
+            c_s1 = cprev[:, :, s_:s_ + 1]                        # c_{s-1}
+            c_7, c_15 = c[:, :, s_ + 7:s_ + 8], c[:, :, s_ + 15:s_ + 16]
+            dr[:, :, blk] = torch.exp(cprev[:, :, blk]) * (gc[:, :, blk] @ sin.transpose(-1, -2))
+            if s_ > 0:
+                dr[:, :, blk] += torch.exp(cprev[:, :, blk] - c_s1) * mm2(
+                    da[:, :, blk, :s_], kc[:, :, :s_] * torch.exp(c_s1 - c[:, :, :s_]))
+            dr[:, :, hi] += torch.exp(cprev[:, :, hi] - c_7) * mm2(
+                da[:, :, hi, lo], kc[:, :, lo] * torch.exp(c_7 - c[:, :, lo]))
+            dki[:, :, blk] = torch.exp(c_l - c[:, :, blk]) * (vc[:, :, blk] @ gout.transpose(-1, -2))
+            if s_ + sub < chunk:
+                later = slice(s_ + sub, chunk)
+                r_hat = rc[:, :, later] * torch.exp(cprev[:, :, later] - c_15)
+                dko[:, :, blk] = torch.exp(c_15 - c[:, :, blk]) * mm2(
+                    da[:, :, later, blk].transpose(-1, -2), r_hat)
+                at = rnd(kc[:, :, blk] * torch.exp(c_15 - c[:, :, blk])) @ \
+                    rnd(r_hat).transpose(-1, -2)                 # A^T[j, t], t past the block
+                dvv[:, :, blk] += rnd(at) @ gc[:, :, later]
+            dko[:, :, lo] += torch.exp(c_7 - c[:, :, lo]) * mm2(
+                da[:, :, hi, lo].transpose(-1, -2), rc[:, :, hi] * torch.exp(cprev[:, :, hi] - c_7))
+            a_blk = torch.zeros(bsz, heads, sub, sub, dtype=dt)  # A[t, j] inside the block
+            for q0 in (s_, s_ + 8):                              # the diagonal quarters
+                qs = slice(q0, q0 + 8)
+                e = torch.exp(torch.where(strict, cprev[:, :, qs, None, :] - c[:, :, None, qs, :],
+                                          torch.tensor(float("-inf"), dtype=dt)))  # [t, j, d]
+                da_q = da[:, :, qs, qs][..., None]
+                dr[:, :, qs] += (da_q * kc[:, :, None, qs] * e).sum(3)
+                dko[:, :, qs] += (da_q * rc[:, :, qs, None] * e).sum(2)
+                a_blk[:, :, q0 - s_:q0 - s_ + 8, q0 - s_:q0 - s_ + 8] = \
+                    (rc[:, :, qs, None] * kc[:, :, None, qs] * e).sum(-1)
+            a_blk[:, :, 8:, :8] = rnd(rc[:, :, hi] * torch.exp(cprev[:, :, hi] - c_7)) @ \
+                rnd(kc[:, :, lo] * torch.exp(c_7 - c[:, :, lo])).transpose(-1, -2)
+            dvv[:, :, blk] += rnd(a_blk).transpose(-1, -2) @ gc[:, :, blk]
+            dvv[:, :, blk] += rnd(kc[:, :, blk] * torch.exp(c_l - c[:, :, blk])) @ gout
+            dvv[:, :, blk] += (rc[:, :, blk] * uf * kc[:, :, blk]).sum(-1, keepdim=True) \
+                * gc[:, :, blk]                                  # the bonus, in f32
+        dkp = dko + dki
+        q = kc * dkp
+        z = rc * dr - q
+        later = torch.flip(torch.cumsum(torch.flip(z, [2]), 2), [2]) - z   # sum over tau > t
+        x = torch.exp(c_l[:, :, 0]) * (gout * sin).sum(-1) + (kc * dki).sum(2)
+        dlw = x[:, :, None] + later - q
+        outs["dr"].append(dr + uf * kc * vg)
+        outs["dk"].append(dkp + uf * rc * vg)
+        outs["dv"].append(dvv)
+        outs["dlw"].append(dlw)
+        du += (rc * kc * vg).sum((0, 2))
+    return (*(torch.cat(outs[n], 2)[:, :, :steps] for n in ("dr", "dk", "dv", "dlw")), du, ds0)
+
+
+def _chunked_got(r, k, v, lw, u, s0, gy, gs):
+    """The emulation on the bf16 values of one case, its dr, dk, dv, dlog_w
+    rounded to bf16 as the kernel writes them."""
+    got = _wkv6_chunked_bwd_emulation(*(_t(x) for x in (r, k, v, lw, u, s0, gy, gs)))
+    assert all(torch.isfinite(g).all() for g in got)
+    return [g.bfloat16() for g in got[:4]] + list(got[4:])
+
+
+@pytest.mark.parametrize("dims,s0", [((1, 2, 150, 64, 64), True), ((1, 2, 70, 7, 5), True),
+                                     ((2, 1, 9, 16, 16), False), ((1, 1, 64, 16, 16), False)])
+def test_chunked_bwd_identities_match_the_step_loop_in_f64(dims, s0):
+    """The chunked identities, unrounded in float64, against the plain
+    reverse loop in float64: a ragged last chunk (T = 150: 64 + 64 + 22), an
+    odd dk and dv, T < 16, s0 and gs_last given or not."""
+    r, k, v, lw, u, s, gy, gs = _wkv_arrays(dims, seed=50, dtype="float32", s0=s0)
+    ins = [None if x is None else torch.from_numpy(x).double()
+           for x in (r, k, v, lw, u, s, gy, gs if s0 else None)]
+    got = _wkv6_chunked_bwd_emulation(*ins, exact=True)
+    want = wkv_ref.wkv6_scan_bwd(*ins)
+    for name, g, w in zip(WKV_NAMES, got, want, strict=True):
+        assert w.dtype == torch.float64, name
+        np.testing.assert_allclose(g.numpy(), w.numpy(), atol=1e-10, rtol=1e-10, err_msg=name)
+
+
+# (dims, with s0 and gs_last, log_w fixed or None): the reference shapes, a
+# ragged T over several chunks from s0, odd dk and dv, extreme decay
+CHUNKED_CASES = [(dims, False, None) for dims in WKV_CASES] + [
+    ((1, 4, 200, 64, 64), True, None), ((1, 2, 70, 7, 5), True, None),
+    ((1, 1, 64, 16, 16), False, -20.0)]
+
+
+@pytest.mark.parametrize("dims,s0,log_w,against", [
+    (dims, s0, lw, against) for dims, s0, lw in CHUNKED_CASES
+    for against in (("scan",) if s0 else ("op", "scan"))])
+def test_chunked_bwd_emulation_matches_jax(dims, s0, log_w, against):
+    """The emulation of B5''s bf16 design against jax.vjp of the JAX op
+    (Pallas forward in interpret mode; no s0) or of its reference scan, at
+    the bf16 bound, cotangents on y and the last state.  The JAX side gets
+    log_w as f32 holding the bf16 values (`_jax_log_w`)."""
+    r, k, v, lw, u, s, gy, gs = _wkv_arrays(dims, seed=51, dtype="bfloat16", s0=s0,
+                                            log_w=log_w)
+    if against == "op":
+        want = (*_vjp(lambda *xs: jax_wkv6(*xs),
+                      (*(_j(x, "bfloat16") for x in (r, k, v)), _jax_log_w(lw, "bfloat16"),
+                       _j(u)), (_j(gy, "bfloat16"), _j(gs))), None)
+        got = _chunked_got(r, k, v, lw, u, None, gy, gs)
+    else:
+        def scan(r_, k_, v_, lw_, u_, s0_):
+            return jax_wkv_ref.wkv6_scan(r_, k_, v_, jnp.exp(lw_), u_, s0_)
+        s0_ = s if s0 else np.zeros((dims[0], dims[1], dims[3], dims[4]), np.float32)
+        want = _vjp(scan, (*(_j(x, "bfloat16") for x in (r, k, v)), _j(lw), _j(u), _j(s0_)),
+                    (_j(gy, "bfloat16"), _j(gs)))
+        got = _chunked_got(r, k, v, lw, u, s0_, gy, gs)
+    _assert_close(got, want, WKV_NAMES, tol("bfloat16", None))
 
 
 # --- on the card ----------------------------------------------------------------
@@ -349,13 +569,16 @@ def _card_bounds(dtype, f32):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", LRU_CASES + [(2, 1100, 48), (2, 37, 33)])
+@pytest.mark.parametrize("shape", LRU_CASES + [(2, 1100, 48), (2, 37, 33), (2, 9, 40),
+                                               (1, 5, 4096)])
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("h0", [False, True])
 def test_cuda_rg_lru_bwd_matches_plain(shape, dtype, h0):
     """B4' against its plain version; in f32 the same bits (one add and two
     multiplies a step, each rounded, in the plain version's order), and two
-    runs give the same bits in both dtypes."""
+    runs give the same bits in both dtypes.  T below the ring's 16 steps a
+    stage (9, 5; 1) and widths whose rows are (4096) and are not (33, 40 in
+    bf16: 80 bytes) 16-byte aligned."""
     _need_cuda()
     a, b, h, gy, gh = _lru_arrays(shape, seed=40, dtype=dtype, h0=h0)
     ta, tb, tgy = (_cuda(x, dtype) for x in (a, b, gy))
@@ -377,12 +600,15 @@ def test_cuda_rg_lru_bwd_matches_plain(shape, dtype, h0):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dims", WKV_CASES + [(1, 4, 200, 64, 64), (1, 2, 130, 64, 48),
-                                              (1, 2, 70, 7, 5)])
+                                              (1, 2, 70, 7, 5), (1, 2, 9, 64, 64),
+                                              (2, 2, 1, 64, 64)])
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("s0", [False, True])
 def test_cuda_wkv6_bwd_matches_plain(dims, dtype, s0):
     """B5' against its plain version, from the forward's chunk-entry states
-    (bf16, T > 1) or its own (f32, T = 1), and two runs give the same bits."""
+    (bf16, T > 1) or its own (f32, or T = 1), and two runs give the same
+    bits.  Every bf16 call takes the chunked design (`launches_chunked`),
+    T below a sub-block's 16 steps (7, 9) and T = 1 included."""
     _need_cuda()
     r, k, v, lw, u, s, gy, gs = _wkv_arrays(dims, seed=41, dtype=dtype, s0=s0)
     ins = (*(_cuda(x, dtype) for x in (r, k, v, lw)), _cuda(u), _cuda(s))
@@ -390,11 +616,12 @@ def test_cuda_wkv6_bwd_matches_plain(dims, dtype, s0):
     _, _, ws = wkv_kernel.wkv6_fwd(*ins)
     assert (ws is not None) == (dtype == "bfloat16" and dims[2] > 1)
     fn = wkv_kernel.wkv6_bwd
-    before = (fn.launches, fn.launches_entry)
+    before = (fn.launches, fn.launches_chunked, fn.launches_entry)
     got = fn(*ins, tgy, tgs, ws)
     again = fn(*ins, tgy, tgs, ws)
     torch.cuda.synchronize()
-    assert (fn.launches, fn.launches_entry) == (before[0] + 2, before[1] + 2 * (ws is None))
+    assert (fn.launches, fn.launches_chunked, fn.launches_entry) == (
+        before[0] + 2, before[1] + 2 * (dtype == "bfloat16"), before[2] + 2 * (ws is None))
     assert all(torch.equal(x, z) for x, z in zip(got, again, strict=True))
     want = wkv_ref.wkv6_scan_bwd(*ins, tgy, tgs)
     for name, g, w in zip(WKV_NAMES, got, want, strict=True):
