@@ -134,9 +134,34 @@ Phases, in order; any failure raises and the script exits non-zero:
                first two's losses must agree with each other and with the
                main path's, the last's be finite and end below 1.5 x its
                first.  With one card it says that it did not run.
+ 10. fabric playback - the certified tape playback B6 (float64) against
+               its plain version on the card, bit for bit and over two runs:
+               the deduped a2a / rs / ag candidate sets at n in {6, 12, 48,
+               96, 97} and r in {2, 3} with seeded payloads and a
+               zero-payload lane, C in {1, 4, 8}, delta in {0, 1 ms}; then
+               the reference's sim_bench tiers, built as its `_jax_lanes`
+               builds them (n = 1536 x 256 lanes, C = 4, hop cap 300; n =
+               8192 x 64, C = 2, cap 400; n = 32768 x 32, C = 2, cap 600):
+               B6 against its plain version, and the path
+               `batch_run(backend="torch")` with B6's launches counted (at
+               n = 1536 beside `backend="numpy"`, bit for bit on node_done,
+               step_done and completion, every lane certified), each
+               completion checksum printed beside the one
+               BENCH_sim_scale.json records; the planner's ocs-sim path,
+               `Planner(sim_backend="torch")` for a2a, rs and ag at n = 1536
+               (the same plans, predicted times and alternatives' scores as
+               `sim_backend="numpy"`, timed in turns) and at n = 32768, B6's
+               launches counted; B6 timed (`ms`, `device_ms`, the plain
+               version on the card) at each tier's and the planner's shape
+               beside its bound (the larger of the bytes at the HBM rate,
+               the FP64 work at the FP64 peak and the longest lane's serial
+               chain); and the crossover of whole `batch_run` calls, NumPy
+               against the card, on the candidate sets from n = 2 to 384
+               (C = 8), beside `batchsim._AUTO_MIN_WORK`.
 Then it prints the kernels' JSON line (one entry per kernel and path, each
 with the launches of that path's run and the numbers of the shape that path
-gives it; a served model's prefill and decode are two paths), the card's name
+gives it; a served model's prefill and decode are two paths, each fabric tier
+and the planner's n = 1536 scoring are B6's paths), the card's name
 and power limit, and as its last line {"ok": true, "device": {...}}.  Imports
 nothing of JAX.
 """
@@ -159,16 +184,21 @@ import time
 import zlib
 from pathlib import Path
 
+import numpy as np
 import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch import configs  # noqa: E402  (fails outside a checkout)
+from repro_torch.core import PAPER_DEFAULT, batchsim, schedules  # noqa: E402
+from repro_torch.core.jsonio import FabricKind  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as flash_kernel  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel_bwd as flash_bwd  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as flash_ops  # noqa: E402
 from repro_torch.kernels.flash_attention import ref as flash_ref  # noqa: E402
+from repro_torch.kernels.playback import kernel as playback_kernel  # noqa: E402
+from repro_torch.kernels.playback import ref as playback_ref  # noqa: E402
 from repro_torch.kernels.rg_lru import kernel as lru_kernel  # noqa: E402
 from repro_torch.kernels.rg_lru import ref as lru_ref  # noqa: E402
 from repro_torch.kernels.wkv6 import kernel as wkv_kernel  # noqa: E402
@@ -179,6 +209,7 @@ from repro_torch.models import decode_step, forward, init_params, prefill  # noq
 from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.data import SyntheticLM  # noqa: E402
 from repro_torch.models.model import loss_fn  # noqa: E402
+from repro_torch.planner import Planner, PlanRequest  # noqa: E402
 
 # Published peaks of one H100 SXM (NVIDIA data sheet, dense): HBM3 bytes/s,
 # bf16 tensor-core FLOP/s and f32 FLOP/s outside the tensor cores.  They
@@ -1937,6 +1968,309 @@ def _rank_main() -> None:
         dist.destroy_process_group()
 
 
+# --- phase 10: the fabric playback (B6) ---------------------------------------------
+
+SIM_M = 4 * 2**20          # the reference's sim_bench payload, 4 MiB
+SIM_DELTA = 1e-3           # and its reconfiguration delay
+SIM_KINDS = ("a2a", "rs", "ag")
+PLAYBACK_GRID = [(n, r) for n in (6, 12, 48, 96, 97) for r in (2, 3)]
+PLAYBACK_CHUNKS = (1, 4, 8)
+PLAYBACK_DELTAS = (0.0, 1e-3)
+# the reference's tiers (benchmarks/sim_bench.py): n, lanes, chunks, hop cap;
+# "jax" is its NumPy-vs-XLA tier, the two others its "jax-scale" ones
+SIM_TIERS = {"jax": (1536, 256, 4, 300), "jax-scale 8192": (8192, 64, 2, 400),
+             "jax-scale 32768": (32768, 32, 2, 600)}
+PLAN_NS = (1536, 32768)    # the planner's ocs-sim path, NumPy beside it at the first
+CROSSOVER_NS = (2, 3, 4, 6, 12, 24, 48, 96, 192, 384)
+# FP64 outside the tensor cores (NVIDIA H100 SXM data sheet; max and add are
+# not FMAs, so B6 cannot use the FP64 tensor cores)
+H100_F64_FLOP_S = 34e12
+# the fewest cycles an SM makes a dependent instruction wait: a floor for
+# each link of B6's serial chain (a max, an add, or a hop's barrier), not a
+# measurement
+DEPENDENT_CYCLES = 4
+
+
+def candidate_lanes(n: int, m: float, r: int = 2) -> list:
+    """The deduped a2a / rs / ag candidate set at (n, r) as BatchLanes (one
+    shared S: one batch), as the reference's sim_bench builds it
+    (`benchmarks/sim_bench.py:_candidate_lanes`)."""
+    seen, lanes = set(), []
+    for kind in SIM_KINDS:
+        for _, sched in schedules.candidate_schedules(kind, n, m, PAPER_DEFAULT, r=r):
+            if (sched.kind, sched.x) not in seen:
+                seen.add((sched.kind, sched.x))
+                lanes.append(batchsim.BatchLane(schedule=sched, m_bytes=m))
+    return lanes
+
+
+def tier_lanes(n: int, m: float, lanes_target: int, hop_cap: int) -> list:
+    """The reference's wide certified lane set (`sim_bench.py:_jax_lanes`):
+    the candidates of at most `hop_cap` hops, tiled with a 1 % payload ramp
+    out to `lanes_target` lanes."""
+    base = [lane for lane in candidate_lanes(n, m)
+            if sum(batchsim.compile_tape(lane.schedule).hops) <= hop_cap]
+    lanes, rep = [], 0
+    while len(lanes) < lanes_target:
+        lanes += [batchsim.BatchLane(schedule=lane.schedule, m_bytes=m * (1.0 + 0.01 * rep))
+                  for lane in base]
+        rep += 1
+    return lanes[:lanes_target]
+
+
+def playback_inputs(lanes, cm, C: int):
+    """B6's inputs on the card for `lanes`, as `batch_run` and
+    `play_certified` build them: ((nb, g, hops, changed, delta_eff), the
+    wrapper's keywords, the hops as numpy)."""
+    tapes = [batchsim.compile_tape(lane.schedule) for lane in lanes]
+    n = tapes[0].n
+    m = np.array([lane.m_bytes for lane in lanes])
+    nb = (m[:, None] * np.stack([t.arrays["counts"] for t in tapes])) / n
+    hops = np.stack([t.arrays["hops"] for t in tapes])
+    changed = np.stack([t.arrays["changed_pay"] for t in tapes]).copy()
+    changed[:, 0] = False
+    delta_eff = batchsim._knob_arrays(lanes, cm, n)[2]
+    arrays = ((nb, np.float64), (np.stack([t.arrays["g_step"] for t in tapes]), np.int32),
+              (hops, np.int32), (changed, np.uint8), (delta_eff, np.float64))
+    args = tuple(torch.from_numpy(np.ascontiguousarray(a, dtype=dt)).cuda() for a, dt in arrays)
+    kw = {"n": n, "C": C, "alpha_s": cm.alpha_s, "alpha_h": cm.alpha_h, "beta": cm.beta}
+    return args, kw, hops
+
+
+def check_playback_call(args, kw, label: str) -> None:
+    """B6 against its plain version on the card: the same bits, and the same
+    bits in a second run."""
+    got = playback_kernel.fabric_playback(*args, **kw)
+    again = playback_kernel.fabric_playback(*args, **kw)
+    torch.cuda.synchronize()
+    want = playback_ref.fabric_playback(*args, **kw)
+    same = all(torch.equal(a, w) for a, w in zip(got, want, strict=True))
+    stable = all(torch.equal(a, b) for a, b in zip(got, again, strict=True))
+    finite = all(bool(torch.isfinite(a).all()) for a in got)
+    line = (f"fabric_playback {label} (B {args[0].shape[0]}, S {args[0].shape[1]}, n "
+            f"{kw['n']}, C {kw['C']}) inputs {input_hash(*args)}: bit-identical to the plain "
+            f"version {same}, two runs {stable}, finite {finite}")
+    print(line)
+    if not (same and stable and finite):
+        raise AssertionError(f"B6 disagrees with its plain version: {line}")
+
+
+def check_playback() -> None:
+    """B6 against its plain version, bit for bit, on the deduped candidate
+    sets of the grid with seeded payloads and a zero-payload lane, for every
+    chunk count and delay."""
+    for n, r in PLAYBACK_GRID:
+        rng = np.random.default_rng(SEED + 100 * n + r)
+        lanes = [batchsim.BatchLane(schedule=lane.schedule,
+                                    m_bytes=SIM_M * float(rng.uniform(0.05, 2.0)))
+                 for lane in candidate_lanes(n, SIM_M, r)]
+        lanes.append(batchsim.BatchLane(schedule=lanes[0].schedule, m_bytes=0.0))
+        for C in PLAYBACK_CHUNKS:
+            for delta in PLAYBACK_DELTAS:
+                args, kw, _ = playback_inputs(lanes, PAPER_DEFAULT.replace(delta=delta), C)
+                check_playback_call(args, kw, f"n={n} r={r} delta={delta}")
+
+
+def playback_bound(hops: np.ndarray, kw: dict, clock_hz: float) -> tuple[float, str, str]:
+    """(least ms, "bytes" | "operations", how) for B6 on `hops` (B, S): the
+    tapes read and the three outputs written once at the HBM rate; the FP64
+    work (a max and an add a chunk service, n C sum(hops) services) at the
+    FP64 peak; and the longest lane's serial chain (sum(hops) C dependent
+    max-and-add pairs and a barrier a hop, DEPENDENT_CYCLES each, at the
+    SM's maximum clock)."""
+    n, C = kw["n"], kw["C"]
+    B, S = hops.shape
+    hops = np.maximum(hops, 0)
+    moved = B * S * (8 + 4 + 4 + 1) + 8 * B + 8 * (2 * B * n + B * S)
+    flops = 2 * n * C * int(hops.sum())
+    t_bytes = moved / H100_HBM_BYTES_S * 1e3
+    t_ops = flops / H100_F64_FLOP_S * 1e3
+    links = int(hops.sum(axis=1).max()) * (2 * C + 1)
+    t_chain = links * DEPENDENT_CYCLES / clock_hz * 1e3
+    how = (f"{moved} bytes {t_bytes:.6f} ms, {flops} FP64 FLOP {t_ops:.6f} ms, chain of "
+           f"{links} dependent links {t_chain:.6f} ms")
+    return max(t_bytes, t_ops, t_chain), ("bytes" if t_bytes >= max(t_ops, t_chain)
+                                          else "operations"), how
+
+
+def sm_clock_hz() -> float:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"], capture_output=True, text=True,
+                         check=True, timeout=60).stdout
+    return float(out.strip().splitlines()[0]) * 1e6
+
+
+def time_playback(args, kw, hops, clock_hz: float, label: str) -> dict:
+    """B6 (`ms`, `device_ms`) and its plain version on the card at one shape,
+    beside the bound; no single PyTorch call computes the playback."""
+    fns = {"ms": lambda: playback_kernel.fabric_playback(*args, **kw),
+           "plain_ms": lambda: playback_ref.fabric_playback(*args, **kw)}
+    fns["device_ms"] = fns["ms"]
+    t = time_in_turns(fns, {}, {"ms": 10, "device_ms": 10, "plain_ms": 1})
+    t["bound_ms"], t["bound_by"], how = playback_bound(hops, kw, clock_hz)
+    t["library_ms"] = t["library_device_ms"] = None
+    print(f"fabric_playback timing {label}: kernel_ms {t['ms']:.4f} device_ms "
+          f"{t['device_ms']:.4f} plain_ms {t['plain_ms']:.4f} library_ms none (no PyTorch "
+          f"call plays the tape) bound_ms {t['bound_ms']:.6f} (by {t['bound_by']}: {how})")
+    return t
+
+
+BENCH_SIM = Path(__file__).resolve().parent / "BENCH_sim_scale.json"
+
+
+def recorded_checksum(n: int):
+    """The completion checksum BENCH_sim_scale.json records for the tier at n
+    (the reference's XLA playback on a CPU), or None."""
+    if not BENCH_SIM.exists():
+        return None
+    rows = json.loads(BENCH_SIM.read_text())["rows"]
+    return next((row["completion_checksum"] for row in rows
+                 if row["tier"] in ("jax", "jax-scale") and row["n"] == n), None)
+
+
+def playback_tier(name: str, clock_hz: float) -> dict:
+    """One of the reference's tiers: B6 against its plain version, then the
+    path `batch_run(backend="torch")` with B6's launches counted (at the "jax"
+    tier beside `batch_run(backend="numpy")`, bit for bit), the checksum
+    beside the recorded one, and the timing."""
+    n, B, C, cap = SIM_TIERS[name]
+    cm = PAPER_DEFAULT.replace(delta=SIM_DELTA)
+    t0 = time.perf_counter()
+    lanes = tier_lanes(n, SIM_M, B, cap)
+    args, kw, hops = playback_inputs(lanes, cm, C)
+    print(f"fabric tier {name}: {len(lanes)} lanes of n {n}, C {C}, hop cap {cap}, sum(hops) "
+          f"{int(hops.sum())} (longest lane {int(hops.sum(axis=1).max())}), built in "
+          f"{time.perf_counter() - t0:.2f} s")
+    check_playback_call(args, kw, f"tier {name}")
+    numpy_s = None
+    if name == "jax":
+        t0 = time.perf_counter()
+        want = batchsim.batch_run(lanes, cm, chunks_per_msg=C, backend="numpy")
+        numpy_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    playback_kernel.fabric_playback.launches = 0
+    t0 = time.perf_counter()
+    got = batchsim.batch_run(lanes, cm, chunks_per_msg=C, backend="torch")
+    torch_s = time.perf_counter() - t0
+    launches = playback_kernel.fabric_playback.launches
+    if got.backend != "torch" or not got.certified.all() or launches != 1:
+        raise AssertionError(f"tier {name}: backend {got.backend}, certified "
+                             f"{int(got.certified.sum())} of {len(lanes)}, B6 launches {launches}")
+    if not (np.isfinite(got.completion).all() and got.node_done.shape == (len(lanes), n)):
+        raise AssertionError(f"tier {name}: completions not finite or of the wrong shape")
+    line = f"fabric tier {name}: batch_run torch {torch_s:.4f} s (B6 launches {launches})"
+    if numpy_s is not None:
+        same = all(np.array_equal(getattr(got, f), getattr(want, f))
+                   for f in ("node_done", "step_done", "completion"))
+        line += f", numpy {numpy_s:.4f} s on the host CPU, bit-identical {same}"
+        if not same:
+            raise AssertionError(f"tier {name}: the card's batch_run differs from NumPy's")
+    checksum, recorded = float(got.completion.sum()), recorded_checksum(n)
+    print(f"{line}; completion checksum {checksum!r} (BENCH_sim_scale.json {recorded!r}, "
+          f"equal {checksum == recorded})")
+    t = time_playback(args, kw, hops, clock_hz, f"tier {name}")
+    t.update(numpy_ms=None if numpy_s is None else numpy_s * 1e3, batch_run_ms=torch_s * 1e3)
+    return {"launches": launches, "shape": [len(lanes), int(hops.shape[1]), n, C],
+            "times": t}
+
+
+def playback_planner(clock_hz: float) -> dict:
+    """The planner's ocs-sim path: `Planner(sim_backend="torch")` plans each
+    collective at PLAN_NS with B6's launches counted; at the first n beside
+    `sim_backend="numpy"`, in turns (numpy, torch, torch, numpy), the same
+    plans bit for bit.  Times B6 at the a2a candidate set's shape (at the
+    second n once: its static candidate walks n - 1 hops) and returns the
+    first n's path for the kernels line."""
+    cm = PAPER_DEFAULT.replace(delta=SIM_DELTA)
+    out = {}
+    for n in PLAN_NS:
+        launches, secs = 0, {"numpy": [], "torch": []}
+        for kind in SIM_KINDS:
+            req = PlanRequest(kind=kind, n=n, m_bytes=SIM_M, cost_model=cm,
+                              fabric=FabricKind.OCS_SIM)
+            order = ("numpy", "torch", "torch", "numpy") if n == PLAN_NS[0] else ("torch",)
+            plans = {}
+            for i, backend in enumerate(order):
+                torch.cuda.synchronize()
+                if backend == "torch" and "torch" not in plans:
+                    playback_kernel.fabric_playback.launches = 0
+                t0 = time.perf_counter()
+                res = Planner(sim_backend=backend).plan(req)
+                secs[backend].append(time.perf_counter() - t0)
+                if backend == "torch" and "torch" not in plans:
+                    launches += playback_kernel.fabric_playback.launches
+                plans.setdefault(backend, res)
+                if i and (res.schedule.x, res.predicted_time) != \
+                        (plans[backend].schedule.x, plans[backend].predicted_time):
+                    raise AssertionError(f"plan {kind} n={n}: two {backend} plans differ")
+            got = plans["torch"]
+            line = (f"plan ocs-sim {kind} n={n}: x {''.join(map(str, got.schedule.x))} "
+                    f"{got.strategy} predicted {got.predicted_time!r}")
+            if "numpy" in plans:
+                want = plans["numpy"]
+                same = (got.schedule.x, got.strategy, got.predicted_time) == \
+                    (want.schedule.x, want.strategy, want.predicted_time) and \
+                    [a.predicted_time for a in got.alternatives] == \
+                    [a.predicted_time for a in want.alternatives]
+                line += f", equal to sim_backend numpy {same}"
+                if not same:
+                    raise AssertionError(f"plan {kind} n={n}: torch and numpy plans differ")
+            print(line)
+        want_launches = len(SIM_KINDS)
+        if launches != want_launches:
+            raise AssertionError(f"plan ocs-sim n={n}: B6 launches {launches}, expected "
+                                 f"{want_launches} (one a collective)")
+        print(f"plan ocs-sim n={n} (3 collectives, fresh planners, host clock): torch "
+              f"{[round(x, 4) for x in secs['torch']]} s" + (
+                  f", numpy {[round(x, 4) for x in secs['numpy']]} s" if secs["numpy"] else ""))
+        lanes = [batchsim.BatchLane(schedule=sched, m_bytes=SIM_M)
+                 for _, sched in schedules.candidate_schedules("a2a", n, SIM_M, cm)]
+        C = Planner().sim_chunks
+        args, kw, hops = playback_inputs(lanes, cm, C)
+        if n != PLAN_NS[0]:  # the static candidate's n - 1 hops: B6 alone, once
+            ms = time_ms(lambda: playback_kernel.fabric_playback(*args, **kw), iters=1, warmup=1)
+            print(f"fabric_playback timing plan a2a n={n} ({len(lanes)} lanes, C {C}, longest "
+                  f"lane {int(hops.sum(axis=1).max())} hops): kernel_ms {ms:.4f} bound_ms "
+                  f"{playback_bound(hops, kw, clock_hz)[0]:.6f}")
+            continue
+        check_playback_call(args, kw, f"plan a2a n={n}")
+        t = time_playback(args, kw, hops, clock_hz, f"plan a2a n={n}")
+        t.update(plan_torch_s=secs["torch"], plan_numpy_s=secs["numpy"])
+        out[n] = {"launches": launches, "shape": [len(lanes), int(hops.shape[1]), n, C],
+                  "times": t}
+    return out
+
+
+def playback_crossover() -> float:
+    """NumPy's `batch_run` against the card's, whole calls (certificates,
+    tapes, copies and host round trips included), median of three each, on
+    the deduped candidate sets at CROSSOVER_NS with the planner's 8 chunks.
+    Returns the certified work (C n sum(hops)) from which on the card was
+    faster at every larger size measured."""
+    cm = PAPER_DEFAULT.replace(delta=SIM_DELTA)
+    rows = []
+    for n in CROSSOVER_NS:
+        lanes = candidate_lanes(n, SIM_M)
+        secs = {"numpy": [], "torch": []}
+        for backend in ("numpy", "torch", "torch", "numpy", "numpy", "torch"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = batchsim.batch_run(lanes, cm, chunks_per_msg=8, backend=backend)
+            secs[backend].append(time.perf_counter() - t0)
+        hops = np.stack([batchsim.compile_tape(lane.schedule).arrays["hops"] for lane in lanes])
+        work = 8 * n * float(hops[res.certified].sum())
+        t_np, t_torch = (sorted(secs[b])[1] for b in ("numpy", "torch"))
+        rows.append((work, t_np, t_torch))
+        print(f"crossover n={n}: {len(lanes)} lanes, certified work {work:.4g}: numpy "
+              f"{t_np * 1e3:.3f} ms, torch {t_torch * 1e3:.3f} ms (host clock, median of 3)")
+    faster = [t_torch < t_np for _, t_np, t_torch in rows]
+    first = next((i for i in range(len(rows)) if all(faster[i:])), None)
+    crossover = float("inf") if first is None else rows[first][0]
+    print(f"crossover: the card's batch_run is faster from certified work {crossover:.4g} on "
+          f"(batchsim._AUTO_MIN_WORK is {batchsim._AUTO_MIN_WORK:.4g})")
+    return crossover
+
+
 def main() -> None:
     if sys.argv[1:] == ["--rank"]:  # one rank of the multi-card phase
         _rank_main()
@@ -1995,15 +2329,27 @@ def main() -> None:
         multi_card(min(4, count), train_losses["stablelm-3b"])
     else:
         print(f"multi-card phase: not run ({count} device)")
+    phase("10 fabric playback")
+    clock_hz = sm_clock_hz()
+    check_playback()
+    tiers = {name: playback_tier(name, clock_hz) for name in SIM_TIERS}
+    plan_paths = playback_planner(clock_hz)
+    playback_crossover()
 
-    sources = {"flash_attention_fwd": ("flash_attention_fwd.cu", "flash_attention/kernel.py:35"),
-               "flash_attention_bwd_dkv": ("flash_attention_bwd.cu", "flash_attention/kernel_bwd.py:48"),
-               "flash_attention_bwd_dq": ("flash_attention_bwd.cu", "flash_attention/kernel_bwd.py:92"),
-               "rg_lru_fwd": ("rg_lru.cu", "rg_lru/kernel.py:25"),
-               "wkv6_fwd": ("wkv6.cu", "wkv6/kernel.py:34"),
+    kernels_dir = "src/repro/kernels"
+    sources = {"flash_attention_fwd": ("flash_attention_fwd.cu",
+                                       f"{kernels_dir}/flash_attention/kernel.py:35"),
+               "flash_attention_bwd_dkv": ("flash_attention_bwd.cu",
+                                           f"{kernels_dir}/flash_attention/kernel_bwd.py:48"),
+               "flash_attention_bwd_dq": ("flash_attention_bwd.cu",
+                                          f"{kernels_dir}/flash_attention/kernel_bwd.py:92"),
+               "rg_lru_fwd": ("rg_lru.cu", f"{kernels_dir}/rg_lru/kernel.py:25"),
+               "wkv6_fwd": ("wkv6.cu", f"{kernels_dir}/wkv6/kernel.py:34"),
                # no pallas_call: the JAX ops' custom_vjp backward
-               "rg_lru_bwd": ("rg_lru.cu", "rg_lru/ops.py:24"),
-               "wkv6_bwd": ("wkv6_bwd.cu", "wkv6/ops.py:25")}
+               "rg_lru_bwd": ("rg_lru.cu", f"{kernels_dir}/rg_lru/ops.py:24"),
+               "wkv6_bwd": ("wkv6_bwd.cu", f"{kernels_dir}/wkv6/ops.py:25"),
+               # no pallas_call: the reference's jitted XLA playback
+               "fabric_playback": ("fabric_playback.cu", "src/repro/core/batchsim_jax.py:76")}
     # one entry per kernel and path: launches of that path's run, error and
     # times at the shape that path gives the kernel
     griffin, rwkv = serve_launches["recurrentgemma-9b"], serve_launches["rwkv6-3b"]
@@ -2052,6 +2398,13 @@ def main() -> None:
         *((f"serve rwkv6-3b {part}", "wkv6_fwd", case, rwkv[part],
            rec_errs[("wkv6_fwd", case)], rec_times[("wkv6_fwd", case)])
           for part, case in (("prefill", WKV_PREFILL), ("decode", WKV_DECODE))),
+        # B6 is bit-identical to its plain version wherever it is checked
+        *((f"batch_run tier {name}", "fabric_playback", tuple(tier["shape"]),
+           {"fabric_playback": tier["launches"]}, 0.0, tier["times"])
+          for name, tier in tiers.items()),
+        *((f"plan ocs-sim n={n}", "fabric_playback", tuple(path["shape"]),
+           {"fabric_playback": path["launches"]}, 0.0, path["times"])
+          for n, path in plan_paths.items()),
     ]
     print(f"launches: serve {serve_launches}, train {train_launches}")
     kernels = [{
@@ -2060,7 +2413,7 @@ def main() -> None:
         "shape": list(case),
         "route": "cuda",
         "source": f"src/repro_torch/kernels/csrc/{sources[name][0]}",
-        "replaces": f"src/repro/kernels/{sources[name][1]}",
+        "replaces": sources[name][1],
         "launches": launches[name],
         "max_abs_err": err,
         **times,

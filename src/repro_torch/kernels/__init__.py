@@ -8,6 +8,9 @@
                     replacing `_rg_lru_kernel`.
   wkv6            : the RWKV-6 data-dependent-decay recurrence (rwkv6-3b),
                     replacing `_wkv6_kernel`.
+  playback        : the certified fabric tape playback (B6, float64),
+                    replacing the reference's jitted XLA `batchsim_jax._kernel`
+                    (no `pallas_call`); `core.batchsim_torch` calls it.
 
 Each kernel's sources live in `csrc/` and are built with nvcc at first use
 (`_build.py`).  Every TPU kernel of the JAX package has its CUDA counterpart.

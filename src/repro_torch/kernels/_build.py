@@ -96,7 +96,7 @@ def build_log() -> str:
 
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    p, i, f, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_double
     fn = lib.flash_attention_fwd
     fn.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, f, i, i, i, p]
     fn.restype = i
@@ -117,5 +117,8 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     fn.restype = i
     fn = lib.wkv6_bwd
     fn.argtypes = [p, p, p, p, p, p, p, p, p, i, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, p]
+    fn.restype = i
+    fn = lib.fabric_playback  # the float64 scalars as doubles: a float would round them
+    fn.argtypes = [p, p, p, p, p, d, d, d, i, i, i, i, p, p, p, p, p]
     fn.restype = i
     return lib

@@ -1,9 +1,10 @@
 """The unified Planner: one entry point for all four collectives.
 
-A copy of `repro.planner.planner` for the port, with two paths left out:
-``ocs-sim`` scoring raises NotImplementedError (it needs `core/batchsim.py`,
-ROADMAP A8), and so does ``verify=True`` (it needs `analysis/verifier.py`,
+A copy of `repro.planner.planner` for the port, with one path left out:
+``verify=True`` raises NotImplementedError (it needs `analysis/verifier.py`,
 ROADMAP A12), so `default_planner()` is built with ``verify=False``.
+``ocs-sim`` scoring plays its candidates on the card's batch engine
+(``sim_backend="torch"``, kernel B6) in place of the reference's JAX one.
 
 Evaluates every candidate from the selected strategy families under the
 request's cost model and fabric, ranks them by the request's objective, and
@@ -20,11 +21,11 @@ Fabrics and scoring:
     reconfiguration stalls that the closed-form model cannot see.  The
     winner is the candidate the simulator ranks fastest, so it is never a
     schedule the simulator would rank worse than the analytic winner (which
-    is always in the candidate set).  The scoring call picks the JAX
-    ``jit``/``vmap`` engine automatically when jax is importable and the
-    candidate set is large enough to amortize it (``sim_backend="auto"``;
-    see docs/batch_engine.md), falling back to the NumPy engine otherwise —
-    scores are identical either way.  ``predicted_time`` and the
+    is always in the candidate set).  The scoring call picks the card's
+    playback (the CUDA kernel B6) automatically when a CUDA device is
+    present and the candidate set is large enough to amortize it
+    (``sim_backend="auto"``), and the NumPy engine otherwise — scores are
+    identical either way.  ``predicted_time`` and the
     alternatives' scores are simulated completions; ``breakdown`` stays the
     analytic sparse-delta decomposition for reporting.  Non-Bruck
     implementation candidates (the ring baseline) keep their analytic score
@@ -55,6 +56,7 @@ import json
 from typing import NamedTuple, Sequence
 
 from repro_torch.core import baselines
+from repro_torch.core.batchsim import batch_completion_times
 from repro_torch.core.schedules import Schedule, changed_links, static_schedule
 from repro_torch.core.simulator import (TimeBreakdown, allreduce_time,
                                   allreduce_time_overlap, collective_time,
@@ -90,11 +92,12 @@ class Planner:
     sim_chunks : chunks per message used by the ``ocs-sim`` event scoring
                  (the batch engine's MTU-like pipelining knob).
     sim_backend: batch-engine backend for ``ocs-sim`` scoring —
-                 ``"auto"`` (default: the JAX ``jit``/``vmap`` engine when
-                 jax is importable and the candidate set is large enough to
-                 amortize it, NumPy otherwise), ``"numpy"``, or ``"jax"``.
-                 Scores are identical across backends (the JAX kernel is
-                 bit-compatible on certified lanes); only wall time changes.
+                 ``"auto"`` (default: the card's playback when a CUDA
+                 device is present and the candidate set is large enough to
+                 amortize it, NumPy otherwise), ``"numpy"``, or ``"torch"``
+                 (the card; raises without one).  Scores are identical
+                 across backends (the CUDA kernel is bit-compatible on
+                 certified lanes); only wall time changes.
     verify     : statically verify every freshly-planned result
                  (`repro.analysis.verify_plan`) *before* it enters the plan
                  cache — a corrupt plan raises `VerificationError` instead
@@ -111,9 +114,9 @@ class Planner:
                  sim_backend: str = "auto", verify: bool = False):
         if cache_size < 0:
             raise ValueError(f"cache_size must be >= 0, got {cache_size}")
-        if sim_backend not in ("auto", "numpy", "jax"):
+        if sim_backend not in ("auto", "numpy", "torch"):
             raise ValueError(
-                f"sim_backend must be 'auto', 'numpy', or 'jax', "
+                f"sim_backend must be 'auto', 'numpy', or 'torch', "
                 f"got {sim_backend!r}")
         if verify:
             raise NotImplementedError(
@@ -222,9 +225,14 @@ class Planner:
     def _sim_scores(self, req: PlanRequest,
                     cands: list[Candidate]) -> dict[int, float]:
         """Batched event scores for every schedule candidate (ocs-sim)."""
-        raise NotImplementedError(
-            "fabric='ocs-sim' event scoring is not ported to PyTorch yet: it "
-            "needs core/batchsim.py (ROADMAP A8)")
+        idx = [i for i, c in enumerate(cands) if c.schedule is not None]
+        if not idx:
+            return {}
+        completions = batch_completion_times(
+            [cands[i].schedule for i in idx], req.m_bytes, req.cost_model,
+            overlap=req.overlap, chunks_per_msg=self.sim_chunks,
+            backend=self.sim_backend)
+        return {i: float(t) for i, t in zip(idx, completions, strict=True)}
 
     def _plan_collective(self, req: PlanRequest) -> PlanResult:
         cands: list[Candidate] = []
