@@ -138,8 +138,15 @@ Phases, in order; any failure raises and the script exits non-zero:
                its plain version on the card, bit for bit and over two runs:
                the deduped a2a / rs / ag candidate sets at n in {6, 12, 48,
                96, 97} and r in {2, 3} with seeded payloads and a
-               zero-payload lane, C in {1, 4, 8}, delta in {0, 1 ms}; then
-               the reference's sim_bench tiers, built as its `_jax_lanes`
+               zero-payload lane, C in {1, 4, 8}, delta in {0, 1 ms}; the
+               layout's own points (`launch_plan`): n = 1536 on 1, 2, 3,
+               4, 8 and 16 CTAs, n = 97 with its trains in registers,
+               shared and device memory on 1 and 5 CTAs (C = 3, 8, 20;
+               registers at 8), the plan's steps from one CTA to two (n =
+               1024 / 1025 at C = 16, 2048 / 2049 at 8, 4096 / 4097 at 2;
+               n = 1536 at C = 3 in shared memory), offsets far outside
+               [0, n) and hop counts of 0 and below; then the reference's
+               sim_bench tiers, built as its `_jax_lanes`
                builds them (n = 1536 x 256 lanes, C = 4, hop cap 300; n =
                8192 x 64, C = 2, cap 400; n = 32768 x 32, C = 2, cap 600):
                B6 against its plain version, and the path
@@ -151,19 +158,22 @@ Phases, in order; any failure raises and the script exits non-zero:
                `Planner(sim_backend="torch")` for a2a, rs and ag at n = 1536
                (the same plans, predicted times and alternatives' scores as
                `sim_backend="numpy"`, timed in turns) and at n = 32768, B6's
-               launches counted; B6 timed (`ms`, `device_ms`, the plain
-               version on the card) at each tier's and the planner's shape
-               beside its bound (the larger of the bytes at the HBM rate,
-               the FP64 work at the FP64 peak and the longest lane's serial
-               chain); and the crossover of whole `batch_run` calls, NumPy
-               against the card, on the candidate sets from n = 2 to 384
-               (C = 8), beside `batchsim._AUTO_MIN_WORK`.
+               launches counted, B6 against its plain version on the a2a
+               set at both; B6 timed (`ms`, `device_ms`, the plain version
+               on the card) at each tier's and the planner's shapes, with
+               its layout (CTAs a lane, threads, where the trains live, how
+               many clusters the card holds at once), beside its bound (the
+               larger of the bytes at the HBM rate, the FP64 work at the
+               FP64 peak and the longest lane's serial chain); and the
+               crossover of whole `batch_run` calls, NumPy against the
+               card, on the candidate sets from n = 2 to 384 (C = 8),
+               beside `batchsim._AUTO_MIN_WORK`.
 Then it prints the kernels' JSON line (one entry per kernel and path, each
 with the launches of that path's run and the numbers of the shape that path
-gives it; a served model's prefill and decode are two paths, each fabric tier
-and the planner's n = 1536 scoring are B6's paths), the card's name
-and power limit, and as its last line {"ok": true, "device": {...}}.  Imports
-nothing of JAX.
+gives it; a served model's prefill and decode are two paths, each fabric
+tier and the planner's scoring at n = 1536 and 32768 are B6's paths), the
+card's name and power limit, and as its last line {"ok": true, "device":
+{...}}.  Imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -1624,15 +1634,17 @@ def check_train_parity(arch: str, num_layers: int) -> float:
         raise AssertionError(f"{text}: backward launches {got}, expected {want}")
     if not math.isclose(losses[0], losses[1], rel_tol=TRAIN_LOSS_RTOL):
         raise AssertionError(f"card and CPU losses differ beyond rtol {TRAIN_LOSS_RTOL}")
-    worst = 0.0
+    worst, worst_leaf = 0.0, None
     for (name, pg), (_, pc) in zip(gpu_model.named_parameters(), cpu_model.named_parameters(),
                                    strict=True):
         rel = ((pg.grad.cpu() - pc.grad).norm() / pc.grad.norm().clamp_min(1e-30)).item()
-        worst = max(worst, rel)
+        if rel > worst:
+            worst, worst_leaf = rel, name
         if not rel <= TRAIN_GRAD_RTOL:
             raise AssertionError(f"gradient {name}: card vs CPU relative error {rel:.3e}")
     print(f"train parity {text} gradients: worst per-leaf ||card - cpu|| / ||cpu|| "
-          f"{worst:.3e} (tol {TRAIN_GRAD_RTOL}) over {len(list(cpu_model.parameters()))} leaves")
+          f"{worst:.3e} at {worst_leaf} (tol {TRAIN_GRAD_RTOL}) over "
+          f"{len(list(cpu_model.parameters()))} leaves")
     return worst
 
 
@@ -1976,6 +1988,14 @@ SIM_KINDS = ("a2a", "rs", "ag")
 PLAYBACK_GRID = [(n, r) for n in (6, 12, 48, 96, 97) for r in (2, 3)]
 PLAYBACK_CHUNKS = (1, 4, 8)
 PLAYBACK_DELTAS = (0.0, 1e-3)
+# B6's layout (`launch_plan`): forced cluster sizes at n = 1536; each place
+# of the trains, (comp, CTAs), at n = 97; the plan's steps from one CTA to
+# two and a C the register kernels do not take, (n, C, CTAs)
+PLAYBACK_CLUSTERS = (1, 2, 3, 4, 8, 16)
+PLAYBACK_PLACEMENTS = [(comp, cluster) for comp in ("registers", "shared", "global")
+                       for cluster in (1, 5)]
+PLAYBACK_STEPS = [(1024, 16, 1), (1025, 16, 2), (2048, 8, 1), (2049, 8, 2), (4096, 2, 1),
+                  (4097, 2, 2), (1536, 3, 1)]
 # the reference's tiers (benchmarks/sim_bench.py): n, lanes, chunks, hop cap;
 # "jax" is its NumPy-vs-XLA tier, the two others its "jax-scale" ones
 SIM_TIERS = {"jax": (1536, 256, 4, 300), "jax-scale 8192": (8192, 64, 2, 400),
@@ -2037,38 +2057,79 @@ def playback_inputs(lanes, cm, C: int):
     return args, kw, hops
 
 
-def check_playback_call(args, kw, label: str) -> None:
-    """B6 against its plain version on the card: the same bits, and the same
-    bits in a second run."""
-    got = playback_kernel.fabric_playback(*args, **kw)
-    again = playback_kernel.fabric_playback(*args, **kw)
+def check_playback_call(args, kw, label: str, plan=None) -> None:
+    """B6 (on `plan`, None: its own layout) against its plain version on the
+    card: the same bits, and the same bits in a second run."""
+    got = playback_kernel.fabric_playback(*args, **kw, _plan=plan)
+    again = playback_kernel.fabric_playback(*args, **kw, _plan=plan)
     torch.cuda.synchronize()
     want = playback_ref.fabric_playback(*args, **kw)
     same = all(torch.equal(a, w) for a, w in zip(got, want, strict=True))
     stable = all(torch.equal(a, b) for a, b in zip(got, again, strict=True))
     finite = all(bool(torch.isfinite(a).all()) for a in got)
+    plan = plan or playback_kernel.launch_plan(kw["n"], kw["C"])
     line = (f"fabric_playback {label} (B {args[0].shape[0]}, S {args[0].shape[1]}, n "
-            f"{kw['n']}, C {kw['C']}) inputs {input_hash(*args)}: bit-identical to the plain "
-            f"version {same}, two runs {stable}, finite {finite}")
+            f"{kw['n']}, C {kw['C']}; {plan.cluster} CTAs of {plan.threads}, trains in "
+            f"{plan.comp}) inputs {input_hash(*args)}: bit-identical to the plain version "
+            f"{same}, two runs {stable}, finite {finite}")
     print(line)
     if not (same and stable and finite):
         raise AssertionError(f"B6 disagrees with its plain version: {line}")
 
 
+def seeded_lanes(n: int, r: int, rng, hop_cap: int | None = None) -> list:
+    """The candidate set at (n, r) (those of at most `hop_cap` hops) with
+    seeded payloads, and a zero-payload lane."""
+    lanes = [batchsim.BatchLane(schedule=lane.schedule,
+                                m_bytes=SIM_M * float(rng.uniform(0.05, 2.0)))
+             for lane in candidate_lanes(n, SIM_M, r)
+             if hop_cap is None or sum(batchsim.compile_tape(lane.schedule).hops) <= hop_cap]
+    return lanes + [batchsim.BatchLane(schedule=lanes[0].schedule, m_bytes=0.0)]
+
+
 def check_playback() -> None:
-    """B6 against its plain version, bit for bit, on the deduped candidate
+    """B6 against its plain version, bit for bit: on the deduped candidate
     sets of the grid with seeded payloads and a zero-payload lane, for every
-    chunk count and delay."""
+    chunk count and delay; then at the layout's own points (PLAYBACK_CLUSTERS,
+    PLAYBACK_PLACEMENTS, PLAYBACK_STEPS) and on tapes with offsets outside
+    [0, n) and hop counts of 0 and below."""
     for n, r in PLAYBACK_GRID:
-        rng = np.random.default_rng(SEED + 100 * n + r)
-        lanes = [batchsim.BatchLane(schedule=lane.schedule,
-                                    m_bytes=SIM_M * float(rng.uniform(0.05, 2.0)))
-                 for lane in candidate_lanes(n, SIM_M, r)]
-        lanes.append(batchsim.BatchLane(schedule=lanes[0].schedule, m_bytes=0.0))
+        lanes = seeded_lanes(n, r, np.random.default_rng(SEED + 100 * n + r))
         for C in PLAYBACK_CHUNKS:
             for delta in PLAYBACK_DELTAS:
                 args, kw, _ = playback_inputs(lanes, PAPER_DEFAULT.replace(delta=delta), C)
                 check_playback_call(args, kw, f"n={n} r={r} delta={delta}")
+    cm = PAPER_DEFAULT.replace(delta=SIM_DELTA)
+    rng = np.random.default_rng(SEED + 1536)
+    args, kw, _ = playback_inputs(seeded_lanes(1536, 2, rng, hop_cap=300), cm, 4)
+    for cluster in PLAYBACK_CLUSTERS:
+        check_playback_call(args, kw, f"n=1536 on {cluster} CTAs",
+                            playback_kernel.launch_plan(1536, 4, cluster=cluster))
+    lanes = seeded_lanes(97, 3, rng)
+    for C in (3, 8, 20):
+        args, kw, _ = playback_inputs(lanes, cm, C)
+        for comp, cluster in PLAYBACK_PLACEMENTS:
+            if comp != "registers" or C in playback_kernel.REG_SLOTS:
+                check_playback_call(args, kw, f"n=97 trains in {comp} on {cluster} CTAs",
+                                    playback_kernel.launch_plan(97, C, cluster=cluster,
+                                                                comp=comp))
+    for n, C, cluster in PLAYBACK_STEPS:
+        args, kw, _ = playback_inputs(seeded_lanes(n, 2, rng, hop_cap=64), cm, C)
+        got = playback_kernel.launch_plan(n, C).cluster
+        if got != cluster:
+            raise AssertionError(f"launch_plan({n}, {C}) takes {got} CTAs, not {cluster}")
+        check_playback_call(args, kw, f"n={n} (the plan's {cluster} CTAs)")
+    n, B, S = 37, 5, 9
+    hops = rng.integers(-3, 6, (B, S))
+    hops[0] = 0                     # a lane that never hops
+    arrays = ((rng.uniform(1e3, 1e6, (B, S)), np.float64),
+              (rng.integers(-5 * n, 5 * n, (B, S)), np.int32), (hops, np.int32),
+              (rng.integers(0, 2, (B, S)), np.uint8), (rng.uniform(0.0, 1e-3, B), np.float64))
+    args = tuple(torch.from_numpy(np.ascontiguousarray(a, dtype=dt)).cuda() for a, dt in arrays)
+    for cluster in (1, 5):
+        kw = {"n": n, "C": 3, "alpha_s": cm.alpha_s, "alpha_h": cm.alpha_h, "beta": cm.beta}
+        check_playback_call(args, kw, f"offsets outside [0, n), hops <= 0, {cluster} CTAs",
+                            playback_kernel.launch_plan(n, 3, cluster=cluster))
 
 
 def playback_bound(hops: np.ndarray, kw: dict, clock_hz: float) -> tuple[float, str, str]:
@@ -2101,17 +2162,28 @@ def sm_clock_hz() -> float:
 
 
 def time_playback(args, kw, hops, clock_hz: float, label: str) -> dict:
-    """B6 (`ms`, `device_ms`) and its plain version on the card at one shape,
-    beside the bound; no single PyTorch call computes the playback."""
+    """B6 (`ms`, `device_ms`, median of three in turns) and its plain version
+    on the card at one shape (in turns too; once where one call of it walks
+    more than 4096 hops), beside the bound and B6's layout; no single
+    PyTorch call computes the playback."""
     fns = {"ms": lambda: playback_kernel.fabric_playback(*args, **kw),
            "plain_ms": lambda: playback_ref.fabric_playback(*args, **kw)}
     fns["device_ms"] = fns["ms"]
+    slow = int(hops.max()) > 4096
+    if slow:
+        plain = fns.pop("plain_ms")
     t = time_in_turns(fns, {}, {"ms": 10, "device_ms": 10, "plain_ms": 1})
+    if slow:
+        t["plain_ms"] = time_ms(plain, iters=1, warmup=0)
     t["bound_ms"], t["bound_by"], how = playback_bound(hops, kw, clock_hz)
     t["library_ms"] = t["library_device_ms"] = None
+    plan = playback_kernel.launch_plan(kw["n"], kw["C"])
+    t["layout"] = dict(dataclasses.asdict(plan),
+                       max_active_clusters=playback_kernel.max_active_clusters(plan, kw["C"]))
     print(f"fabric_playback timing {label}: kernel_ms {t['ms']:.4f} device_ms "
-          f"{t['device_ms']:.4f} plain_ms {t['plain_ms']:.4f} library_ms none (no PyTorch "
-          f"call plays the tape) bound_ms {t['bound_ms']:.6f} (by {t['bound_by']}: {how})")
+          f"{t['device_ms']:.4f} plain_ms {t['plain_ms']:.4f}{' (one call)' if slow else ''} "
+          f"library_ms none (no PyTorch call plays the tape) bound_ms {t['bound_ms']:.6f} "
+          f"(by {t['bound_by']}: {how}); layout {t['layout']}")
     return t
 
 
@@ -2178,9 +2250,9 @@ def playback_planner(clock_hz: float) -> dict:
     """The planner's ocs-sim path: `Planner(sim_backend="torch")` plans each
     collective at PLAN_NS with B6's launches counted; at the first n beside
     `sim_backend="numpy"`, in turns (numpy, torch, torch, numpy), the same
-    plans bit for bit.  Times B6 at the a2a candidate set's shape (at the
-    second n once: its static candidate walks n - 1 hops) and returns the
-    first n's path for the kernels line."""
+    plans bit for bit.  Holds B6 to its plain version and times it at each
+    n's a2a candidate set (its static candidate walks n - 1 hops), and
+    returns both paths for the kernels line."""
     cm = PAPER_DEFAULT.replace(delta=SIM_DELTA)
     out = {}
     for n in PLAN_NS:
@@ -2227,12 +2299,6 @@ def playback_planner(clock_hz: float) -> dict:
                  for _, sched in schedules.candidate_schedules("a2a", n, SIM_M, cm)]
         C = Planner().sim_chunks
         args, kw, hops = playback_inputs(lanes, cm, C)
-        if n != PLAN_NS[0]:  # the static candidate's n - 1 hops: B6 alone, once
-            ms = time_ms(lambda: playback_kernel.fabric_playback(*args, **kw), iters=1, warmup=1)
-            print(f"fabric_playback timing plan a2a n={n} ({len(lanes)} lanes, C {C}, longest "
-                  f"lane {int(hops.sum(axis=1).max())} hops): kernel_ms {ms:.4f} bound_ms "
-                  f"{playback_bound(hops, kw, clock_hz)[0]:.6f}")
-            continue
         check_playback_call(args, kw, f"plan a2a n={n}")
         t = time_playback(args, kw, hops, clock_hz, f"plan a2a n={n}")
         t.update(plan_torch_s=secs["torch"], plan_numpy_s=secs["numpy"])

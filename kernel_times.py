@@ -8,6 +8,8 @@ Run from the root of a checkout:
     python3 kernel_times.py --edit ko_pv           # a copy with one stage knocked out
     python3 kernel_times.py --host                 # also the B4 / B5 decode wrappers' host parts
     python3 kernel_times.py --only wkv6_fwd        # one kernel's shapes only
+    python3 kernel_times.py --only fabric_playback --src build/parent/src --edit ko_parent_gather
+    python3 kernel_times.py --only fabric_playback --plan 32768   # and the planner's latency
     python3 kernel_times.py --edit ko_v_tail --check  # B1's bf16 checks on a faulty copy
 
 It times, with `chip_smoke.py`'s inputs and timing function, the
@@ -15,13 +17,17 @@ flash-attention forward (B1) at the training shape and the two serving
 prefill shapes, the dK/dV (B2) and dQ (B3) backward at the training shape,
 the RG-LRU (B4) and WKV-6 (B5) recurrences at the serving prefill and
 decode shapes, their backward (B4', B5') at the training shapes, each in
-the dtype its path gives it, and the card's launch floor
-(`torch.cuda._sleep(0)`, always timed):
+the dtype its path gives it, the fabric playback (B6) at chip_smoke's phase
+10 shapes (the three tiers and the planner's a2a sets at n = 1536 and
+32768; in a tree whose wrapper takes a layout, also on one cluster size up
+where the plan's trains sit in registers on fewer than 16 CTAs), and the
+card's launch floor (`torch.cuda._sleep(0)`, always timed):
   ms         CUDA events around 20 queued calls; the wrapper's host work
              counts wherever it outlasts the kernel (chip_smoke's `ms`);
   device_ms  the same with the card held by a sleep kernel while the calls
              are queued: device time only (chip_smoke's `device_ms`).
-Each is the median of three rounds, taken in turns.  `--src` names
+Each is the median of three rounds, taken in turns (B6 where a lane walks
+more than 4096 hops: one call after one warm-up, not 20).  `--src` names
 the `src` directory whose `repro_torch` is timed, so that two trees are
 timed by the same code on the same card in one run.  `--edit` applies
 named edits (EDITS) to a copy of that tree's kernel sources under
@@ -29,10 +35,12 @@ build/kernel_times/ and times the copy: knock-outs of one stage of B1's bf16
 tensor-core loop, of one pass or one stage of a pass of B5's two-pass
 design, of the y store or the chain of B4's ring, of one pass or one part
 of B5''s chunked design (bf16), or of the da/db store or the copies of
-B4''s ring (their outputs are wrong; only their times mean something),
-and tuning variants (B4's ring with one stage: load, wait, compute; B5''s
-intra-chunk products with their decayed operand in one TF32 part, not
-two), and faults for
+B4''s ring, of the parent B6's hop barrier or its gather of another
+port's comp, of the redesigned B6's wait for pushed bytes, its DSMEM push
+or its maxima (their outputs are wrong; only their times mean something), and tuning variants (B4's ring with one stage: load,
+wait, compute; B5''s intra-chunk products with their decayed operand in
+one TF32 part, not two; B6's one-CTA lanes through the cluster exchange,
+its max as an integer compare), and faults for
 `--check` (ko_v_tail: V read as zeros in B1's partial last key tile).  `--check` runs, in place
 of the timings, `chip_smoke.py`'s check of B1 against its plain version at
 each of its bf16 cases, and prints each check's verdict: a fault that
@@ -47,7 +55,9 @@ ways to read the current stream, and each ctypes call that launches (the
 WKV-6 one, in a tree that sets it on every launch, also calls
 cudaFuncSetAttribute; the RG-LRU one never does). Each part is the median
 of 7 rounds of 200 calls, in microseconds a call. Exits non-zero without a
-CUDA card.
+CUDA card.  `--plan N` also times, on the host clock, a fresh planner's
+ocs-sim plan of a2a, rs and ag at n = N with the tree's B6 (chip_smoke's
+request: m = 4 MiB, delta = 1 ms), printed and in the JSON line's "plan_s".
 """
 from __future__ import annotations
 
@@ -67,6 +77,7 @@ BWD = "kernels/csrc/flash_attention_bwd.cu"
 WKV = "kernels/csrc/wkv6.cu"
 WKV_BWD = "kernels/csrc/wkv6_bwd.cu"
 LRU = "kernels/csrc/rg_lru.cu"
+B6 = "kernels/csrc/fabric_playback.cu"
 # name -> [(file under repro_torch/, text, replacement)]; each text must
 # appear exactly once.  ko_* take one stage out of B1's bf16 loop and keep
 # the operands it reads in use, so the compiler keeps the rest.
@@ -192,6 +203,35 @@ EDITS = {
 }
 
 
+# B6: in the first design (one CTA a lane; `--src` a tree of it), its barrier a hop
+# or its gather of C values of another port's comp through L2 (the arrival
+# becomes the port's own clock); in the redesign, the wait for a buffer's
+# pushed bytes or the DSMEM push (every push into the CTA's own buffer and
+# mbarrier at the same offset).  The redesign's relaxed cluster barrier, the
+# guard against pushing into a buffer still read, has no knock-out: without
+# it a push can land in the mbarrier's next phase, and the lane never ends.
+EDITS.update({
+    "ko_parent_barrier": [(B6, "      __syncthreads();\n      par ^= 1;", "      par ^= 1;")],
+    "ko_parent_gather": [(B6, "const double a = __dadd_rn(prev[c * static_cast<int64_t>(n) + q], "
+                              "alpha_h);", "const double a = __dadd_rn(f, alpha_h);")],
+    "ko_data_wait": [(B6, '"@!ready bra WAIT;\\n\\t}"', '"}"')],
+    "ko_dsmem_push": [(B6, "const uint32_t rank = target >> 16;",
+                       'uint32_t rank;\n    asm("mov.u32 %0, %%cluster_ctarank;" : "=r"(rank));')],
+    # ... or a chunk's max (f = arrival + tau)
+    "ko_pb_max": [(B6, "f[i] = __dadd_rn(later(f[i], a[i][c]), st.tau);",
+                   "f[i] = __dadd_rn(a[i][c], st.tau);")],
+    # tuning: a lane of one CTA through the cluster exchange (st.async,
+    # mbarriers), not plain stores and __syncthreads
+    "pb_k1_exchange": [(B6, "local(K == 1)", "local(false)")],
+    # tuning: the max as a compare of the bit patterns as integers (the same
+    # order for non-negative doubles), off the FP64 pipe
+    "pb_int_max": [(B6, "__device__ __forceinline__ double later(double f, double a) { return a > f ? a : f; }",
+                    "__device__ __forceinline__ double later(double f, double a) {\n"
+                    "  const long long x = __double_as_longlong(f), y = __double_as_longlong(a);\n"
+                    "  return __longlong_as_double(y > x ? y : x);\n}")],
+})
+
+
 def edited_copy(src: Path, names: list[str]) -> Path:
     """A copy of `src`'s repro_torch with the edits `names` applied, under
     build/kernel_times/<names>/ (its kernels build into build/kernel_times/build)."""
@@ -210,7 +250,8 @@ def edited_copy(src: Path, names: list[str]) -> Path:
 
 
 def cases(cs) -> list:
-    """(name, shape, call) of every kernel and shape timed, with chip_smoke's inputs."""
+    """(name, shape, call) of every kernel and shape timed but B6, with
+    chip_smoke's inputs."""
     out = []
     for case in (cs.TRAIN_FWD_CASE, cs.SERVE_CASE, cs.GRIFFIN_CASE):
         d, causal, window = case[5], case[6], case[7]
@@ -249,8 +290,37 @@ def cases(cs) -> list:
     return out
 
 
+def playback_cases(cs) -> list:
+    """(name, shape, call, calls a timing) of B6 at chip_smoke's phase 10
+    shapes, with its inputs; one cluster size up beside the plan's own where
+    the tree's wrapper takes a layout (`launch_plan`, `_plan`)."""
+    cm = cs.PAPER_DEFAULT.replace(delta=cs.SIM_DELTA)
+    sets = [(f"tier {name}", cs.tier_lanes(n, cs.SIM_M, B, cap), C)
+            for name, (n, B, C, cap) in cs.SIM_TIERS.items()]
+    for n in cs.PLAN_NS:
+        sets.append((f"plan a2a n={n}", [
+            cs.batchsim.BatchLane(schedule=sched, m_bytes=cs.SIM_M)
+            for _, sched in cs.schedules.candidate_schedules("a2a", n, cs.SIM_M, cm)],
+            cs.Planner().sim_chunks))
+    fn = cs.playback_kernel.fabric_playback
+    launch_plan = getattr(cs.playback_kernel, "launch_plan", None)  # none in the parent
+    out = []
+    for label, lanes, C in sets:
+        args, kw, hops = cs.playback_inputs(lanes, cm, C)
+        iters = 1 if int(hops.sum(axis=1).max()) > 4096 else 10
+        shape = (label, *hops.shape, kw["n"], C)
+        out.append(("fabric_playback", shape, lambda args=args, kw=kw: fn(*args, **kw), iters))
+        plan = launch_plan(kw["n"], C) if launch_plan else None
+        if plan and plan.comp == "registers" and plan.cluster < cs.playback_kernel.MAX_CLUSTER:
+            up = launch_plan(kw["n"], C, cluster=min(cs.playback_kernel.MAX_CLUSTER,
+                                                     2 * plan.cluster))
+            out.append((f"fabric_playback on {up.cluster} CTAs (plan {plan.cluster})", shape,
+                        lambda args=args, kw=kw, up=up: fn(*args, **kw, _plan=up), iters))
+    return out
+
+
 # the card's launch floor: an empty kernel, timed as the kernels are
-LAUNCH_FLOOR = ("launch_floor", (), lambda: torch.cuda._sleep(0))
+LAUNCH_FLOOR = ("launch_floor", (), lambda: torch.cuda._sleep(0), 20)
 
 
 def host_parts(cs) -> dict:
@@ -317,6 +387,26 @@ def host_parts(cs) -> dict:
     return out
 
 
+def plan_seconds(cs, n: int) -> dict:
+    """Seconds of `Planner(sim_backend="torch").plan` of a fresh planner, on
+    the host clock, for a2a, rs and ag at n with chip_smoke's ocs-sim request
+    (m = 4 MiB, delta = 1 ms), each once after one warm-up plan at n = 48."""
+    cm = cs.PAPER_DEFAULT.replace(delta=cs.SIM_DELTA)
+
+    def request(kind, size):
+        return cs.PlanRequest(kind=kind, n=size, m_bytes=cs.SIM_M, cost_model=cm,
+                              fabric=cs.FabricKind.OCS_SIM)
+    cs.Planner(sim_backend="torch").plan(request("a2a", 48))
+    out = {}
+    for kind in cs.SIM_KINDS:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cs.Planner(sim_backend="torch").plan(request(kind, n))
+        out[kind] = time.perf_counter() - t0
+        print(f"plan ocs-sim {kind} n={n}: {out[kind]:.4f} s (host clock, fresh planner)")
+    return out
+
+
 def check(cs, src: Path, edits: list[str]) -> None:
     """chip_smoke's check of B1 against its plain version at each of its bf16
     cases, on this tree: prints each check's verdict and a JSON line
@@ -345,6 +435,8 @@ def main() -> None:
                         help="also time the parts of the decode wrappers' host work")
     parser.add_argument("--check", action="store_true",
                         help="run chip_smoke's bf16 checks of B1 instead of timing")
+    parser.add_argument("--plan", type=int, action="append", default=[],
+                        help="also time the planner's ocs-sim plans at this n (repeatable)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("kernel_times: no CUDA device; this script runs only on the card")
@@ -365,23 +457,30 @@ def main() -> None:
         check(cs, src, args.edit)
         return
     runs: dict = {}
-    timed = [case for case in cases(cs) if not args.only or case[0].split()[0] in args.only]
+    timed = []
+    if not args.only or set(args.only) - {"fabric_playback"}:
+        timed += [(*case, 20) for case in cases(cs)
+                  if not args.only or case[0].split()[0] in args.only]
+    if not args.only or "fabric_playback" in args.only:
+        timed += playback_cases(cs)
     timed.append(LAUNCH_FLOOR)
     for _ in range(3):
-        for i, (_, _, fn) in enumerate(timed):
+        for i, (_, _, fn, iters) in enumerate(timed):
             for key, hold in (("ms", False), ("device_ms", True)):
-                runs.setdefault((i, key), []).append(cs.time_ms(fn, hold=hold))
+                runs.setdefault((i, key), []).append(
+                    cs.time_ms(fn, iters=iters, warmup=1 if iters == 1 else 3, hold=hold))
     times = []
-    for i, (name, shape, _) in enumerate(timed):
+    for i, (name, shape, _, _) in enumerate(timed):
         entry = {"name": name, "shape": list(shape),
                  **{key: sorted(runs[(i, key)])[1] for key in ("ms", "device_ms")}}
         times.append(entry)
         print(f"{name} {shape}: ms {entry['ms']:.4f} device_ms {entry['device_ms']:.4f}")
     host_us = host_parts(cs) if args.host else None
+    plans = {n: plan_seconds(cs, n) for n in args.plan}
     card = cs.nvidia_smi()
     print(card)
     print(json.dumps({"src": str(src), "edits": args.edit, "card": card, "times": times,
-                      "host_us": host_us}))
+                      "host_us": host_us, "plan_s": plans}))
 
 
 if __name__ == "__main__":

@@ -50,15 +50,17 @@ Backends.  ``batch_run(..., backend=...)`` picks the playback engine for the
   - ``"numpy"`` (default): the `_play` loop below — exact, guarded, no
     dependencies beyond NumPy.
   - ``"torch"``: certified lanes are played on the card by the hand-written
-    CUDA kernel behind `repro_torch.core.batchsim_torch` (one CTA a lane,
-    float64, bit-identical to `_play`); uncertified lanes keep the guarded
+    CUDA kernel behind `repro_torch.core.batchsim_torch` (a lane on chip,
+    on a cluster of up to 16 CTAs, at most `MAX_PORTS` ports; float64,
+    bit-identical to `_play`); uncertified lanes keep the guarded
     NumPy path and its scalar-oracle fallback.  Requires ``certify=True`` —
     the kernel is guard-free, so only proven-exact lanes may enter it.
     ``device`` names where it plays: None is the card (raising without
     one), ``"cpu"`` the kernel's plain PyTorch version.
   - ``"auto"``: ``"torch"`` when a CUDA device is present (and ``device``
-    does not ask for the CPU), some lane is certified, and the certified
-    work clears `_AUTO_MIN_WORK`; ``"numpy"`` otherwise.  This is what the
+    does not ask for the CPU), some lane is certified, the certified work
+    clears `_AUTO_MIN_WORK` and n is within the kernel's `MAX_PORTS`;
+    ``"numpy"`` otherwise.  This is what the
     planner's ``fabric="ocs-sim"`` scoring uses.
   - ``"jax"`` is the reference's XLA engine and raises here.
 
@@ -515,7 +517,7 @@ def _resolve_backend(backend: str, *, certify: bool, certified: np.ndarray,
     *this* batch is certified, since there would be nothing for the kernel
     to do.  "auto" additionally requires a CUDA device and the certified
     work to clear `_AUTO_MIN_WORK`, so small batches keep NumPy's lower
-    fixed cost.
+    fixed cost, and n within the kernel's `MAX_PORTS` (its clocks on chip).
     """
     if backend == "jax":
         raise ValueError(
@@ -536,9 +538,11 @@ def _resolve_backend(backend: str, *, certify: bool, certified: np.ndarray,
     if backend == "torch":
         return "torch" if bool(certified.any()) else "numpy"
     # auto: opt in only when the card exists and the certified work amortizes it
+    from repro_torch.kernels.playback.kernel import MAX_PORTS
+
     from .batchsim_torch import cuda_available
 
-    if not cuda_available(device) or not bool(certified.any()):
+    if not cuda_available(device) or not bool(certified.any()) or n > MAX_PORTS:
         return "numpy"
     work = float(C) * n * float(hops[certified].sum())
     return "torch" if work >= _AUTO_MIN_WORK else "numpy"

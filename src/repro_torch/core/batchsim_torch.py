@@ -8,8 +8,9 @@ Here the same playback is the hand-written CUDA kernel B6
   - the `ScheduleTape` stacks (``nb_step`` / ``g_step`` / ``hops`` /
     ``changed``) and the per-lane ``delta_eff`` are copied to the device
     once a batch,
-  - one CTA plays one lane: the steps in order, its own hop counts, the
-    chunks of every port,
+  - a lane plays on chip, on a cluster of up to 16 CTAs (the wrapper's
+    `launch_plan`): the steps in order, its own hop counts, the chunks of
+    every port, the lanes with the most hops launched first,
   - the results come back as NumPy float64 arrays in lane order.
 
 Soundness gate.  The kernel has *no* canonical-order guards and *no* skew
@@ -25,8 +26,8 @@ bit-identical to both.
 
 The reference's ``max_buckets`` / ``min_bucket_size`` are gone: they sorted
 lanes into buckets only to shorten `vmap`'s ``while_loop``, which runs every
-lane through the longest lane's hop count.  A CTA a lane walks its own hop
-counts, so there is nothing to pad and nothing to bucket.  Its
+lane through the longest lane's hop count.  Each lane's CTAs walk its own
+hop counts, so there is nothing to pad and nothing to bucket.  Its
 ``compile_stats`` (XLA's trace count) has no counterpart either: the
 wrapper's ``fabric_playback.launches`` counts the kernel's launches.
 """

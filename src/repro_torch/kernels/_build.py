@@ -119,6 +119,9 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     fn.argtypes = [p, p, p, p, p, p, p, p, p, i, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, p]
     fn.restype = i
     fn = lib.fabric_playback  # the float64 scalars as doubles: a float would round them
-    fn.argtypes = [p, p, p, p, p, d, d, d, i, i, i, i, p, p, p, p, p]
+    fn.argtypes = [p, p, p, p, p, p, d, d, d, i, i, i, i, i, i, i, i, i, i, p, p, p, p, p]
+    fn.restype = i
+    fn = lib.fabric_playback_max_clusters
+    fn.argtypes = [i, i, i, i, i, p]
     fn.restype = i
     return lib

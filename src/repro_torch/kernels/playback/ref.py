@@ -41,7 +41,9 @@ def fabric_playback(nb, g, hops, changed, delta_eff, *, n: int, C: int,
         F = F + torch.where(changed[:, k], delta_eff, zero)[:, None]
         inj = recv + alpha_s
         h = hops[:, k]
-        tau = ((nb[:, k] / C) * beta)[:, None]
+        # a tensor divisor: CUDA's division by a host scalar multiplies by
+        # its reciprocal, which is not NumPy's quotient where C is no power of 2
+        tau = ((nb[:, k] / torch.full_like(nb[:, k], C)) * beta)[:, None]
         gather_idx = torch.remainder(ports - g[:, k, None].long(), n)
         gather_idx3 = gather_idx[:, :, None].expand(B, n, C)
         arr = inj[:, :, None].expand(B, n, C)

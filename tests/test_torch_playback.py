@@ -3,8 +3,11 @@ version, and the card's `batch_run` against the NumPy engine.
 
 This file imports no JAX, so it runs on a machine with a card and no JAX:
 ``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_playback.py``.
-Its CPU parity with the reference is `tests/test_torch_fabric.py`.
+Its CPU parity with the reference is `tests/test_torch_fabric.py`; the
+kernel's layout is pinned on the CPU by `tests/test_torch_playback_layout.py`.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -65,6 +68,95 @@ def test_cuda_playback_equals_plain_bit_for_bit(n, r):
         want = playback_ref.fabric_playback(*t, **kw)
         for a, b, w in zip(got, again, want, strict=True):
             assert a.dtype == torch.float64 and torch.equal(a, w) and torch.equal(a, b)
+
+
+def _same_as_plain_twice(t, kw, plan=None):
+    """B6 on `plan` (None: its own) gives the plain version's bits, twice,
+    and launches once a call."""
+    before = playback_kernel.fabric_playback.launches
+    got = playback_kernel.fabric_playback(*t, **kw, _plan=plan)
+    again = playback_kernel.fabric_playback(*t, **kw, _plan=plan)
+    assert playback_kernel.fabric_playback.launches == before + 2
+    want = playback_ref.fabric_playback(*t, **kw)
+    for a, b, w in zip(got, again, want, strict=True):
+        assert a.dtype == torch.float64 and torch.equal(a, w) and torch.equal(a, b), plan
+
+
+def _kw(n, C):
+    cm = PAPER_DEFAULT
+    return {"n": n, "C": C, "alpha_s": cm.alpha_s, "alpha_h": cm.alpha_h, "beta": cm.beta}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cluster", [1, 2, 3, 4, 8, 16])
+def test_cuda_playback_on_every_cluster_size(cluster):
+    """n = 1536 (the "jax" tier's n), its candidates of at most 300 hops, C =
+    4, on 1 to 16 CTAs (pushes across every CTA boundary; 1536 is no
+    multiple of 3 CTAs' threads), and n = 97 with its trains in registers,
+    shared and device memory on the same CTAs (registers only at C = 8, a
+    power of two)."""
+    _need_cuda()
+    rng = np.random.default_rng(1536 + cluster)
+    lanes = [lane for lane in _lanes(1536, 2, rng)
+             if sum(batchsim.compile_tape(lane.schedule).hops) <= 300]
+    t = _tapes(lanes, 1536, rng, "cuda")
+    _same_as_plain_twice(t, _kw(1536, 4), playback_kernel.launch_plan(1536, 4, cluster=cluster))
+    t = _tapes(_lanes(97, 3, rng), 97, rng, "cuda")
+    for comp in playback_kernel.PLACEMENTS:
+        for C in (3, 8, 20):
+            if comp == "registers" and C not in playback_kernel.REG_SLOTS:
+                continue
+            _same_as_plain_twice(t, _kw(97, C), playback_kernel.launch_plan(
+                97, C, cluster=cluster, comp=comp))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,C,cluster", [(1024, 16, 1), (1025, 16, 2), (2048, 8, 1),
+                                         (2049, 8, 2), (4096, 2, 1), (4097, 2, 2), (97, 20, 1),
+                                         (1536, 3, 1)])
+def test_cuda_playback_at_the_plans_thresholds(n, C, cluster):
+    """Where the plan goes from one CTA to two (and the memory kernel for C
+    over 16 or no power of two): the candidates of at most 64 hops, the
+    plan's own layout."""
+    _need_cuda()
+    rng = np.random.default_rng(n + C)
+    lanes = [lane for lane in _lanes(n, 2, rng)
+             if sum(batchsim.compile_tape(lane.schedule).hops) <= 64]
+    assert playback_kernel.launch_plan(n, C).cluster == cluster
+    _same_as_plain_twice(_tapes(lanes, n, rng, "cuda"), _kw(n, C))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cluster", [1, 5])
+def test_cuda_playback_takes_any_offset_and_no_or_negative_hops(cluster):
+    """Offsets far outside [0, n) both ways, hop counts of 0 and below, a lane
+    that never hops: the plain version's bits."""
+    _need_cuda()
+    rng = np.random.default_rng(43 + cluster)
+    n, B, S = 37, 5, 9
+    hops = rng.integers(-3, 6, (B, S))
+    hops[0] = 0
+    arrays = (rng.uniform(1e3, 1e6, (B, S)), rng.integers(-5 * n, 5 * n, (B, S)), hops,
+              rng.integers(0, 2, (B, S)).astype(bool), rng.uniform(0.0, 1e-3, B))
+    t = [torch.from_numpy(a).to("cuda") for a in arrays]
+    for C in (1, 3):
+        _same_as_plain_twice(t, _kw(n, C), playback_kernel.launch_plan(n, C, cluster=cluster))
+
+
+@pytest.mark.cuda
+def test_cuda_refused_launch_raises():
+    """A layout the card refuses (shared memory past the limit, a cluster of
+    32) raises and counts no launch; there is no other path."""
+    _need_cuda()
+    rng = np.random.default_rng(3)
+    t = _tapes(_lanes(12, 2, rng), 12, rng, "cuda")
+    plan = playback_kernel.launch_plan(12, 4)
+    before = playback_kernel.fabric_playback.launches
+    for bad in (dataclasses.replace(plan, smem_bytes=playback_kernel.SMEM_LIMIT + 8),
+                dataclasses.replace(plan, cluster=32, slots=1)):
+        with pytest.raises(RuntimeError, match="launch failed"):
+            playback_kernel.fabric_playback(*t, **_kw(12, 4), _plan=bad)
+    assert playback_kernel.fabric_playback.launches == before
 
 
 @pytest.mark.cuda
