@@ -155,11 +155,14 @@ Phases, in order; any failure raises and the script exits non-zero:
                step_done and completion, every lane certified), each
                completion checksum printed beside the one
                BENCH_sim_scale.json records; the planner's ocs-sim path,
-               `Planner(sim_backend="torch")` for a2a, rs and ag at n = 1536
-               (the same plans, predicted times and alternatives' scores as
-               `sim_backend="numpy"`, timed in turns) and at n = 32768, B6's
-               launches counted, B6 against its plain version on the a2a
-               set at both; B6 timed (`ms`, `device_ms`, the plain version
+               the default `Planner()` (it verifies each plan on the host,
+               and "auto" plays the candidates on the card) for a2a, rs and
+               ag at n = 1536 and 32768, in turns with `Planner(verify=False)`
+               and at n = 1536 with `sim_backend="numpy"` (the same plans,
+               `to_dict()` with predicted times and the alternatives' scores,
+               every way), B6's launches counted, the plan latency both ways
+               and `verify_plan` alone (the verifier's caches cleared before
+               each), B6 against its plain version on the a2a set at both; B6 timed (`ms`, `device_ms`, the plain version
                on the card) at each tier's and the planner's shapes, with
                its layout (CTAs a lane, threads, where the trains live, how
                many clusters the card holds at once), beside its bound (the
@@ -168,10 +171,31 @@ Phases, in order; any failure raises and the script exits non-zero:
                crossover of whole `batch_run` calls, NumPy against the
                card, on the candidate sets from n = 2 to 384 (C = 8),
                beside `batchsim._AUTO_MIN_WORK`.
+ 11. checkpointed training restart, workloads - stablelm-3b and rwkv6-3b at
+               full width cut to 2 layers (bf16, full remat, grad_sync
+               "bridge", 8 x 512) through `train()`: 4 straight steps; 2
+               steps that save a checkpoint (`checkpoint_every=2`) into a
+               temporary directory; a fresh `train()` on that directory that
+               resumes and runs steps 3-4, its launches counted a step
+               (stablelm-3b B1 4, B2 2, B3 2, tensor-core; rwkv6-3b B5 4
+               two-pass, B5' 2 chunked); the resumed losses equal the
+               straight run's at rtol 1e-4, their bits and the final
+               parameters' compared and printed, with the checkpoint's bytes
+               and its save and restore seconds; the directory is deleted.
+               Then the workloads (NumPy on the host, as the reference's): one
+               grid point of each of BENCH_trace.json, BENCH_online.json,
+               BENCH_faults.json and BENCH_tenancy.json re-derived by the port
+               and held to the committed row at 1e-12 relative, with the
+               benches' gates there (carryover <= cold and <= static, online
+               within the regret bound, recovery <= restart and bit-identical,
+               port-partition isolation 1.0), and the plan service answering
+               online_bench's storm twice (hits, misses and windows the
+               committed row's; hot plans/s printed).
 Then it prints the kernels' JSON line (one entry per kernel and path, each
 with the launches of that path's run and the numbers of the shape that path
 gives it; a served model's prefill and decode are two paths, each fabric
-tier and the planner's scoring at n = 1536 and 32768 are B6's paths), the
+tier and the planner's verified scoring at n = 1536 and 32768 are B6's
+paths, and phase 11's resumed runs are paths of B1, B2, B3, B5 and B5'), the
 card's name and power limit, and as its last line {"ok": true, "device":
 {...}}.  Imports nothing of JAX.
 """
@@ -186,10 +210,12 @@ import json
 import math
 import os
 import re
+import shutil
 import signal
 import socket
 import subprocess
 import sys
+import tempfile
 import time
 import zlib
 from pathlib import Path
@@ -200,8 +226,11 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch import configs  # noqa: E402  (fails outside a checkout)
-from repro_torch.core import PAPER_DEFAULT, batchsim, schedules  # noqa: E402
-from repro_torch.core.jsonio import FabricKind  # noqa: E402
+from repro_torch.analysis import clear_verifier_caches, verify_plan  # noqa: E402
+from repro_torch import workloads  # noqa: E402
+from repro_torch.core import PAPER_DEFAULT, FabricSim, batchsim, schedules  # noqa: E402
+from repro_torch.core.faults import FaultSpec, FaultTimeline  # noqa: E402
+from repro_torch.core.jsonio import FabricKind, SharingMode  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as flash_kernel  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel_bwd as flash_bwd  # noqa: E402
@@ -1697,6 +1726,27 @@ def check_tensor_core_launches(path: str) -> None:
                              f"tensor-core variant: {counts}")
 
 
+def check_train_launches(path: str, kinds, steps: int, launches: dict, designs: dict) -> dict:
+    """The launch counts of `steps` bf16 training steps of layers `kinds` at
+    the training shape, checked; returns the counts a step."""
+    attn = sum(k in ("attn", "local") for k in kinds)
+    rglru, rwkv = kinds.count("rglru"), kinds.count("rwkv6")
+    per_step = {"flash_attention_fwd": 2 * attn,   # forward + remat recompute
+                "flash_attention_bwd_dkv": attn, "flash_attention_bwd_dq": attn,
+                "rg_lru_fwd": 2 * rglru, "wkv6_fwd": 2 * rwkv,
+                "rg_lru_bwd": rglru, "wkv6_bwd": rwkv}
+    want = {k: v * steps for k, v in per_step.items()}
+    # every B4 call in the ring (T = 512), every B5 call two-pass (bf16), and
+    # every B5' call chunked (bf16), from the forward's chunk-entry states
+    want_designs = {"rg_lru_fwd": {"launches_step": 0},
+                    "wkv6_fwd": {"launches_chunked": want["wkv6_fwd"], "launches_step": 0},
+                    "wkv6_bwd": {"launches_chunked": want["wkv6_bwd"], "launches_entry": 0}}
+    if launches != want or designs != want_designs:
+        raise AssertionError(f"{path}: launches {launches}, designs {designs}; "
+                             f"expected {want}, {want_designs}")
+    return per_step
+
+
 def train_path(arch: str, num_layers: int | None) -> tuple[dict, list[float]]:
     """A main path: `arch` at its full published config (cut to `num_layers`
     where given, full width) trains TRAIN_STEPS steps through `train()`.
@@ -1726,21 +1776,7 @@ def train_path(arch: str, num_layers: int | None) -> tuple[dict, list[float]]:
     check_tensor_core_launches(f"train {arch}")
     peak = torch.cuda.max_memory_allocated()
     kinds = cfg.layer_kinds
-    attn = sum(k in ("attn", "local") for k in kinds)
-    rglru, rwkv = kinds.count("rglru"), kinds.count("rwkv6")
-    per_step = {"flash_attention_fwd": 2 * attn,   # forward + remat recompute
-                "flash_attention_bwd_dkv": attn, "flash_attention_bwd_dq": attn,
-                "rg_lru_fwd": 2 * rglru, "wkv6_fwd": 2 * rwkv,
-                "rg_lru_bwd": rglru, "wkv6_bwd": rwkv}
-    want = {k: v * TRAIN_STEPS for k, v in per_step.items()}
-    # every B4 call in the ring (T = 512), every B5 call two-pass (bf16), and
-    # every B5' call chunked (bf16), from the forward's chunk-entry states
-    want_designs = {"rg_lru_fwd": {"launches_step": 0},
-                    "wkv6_fwd": {"launches_chunked": want["wkv6_fwd"], "launches_step": 0},
-                    "wkv6_bwd": {"launches_chunked": want["wkv6_bwd"], "launches_entry": 0}}
-    if launches != want or designs != want_designs:
-        raise AssertionError(f"train {arch}: launches {launches}, designs {designs}; "
-                             f"expected {want}, {want_designs}")
+    per_step = check_train_launches(f"train {arch}", kinds, TRAIN_STEPS, launches, designs)
     if len(losses) != TRAIN_STEPS or not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"losses not finite: {losses}")
     dts = [float(re.search(r"dt ([0-9.]+)s", line).group(1)) for line in lines]
@@ -2246,62 +2282,83 @@ def playback_tier(name: str, clock_hz: float) -> dict:
             "times": t}
 
 
+# the planner's arms on the ocs-sim path: the default Planner() verifies each
+# plan on the host and (sim_backend "auto") plays its candidates on the card
+PLANNER_ARMS = {"verified": dict, "unverified": lambda: {"verify": False},
+                "numpy": lambda: {"sim_backend": "numpy"}}
+
+
 def playback_planner(clock_hz: float) -> dict:
-    """The planner's ocs-sim path: `Planner(sim_backend="torch")` plans each
-    collective at PLAN_NS with B6's launches counted; at the first n beside
-    `sim_backend="numpy"`, in turns (numpy, torch, torch, numpy), the same
-    plans bit for bit.  Holds B6 to its plain version and times it at each
-    n's a2a candidate set (its static candidate walks n - 1 hops), and
-    returns both paths for the kernels line."""
+    """The planner's ocs-sim path: the default `Planner()` (verified, B6 on
+    the card) plans each collective at PLAN_NS with B6's launches counted, in
+    turns with `Planner(verify=False)` (verified, unverified, unverified,
+    verified) and at the first n with `sim_backend="numpy"` around them; every
+    plan of a collective is the same (`to_dict()`: schedule, predicted time,
+    breakdown and the alternatives' scores).  The verifier's caches are
+    cleared before each plan, and `verify_plan` is timed alone on the plan
+    (caches cleared).  Holds B6 to its plain version and times it at each n's
+    a2a candidate set (its static candidate walks n - 1 hops), and returns
+    both paths for the kernels line."""
     cm = PAPER_DEFAULT.replace(delta=SIM_DELTA)
     out = {}
     for n in PLAN_NS:
-        launches, secs = 0, {"numpy": [], "torch": []}
+        launches = 0
+        secs = {arm: [] for arm in PLANNER_ARMS}
+        verify_s = []
         for kind in SIM_KINDS:
             req = PlanRequest(kind=kind, n=n, m_bytes=SIM_M, cost_model=cm,
                               fabric=FabricKind.OCS_SIM)
-            order = ("numpy", "torch", "torch", "numpy") if n == PLAN_NS[0] else ("torch",)
+            order = ("verified", "unverified", "unverified", "verified")
+            if n == PLAN_NS[0]:
+                order = ("numpy", *order, "numpy")
             plans = {}
-            for i, backend in enumerate(order):
+            for arm in order:
+                clear_verifier_caches()
                 torch.cuda.synchronize()
-                if backend == "torch" and "torch" not in plans:
+                first = arm == "verified" and arm not in plans
+                if first:
                     playback_kernel.fabric_playback.launches = 0
                 t0 = time.perf_counter()
-                res = Planner(sim_backend=backend).plan(req)
-                secs[backend].append(time.perf_counter() - t0)
-                if backend == "torch" and "torch" not in plans:
+                res = Planner(**PLANNER_ARMS[arm]()).plan(req)
+                torch.cuda.synchronize()
+                secs[arm].append(time.perf_counter() - t0)
+                if first:
                     launches += playback_kernel.fabric_playback.launches
-                plans.setdefault(backend, res)
-                if i and (res.schedule.x, res.predicted_time) != \
-                        (plans[backend].schedule.x, plans[backend].predicted_time):
-                    raise AssertionError(f"plan {kind} n={n}: two {backend} plans differ")
-            got = plans["torch"]
-            line = (f"plan ocs-sim {kind} n={n}: x {''.join(map(str, got.schedule.x))} "
-                    f"{got.strategy} predicted {got.predicted_time!r}")
-            if "numpy" in plans:
-                want = plans["numpy"]
-                same = (got.schedule.x, got.strategy, got.predicted_time) == \
-                    (want.schedule.x, want.strategy, want.predicted_time) and \
-                    [a.predicted_time for a in got.alternatives] == \
-                    [a.predicted_time for a in want.alternatives]
-                line += f", equal to sim_backend numpy {same}"
-                if not same:
-                    raise AssertionError(f"plan {kind} n={n}: torch and numpy plans differ")
-            print(line)
+                if plans and res.to_dict() != next(iter(plans.values())).to_dict():
+                    raise AssertionError(f"plan {kind} n={n}: the {arm} plan differs from "
+                                         f"the {next(iter(plans))} one")
+                plans.setdefault(arm, res)
+            got = plans["verified"]
+            clear_verifier_caches()
+            t0 = time.perf_counter()
+            found = verify_plan(got)
+            verify_s.append(time.perf_counter() - t0)
+            if found:
+                raise AssertionError(f"plan {kind} n={n}: verify_plan found {found}")
+            print(f"plan ocs-sim {kind} n={n}: x {''.join(map(str, got.schedule.x))} "
+                  f"{got.strategy} predicted {got.predicted_time!r}, {len(got.alternatives)} "
+                  f"alternatives; verified, unverified"
+                  f"{' and sim_backend numpy' if 'numpy' in plans else ''} plans equal")
         want_launches = len(SIM_KINDS)
         if launches != want_launches:
             raise AssertionError(f"plan ocs-sim n={n}: B6 launches {launches}, expected "
                                  f"{want_launches} (one a collective)")
-        print(f"plan ocs-sim n={n} (3 collectives, fresh planners, host clock): torch "
-              f"{[round(x, 4) for x in secs['torch']]} s" + (
-                  f", numpy {[round(x, 4) for x in secs['numpy']]} s" if secs["numpy"] else ""))
+        med = {arm: sorted(x)[len(x) // 2] for arm, x in secs.items() if x}
+        print(f"plan ocs-sim n={n} (a2a, rs, ag; fresh planners, verifier caches cleared, "
+              f"host clock, s): verified {[round(x, 4) for x in secs['verified']]}, "
+              f"unverified {[round(x, 4) for x in secs['unverified']]}" + (
+                  f", numpy {[round(x, 4) for x in secs['numpy']]}" if secs["numpy"] else "")
+              + f"; verify_plan alone {[round(x, 4) for x in verify_s]}; median verified "
+              f"{med['verified']:.4f}, unverified {med['unverified']:.4f}, ratio "
+              f"{med['verified'] / med['unverified']:.3f}")
         lanes = [batchsim.BatchLane(schedule=sched, m_bytes=SIM_M)
                  for _, sched in schedules.candidate_schedules("a2a", n, SIM_M, cm)]
         C = Planner().sim_chunks
         args, kw, hops = playback_inputs(lanes, cm, C)
         check_playback_call(args, kw, f"plan a2a n={n}")
         t = time_playback(args, kw, hops, clock_hz, f"plan a2a n={n}")
-        t.update(plan_torch_s=secs["torch"], plan_numpy_s=secs["numpy"])
+        t.update(plan_verified_s=secs["verified"], plan_unverified_s=secs["unverified"],
+                 plan_numpy_s=secs["numpy"], verify_plan_s=verify_s)
         out[n] = {"launches": launches, "shape": [len(lanes), int(hops.shape[1]), n, C],
                   "times": t}
     return out
@@ -2335,6 +2392,292 @@ def playback_crossover() -> float:
     print(f"crossover: the card's batch_run is faster from certified work {crossover:.4g} on "
           f"(batchsim._AUTO_MIN_WORK is {batchsim._AUTO_MIN_WORK:.4g})")
     return crossover
+
+
+# --- phase 11: checkpointed training restart, and the workloads ---------------------
+
+RESTART_ARCHS = ("stablelm-3b", "rwkv6-3b")   # each at full width cut to 2 layers
+RESTART_LAYERS = 2
+RESTART_STEPS = 4        # straight; the checkpointed run stops at 2 and resumes for 3-4
+RESTART_EVERY = 2
+RESTART_RTOL = 1e-4      # the reference's bound (tests/test_fault_tolerance.py:143-144)
+BENCH_DIR = Path(__file__).resolve().parent
+WORKLOAD_REL = 1e-12     # port row against the committed row
+# one grid point of each workload bench (benchmarks/*_bench.py)
+TRACE_POINT = ("mixed", 16, 1e-3)                 # trace_bench: trace, n, delta
+ONLINE_POINT = ("mixed", 16, 1e-3, 2)             # online_bench: trace, n, delta, window
+FAULT_POINT = ("link-down", 12, 1e-3, 0.5)        # faults_bench: kind, n, delta, fail_frac
+TENANCY_POINT = ("port-partition", 2, 16, 1e-3)   # tenancy_bench: sharing, K, n, delta
+STORM_N, STORM_WINDOW, STORM_REQUESTS = 16, 3, 256  # online_bench's storm
+
+
+def dir_bytes(path: str) -> int:
+    return sum(f.stat().st_size for f in Path(path).rglob("*") if f.is_file())
+
+
+def restart_path(arch: str) -> dict:
+    """Checkpointed training restart through `train()`: `arch` at full width
+    cut to RESTART_LAYERS, bf16, full remat, grad_sync "bridge", 8 x 512.
+    RESTART_STEPS straight steps; then RESTART_EVERY steps that save a
+    checkpoint, and a fresh `train()` on the same directory that resumes and
+    runs the rest (saving nothing), its launches counted a step.  The
+    resumed losses must equal the straight run's at RESTART_RTOL; whether they and the final
+    parameters are bit-identical is printed.  The checkpoints go to a
+    temporary directory, deleted afterwards."""
+    b, _, seq = TRAIN_CASE[0], TRAIN_CASE[1], TRAIN_CASE[2]
+    tc = train_mod.TrainConfig(arch=arch, scale="full", steps=RESTART_STEPS, batch_size=b,
+                               seq_len=seq, grad_sync="bridge", seed=SEED)
+    cfg = train_mod.model_config(tc)
+    if (cfg.dtype, cfg.remat, cfg.remat_policy) != ("bfloat16", True, "full") \
+            or cfg != configs.get(arch):
+        raise AssertionError(f"not the full config: {cfg}")
+    cfg = dataclasses.replace(cfg, num_layers=RESTART_LAYERS)
+
+    def fresh():
+        return init_params(cfg, torch.Generator(device="cuda").manual_seed(SEED), "cuda")
+
+    model, _, straight = train_mod.train(tc, progress=lambda *_: None, device="cuda",
+                                         model=fresh())
+    want_params = [p.detach().cpu() for p in model.parameters()]
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    lines = []
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as d:
+        free = shutil.disk_usage(d).free
+        first = dataclasses.replace(tc, steps=RESTART_EVERY, checkpoint_dir=d,
+                                    checkpoint_every=RESTART_EVERY)
+        _, _, part1 = train_mod.train(first, progress=lines.append, device="cuda",
+                                      model=fresh())
+        ckpt_bytes = dir_bytes(os.path.join(d, f"step_{RESTART_EVERY:08d}"))
+        gc.collect()
+        torch.cuda.empty_cache()
+        model = fresh()
+        torch.cuda.synchronize()
+        reset_launches()
+        # the default checkpoint_every (10) saves nothing in the resumed steps
+        second = dataclasses.replace(tc, checkpoint_dir=d)
+        model, opt_state, part2 = train_mod.train(second, progress=lines.append,
+                                                  device="cuda", model=model)
+        launches, designs = read_launches(), read_designs()
+    for line in lines:
+        print(f"restart {arch}: {line}")
+    resumed = [line for line in lines if line.startswith("resumed from step")]
+    if len(resumed) != 1 or not resumed[0].startswith(f"resumed from step {RESTART_EVERY} "):
+        raise AssertionError(f"restart {arch}: expected one resume from step "
+                             f"{RESTART_EVERY}, got {resumed}")
+    seconds = [float(x) for x in re.findall(r"\(([0-9.]+) s\)", "\n".join(lines))]
+    check_tensor_core_launches(f"restart {arch}")
+    per_step = check_train_launches(f"restart {arch}", cfg.layer_kinds,
+                                    RESTART_STEPS - RESTART_EVERY, launches, designs)
+    if int(opt_state.step) != RESTART_STEPS or opt_state.step.device.type != "cuda":
+        raise AssertionError(f"restart {arch}: AdamW step {opt_state.step}")
+    got = part1 + part2
+    if len(got) != RESTART_STEPS or not all(math.isfinite(x) for x in got):
+        raise AssertionError(f"restart {arch}: losses {got}")
+    if not np.allclose(got, straight, rtol=RESTART_RTOL, atol=0.0):
+        raise AssertionError(f"restart {arch}: losses {got} against the straight run's "
+                             f"{straight} beyond rtol {RESTART_RTOL}")
+    same_params = all(torch.equal(p.detach().cpu(), w)
+                      for p, w in zip(model.parameters(), want_params, strict=True))
+    print(f"restart {arch} ({RESTART_LAYERS} layers {cfg.layer_kinds}, bf16, remat full, "
+          f"grad_sync bridge, {b} x {seq}): straight losses {straight}, checkpointed "
+          f"{part1} + resumed {part2}; equal at rtol {RESTART_RTOL}; losses bit-identical "
+          f"{got == straight}, final parameters bit-identical {same_params}; checkpoint "
+          f"{ckpt_bytes} bytes, save / restore seconds {seconds} (free on the "
+          f"temporary directory's disk before: {free} bytes); resumed launches {launches} "
+          f"(per step {per_step})")
+    return {"launches": launches, "checkpoint_bytes": ckpt_bytes, "seconds": seconds,
+            "bit_identical": got == straight and same_params}
+
+
+def rows_differ(got, want, path: str = "") -> list[str]:
+    """Where `got` and `want` (rows of a bench file) differ: numbers beyond
+    WORKLOAD_REL relative, anything else at all."""
+    if isinstance(want, dict):
+        if not isinstance(got, dict) or set(got) != set(want):
+            return [f"{path}: keys {sorted(got) if isinstance(got, dict) else got} "
+                    f"against {sorted(want)}"]
+        return [d for k in want for d in rows_differ(got[k], want[k], f"{path}.{k}")]
+    if isinstance(want, list):
+        if not isinstance(got, list) or len(got) != len(want):
+            return [f"{path}: {got} against {want}"]
+        return [d for i, (g, w) in enumerate(zip(got, want)) for d in
+                rows_differ(g, w, f"{path}[{i}]")]
+    if isinstance(want, float) and isinstance(got, (int, float)) \
+            and not isinstance(got, bool):
+        ok = abs(got - want) <= WORKLOAD_REL * max(abs(got), abs(want))
+        return [] if ok else [f"{path}: {got!r} against {want!r}"]
+    return [] if got == want and type(got) is type(want) else [f"{path}: {got!r} against "
+                                                               f"{want!r}"]
+
+
+def committed_row(bench: str, match: dict) -> dict:
+    rows = [row for row in json.loads((BENCH_DIR / bench).read_text())["rows"]
+            if all(row.get(k) == v for k, v in match.items())]
+    if len(rows) != 1:
+        raise AssertionError(f"{bench}: {len(rows)} rows match {match}")
+    return rows[0]
+
+
+def bench_trace(name: str, n: int, seed: int = 0):
+    """The traces of benchmarks/trace_bench.py's make_trace."""
+    return {"moe": lambda: workloads.moe_a2a_trace(n, layers=3, seed=seed),
+            "train": lambda: workloads.train_step_trace(n, steps=2, buckets=2, seed=seed),
+            "decode": lambda: workloads.decode_ag_trace(n, decode_steps=6, seed=seed,
+                                                        jitter=0.25),
+            "mixed": lambda: workloads.mixed_trace(n, seed=seed)}[name]()
+
+
+def trace_row(name: str, n: int, delta: float) -> dict:
+    """benchmarks/trace_bench.py's row, from the port."""
+    trace = bench_trace(name, n)
+    cm = PAPER_DEFAULT.replace(delta=delta)
+    static, cold, carry = (workloads.plan_trace(trace, cm, mode=mode)
+                           for mode in ("static", "cold", "carryover"))
+    exec_carry = FabricSim(chunks_per_msg=4, mode="batched").run_trace(
+        carry.fabric_phases(), cm)
+    exec_cold = FabricSim(chunks_per_msg=4, mode="full-pause").run_trace(
+        cold.fabric_phases(), cm)
+    return {"trace": name, "n": n, "delta": delta, "events": len(trace),
+            "phases": len(carry.phases), "total_mb": round(trace.total_bytes() / 1024.0 ** 2, 3),
+            "static_s": static.total_time, "cold_fabric_s": cold.total_time,
+            "carryover_s": carry.total_time,
+            "carryover_vs_cold": round(cold.total_time / carry.total_time, 6),
+            "carryover_vs_static": round(static.total_time / carry.total_time, 6),
+            "free_boundaries": carry.free_boundaries, "boundaries": len(carry.boundary_cost),
+            "carry_paid_reconfigs": carry.paid_reconfigs,
+            "exec_carry_sparse_s": exec_carry.completion,
+            "exec_cold_fullpause_s": exec_cold.completion}
+
+
+def online_row(name: str, n: int, delta: float, window: int) -> dict:
+    """benchmarks/online_bench.py's grid row, from the port."""
+    trace = bench_trace(name, n)
+    cm = PAPER_DEFAULT.replace(delta=delta)
+    offline = workloads.plan_trace(trace, cm, mode="carryover")
+    cold = workloads.plan_trace(trace, cm, mode="cold")
+    online, stats = workloads.run_online(trace, cm, window=window)
+    return {"trace": name, "n": n, "delta": delta, "window": window, "events": len(trace),
+            "phases": len(online.phases), "online_s": online.total_time,
+            "offline_s": offline.total_time, "cold_event_s": cold.total_time,
+            "online_vs_offline": round(online.total_time / offline.total_time, 6),
+            "cold_vs_online": round(cold.total_time / online.total_time, 6),
+            "replans": stats.replans, "plan_reuses": stats.plan_reuses,
+            "free_boundaries": online.free_boundaries, "paid_reconfigs": online.paid_reconfigs}
+
+
+def fault_row(kind: str, n: int, delta: float, fail_frac: float) -> dict:
+    """benchmarks/faults_bench.py's row (its recovery_for, verified), from the port."""
+    cm = PAPER_DEFAULT.replace(delta=delta)
+    trace = workloads.mixed_trace(n, moe_layers=1, train_steps=1, decode_steps=3)
+    plan = workloads.plan_trace(trace, cm, mode="carryover")
+    chunks = 8
+    clean = FabricSim(mode="sparse", chunks_per_msg=chunks).run_trace(plan.fabric_phases(), cm)
+    node = n if kind == "node-join" else n // 3
+    repair = 0.05 * clean.completion if kind == "link-flap" else 0.0
+    faults = FaultTimeline(n=n, faults=(FaultSpec(kind=kind, time=fail_frac * clean.completion,
+                                                  node=node, repair_s=repair),),
+                           policy="requeue" if kind == "link-flap" else "drop")
+    faults.check_horizon(clean.completion)
+    rr = workloads.run_with_recovery(trace, cm, faults=faults, chunks_per_msg=chunks,
+                                     verify=True)
+    ds = rr.degraded
+    return {"trace": "mixed", "kind": kind, "n": n, "delta": delta, "fail_frac": fail_frac,
+            "policy": faults.policy, "fault_time_s": faults.faults[0].time,
+            "completed_phases": ds.completed_phases,
+            "committed_events": len(rr.committed_events), "new_n": ds.new_n,
+            "committed_chunks": ds.committed_chunks, "lost_chunks": ds.lost_chunks,
+            "requeued_chunks": ds.requeued_chunks, "recovery_total_s": rr.recovery_total,
+            "restart_total_s": rr.restart_total,
+            "recovery_ratio": round(rr.recovery_ratio, 6), "bit_identical": rr.bit_identical,
+            "mispredictions": rr.stats.mispredictions}
+
+
+def tenancy_row(sharing: str, K: int, n: int, delta: float) -> dict:
+    """benchmarks/tenancy_bench.py's row (its make_tenants), from the port."""
+    world = n if sharing == "time-slice" else n // K
+    gens = (lambda w, s: workloads.mixed_trace(w, seed=s),
+            lambda w, s: workloads.decode_ag_trace(w, decode_steps=4, seed=s, jitter=0.25),
+            lambda w, s: workloads.moe_a2a_trace(w, layers=2, seed=s))
+    weights = (2.0, 1.0, 1.5)
+    tenants = tuple(workloads.TenantSpec(
+        name=f"job-{i}", trace=gens[i % len(gens)](world, i), weight=weights[i % len(weights)],
+        port_share=None if sharing == "time-slice" else 1.0 / K) for i in range(K))
+    cm = PAPER_DEFAULT.replace(delta=delta)
+    sp = workloads.plan_shared(workloads.SharedFabricRequest(
+        tenants=tenants, n=n, cost_model=cm, sharing=SharingMode(sharing)))
+    exec_s = None
+    if sharing == "time-slice":
+        exec_s = FabricSim(chunks_per_msg=4, mode="sparse").run_trace(
+            sp.fabric_phases(), cm).completion
+    return {"sharing": sharing, "K": K, "n": n, "delta": delta, "phases": len(sp.phases),
+            "shared_s": sp.makespan_s, "weighted_s": sp.weighted_completion_s,
+            "serialized_s": sp.serialized_s, "serialized_weighted_s": sp.serialized_weighted_s,
+            "win_vs_serialized": round(sp.serialized_s / sp.makespan_s, 6),
+            "weighted_win": round(sp.serialized_weighted_s / sp.weighted_completion_s, 6),
+            "isolation": {t.name: round(t.isolation, 6) for t in sp.tenants},
+            "isolation_bound": {t.name: round(t.isolation_bound, 6) for t in sp.tenants},
+            "exec_sparse_s": exec_s, "shared_plan": sp.to_dict()}
+
+
+def workload_rows() -> dict:
+    """One grid point of each workload bench re-derived by the port and held
+    to the committed row at WORKLOAD_REL, with the bench's gates at that
+    point; then the plan service answers online_bench's storm (its hit
+    accounting and plan-sequence signature held to the committed row, its
+    hot plans/s printed).  Host work: the workloads run NumPy, as the
+    reference's do."""
+    tol = 1 + 1e-9
+    out = {}
+    for bench, match, row_fn, point in (
+            ("BENCH_trace.json", ("trace", "n", "delta"), trace_row, TRACE_POINT),
+            ("BENCH_online.json", ("trace", "n", "delta", "window"), online_row, ONLINE_POINT),
+            ("BENCH_faults.json", ("kind", "n", "delta", "fail_frac"), fault_row, FAULT_POINT),
+            ("BENCH_tenancy.json", ("sharing", "K", "n", "delta"), tenancy_row,
+             TENANCY_POINT)):
+        t0 = time.perf_counter()
+        got = row_fn(*point)
+        secs = time.perf_counter() - t0
+        want = committed_row(bench, dict(zip(match, point)))
+        diffs = rows_differ(got, want)
+        if diffs:
+            raise AssertionError(f"{bench} {point}: the port's row differs: {diffs[:5]}")
+        out[bench] = got
+        print(f"workload {bench} {dict(zip(match, point))}: the port's row equals the "
+              f"committed one at rel {WORKLOAD_REL} ({len(got)} fields, {secs:.3f} s host)")
+    trace, online = out["BENCH_trace.json"], out["BENCH_online.json"]
+    faults, tenancy = out["BENCH_faults.json"], out["BENCH_tenancy.json"]
+    gates = {
+        "carryover <= cold": trace["carryover_s"] <= trace["cold_fabric_s"] * tol,
+        "carryover <= static": trace["carryover_s"] <= trace["static_s"] * tol,
+        "online >= offline": online["online_s"] >= online["offline_s"] * (1 - 1e-9),
+        "online <= 1.10 x offline": online["online_s"] <= online["offline_s"] * 1.10,
+        "recovery <= restart": faults["recovery_ratio"] <= tol,
+        "recovery bit-identical": faults["bit_identical"],
+        "port-partition isolation 1.0": all(abs(v - 1.0) <= 1e-9
+                                            for v in tenancy["isolation"].values()),
+    }
+    print(f"workload gates: {gates}")
+    if not all(gates.values()):
+        raise AssertionError(f"a workload gate failed: {gates}")
+    pool = workloads.build_request_pool(STORM_N, window=STORM_WINDOW, seed=0)
+    service = workloads.PlanService()
+    cold = workloads.request_storm(service, pool, requests=STORM_REQUESTS, seed=1)
+    hot = workloads.request_storm(service, pool, requests=STORM_REQUESTS, seed=2)
+    want = committed_row("BENCH_online.json", {"trace": "storm", "n": STORM_N})
+    got = {"pool": len(pool), "cold_hits": cold.hits, "cold_misses": cold.misses,
+           "hot_hits": hot.hits, "hot_misses": hot.misses, "unique_windows": cold.unique_windows}
+    if any(got[k] != want[k] for k in got) or hot.hit_rate < 0.9:
+        raise AssertionError(f"plan service storm: {got} against the committed {want}")
+    # the signature hashes the served plans' floats as JSON: the last ulp moves it
+    print(f"plan service: {STORM_REQUESTS} requests twice over a pool of {len(pool)} windows "
+          f"(n={STORM_N}, W={STORM_WINDOW}): hits, misses and windows equal the committed "
+          f"row's; cold {cold.plans_per_sec:.1f} plans/s, hot {hot.plans_per_sec:.1f} plans/s "
+          f"(hit rate {hot.hit_rate:.4f}; host clock; the committed row, from another "
+          f"machine: {want['hot_plans_per_sec']}); signature {hot.signature} (committed "
+          f"{want['signature']}, equal {hot.signature == want['signature']})")
+    return {"hot_plans_per_sec": hot.plans_per_sec}
 
 
 def main() -> None:
@@ -2401,6 +2744,13 @@ def main() -> None:
     tiers = {name: playback_tier(name, clock_hz) for name in SIM_TIERS}
     plan_paths = playback_planner(clock_hz)
     playback_crossover()
+    phase("11 checkpointed training restart, workloads")
+    restarts = {}
+    for arch in RESTART_ARCHS:  # one model at a time
+        restarts[arch] = restart_path(arch)
+        gc.collect()
+        torch.cuda.empty_cache()
+    workload_rows()
 
     kernels_dir = "src/repro/kernels"
     sources = {"flash_attention_fwd": ("flash_attention_fwd.cu",
@@ -2468,9 +2818,18 @@ def main() -> None:
         *((f"batch_run tier {name}", "fabric_playback", tuple(tier["shape"]),
            {"fabric_playback": tier["launches"]}, 0.0, tier["times"])
           for name, tier in tiers.items()),
-        *((f"plan ocs-sim n={n}", "fabric_playback", tuple(path["shape"]),
+        *((f"plan ocs-sim n={n} (verified)", "fabric_playback", tuple(path["shape"]),
            {"fabric_playback": path["launches"]}, 0.0, path["times"])
           for n, path in plan_paths.items()),
+        # the resumed runs of phase 11 (their launches), at the training shapes
+        ("train restart stablelm-3b", "flash_attention_fwd", TRAIN_FWD_CASE,
+         restarts["stablelm-3b"]["launches"], fwd_errs[TRAIN_FWD_CASE],
+         fwd_times[TRAIN_FWD_CASE]),
+        *(("train restart stablelm-3b", name, TRAIN_CASE, restarts["stablelm-3b"]["launches"],
+           bwd_errs[(name, TRAIN_CASE)], bwd_times[TRAIN_CASE][name]) for name in bwd_names),
+        *(("train restart rwkv6-3b", name, WKV_TRAIN, restarts["rwkv6-3b"]["launches"],
+           rec_errs[(name, WKV_TRAIN)], rec_times[(name, WKV_TRAIN)])
+          for name in ("wkv6_fwd", "wkv6_bwd")),
     ]
     print(f"launches: serve {serve_launches}, train {train_launches}")
     kernels = [{

@@ -6,7 +6,7 @@ Copies of the `repro.core` modules, as they are: only their imports point at
 `H100_NVLINK`.  `batchsim` names the port's playback engines ("numpy",
 "torch", "auto"; `batchsim_torch` plays certified lanes on the card with the
 CUDA kernel B6); `fabricsim`'s checkpointed traces and `faults`'
-`latest_snapshot` raise until the checkpoint store is ported (ROADMAP A11).
+`latest_snapshot` write and read through the port's `checkpoint.store`.
 """
 from . import baselines
 from .batchsim import (BatchFabricResult, BatchLane, BatchTraceResult,

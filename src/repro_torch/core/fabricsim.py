@@ -454,9 +454,26 @@ class FabricSim:
         chunk's captured snapshot, which the boundary-snapshot invariant
         makes exact, and the timings are absolute so concatenation is the
         full-run sequence."""
-        raise NotImplementedError(
-            "checkpointed trace playback is not ported to PyTorch yet: it "
-            "needs the checkpoint store (ROADMAP A11)")
+        from repro_torch.checkpoint import store  # deferred: store imports jax
+
+        phase_done: list[float] = []
+        step_done: list[float] = []
+        snap, res, done = initial, None, 0
+        while done < len(phases):
+            chunk = phases[done:done + every]
+            res = self.run_trace(chunk, cm, initial=snap, capture_state=True)
+            snap = res.final_state
+            phase_done.extend(res.phase_done)
+            step_done.extend(res.step_done)
+            done += len(chunk)
+            store.save(directory, done, snapshot_to_tree(snap))
+        return TraceFabricResult(
+            completion=res.completion, mode=self.mode,
+            phase_done=tuple(phase_done), step_done=tuple(step_done),
+            node_done=res.node_done, chunks_moved=res.chunks_moved,
+            boundary_changed=trace_boundary_changed([s for s, _ in phases]),
+            reconfigs_paid=res.reconfigs_paid, delta_stall=res.delta_stall,
+            final_state=snap if capture_state else None)
 
     # --- batched (vectorized tape playback) mode ----------------------------
 

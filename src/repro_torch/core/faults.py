@@ -310,6 +310,9 @@ def tree_to_snapshot(tree: dict) -> FabricSnapshot:
 def latest_snapshot(directory: str) -> FabricSnapshot | None:
     """Newest checkpointed `FabricSnapshot` under ``directory`` (written by
     `FabricSim.run_trace(..., checkpoint_dir=...)`), or None if empty."""
-    raise NotImplementedError(
-        "checkpointed snapshots are not ported to PyTorch yet: they need "
-        "the checkpoint store (ROADMAP A11)")
+    from repro_torch.checkpoint import store  # deferred: store imports jax
+
+    step = store.latest_step(directory)
+    if step is None:
+        return None
+    return tree_to_snapshot(store.restore(directory, step))

@@ -20,13 +20,18 @@ rank.  Rank r takes rows [r B/n, (r+1) B/n) of `SyntheticLM.global_batch`, so
 the global batch does not depend on the world size.  Ranks run on
 `cuda:{LOCAL_RANK}` (NCCL), or on the CPU (gloo) when `device="cpu"`.
 
-Not ported yet, and refused with NotImplementedError: checkpoint/restart
-(ROADMAP A11) and 2-D meshes (A9).
+Checkpoint/restart as the reference's: with `checkpoint_dir`, a run resumes
+from the newest step found there (the parameters written into the model in
+place, the AdamW state onto the device) and saves `{"params", "opt"}` every
+`checkpoint_every` steps in the reference's train-state layout (rank 0
+writes), so a checkpoint of either package resumes in the other.  Not ported
+yet, and refused with NotImplementedError: 2-D meshes (ROADMAP A9).
 
 Run (random weights from a seed, scaled-down config unless --scale full):
   PYTHONPATH=src python -m repro_torch.launch.train            # rwkv6-3b
   PYTHONPATH=src python -m repro_torch.launch.train --scale full --arch stablelm-3b
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu --checkpoint-dir ckpt
   PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
       --grad-sync bridge
 """
@@ -40,15 +45,16 @@ import time
 import torch
 import torch.distributed as dist
 
-from repro_torch import configs
+from repro_torch import configs, interop
 from repro_torch._device import resolve_device
+from repro_torch.checkpoint import latest_step, restore_into, save
 from repro_torch.collectives import (bruck_all_reduce, compressed_all_reduce,
                                      gradient_sync_plan, make_error_feedback_state,
                                      ring_all_reduce)
 from repro_torch.core.cost_model import H100_NVLINK
 from repro_torch.data import SyntheticLM
 from repro_torch.models.model import Model, init_params, loss_fn
-from repro_torch.optim import adamw_init, adamw_update, cosine_warmup_schedule
+from repro_torch.optim import AdamWState, adamw_init, adamw_update, cosine_warmup_schedule
 
 
 @dataclasses.dataclass
@@ -76,9 +82,6 @@ GRAD_SYNCS = ("gspmd", "bridge", "bridge-compressed")
 def _check_supported(tc: TrainConfig) -> None:
     if tc.grad_sync not in GRAD_SYNCS:
         raise ValueError(f"grad_sync must be one of {GRAD_SYNCS}, got {tc.grad_sync!r}")
-    if tc.checkpoint_dir:
-        raise NotImplementedError("checkpoint_dir: checkpoint/restart is not ported to "
-                                  "PyTorch yet: ROADMAP A11")
     if tc.mesh_shape:
         raise NotImplementedError("mesh_shape: 2-D meshes are not ported to PyTorch "
                                   "yet: ROADMAP A9")
@@ -167,6 +170,35 @@ def make_train_step(cfg, tc: TrainConfig, world: World):
     return step
 
 
+def state_tree(model: Model, opt_state: AdamWState, params=None) -> dict:
+    """The reference's train state `{"params": ..., "opt": AdamWState}` in
+    its tree layout, from the model's parameters (or `params`, one tensor
+    per parameter) and the port's AdamW state."""
+    params = [p.detach() for p in model.parameters()] if params is None else params
+    return {"params": interop.tree_from_tensors(model, params),
+            "opt": AdamWState(step=opt_state.step,
+                              m=interop.tree_from_tensors(model, opt_state.m),
+                              v=interop.tree_from_tensors(model, opt_state.v))}
+
+
+def restore_state(directory: str, step: int, model: Model) -> AdamWState:
+    """Restore the train state of `step`: the parameters are written into
+    `model` in place, and the AdamW state comes back on the model's device."""
+    params = list(model.parameters())
+    meta = [torch.empty_like(p, device="meta") for p in params]
+    f32 = [torch.empty_like(p, dtype=torch.float32, device="meta") for p in params]
+    template = state_tree(model, AdamWState(
+        step=torch.zeros((), dtype=torch.int32, device="meta"), m=f32, v=f32), meta)
+    state = restore_into(directory, template, step=step, device=model.device)
+    with torch.no_grad():
+        for p, value in zip(params, interop.tensors_from_tree(model, state["params"]),
+                            strict=True):
+            p.copy_(value)
+    opt = state["opt"]
+    return AdamWState(step=opt.step, m=interop.tensors_from_tree(model, opt.m),
+                      v=interop.tensors_from_tree(model, opt.v))
+
+
 def _rank_device(device) -> torch.device:
     """`device`, with `cuda` (or None) meaning `cuda:{LOCAL_RANK}`."""
     dev = resolve_device(device)
@@ -212,10 +244,19 @@ def train(tc: TrainConfig, progress=print, device=None, model: Model | None = No
           if tc.grad_sync == "bridge-compressed" else None)
     step_fn = make_train_step(cfg, tc, world)
 
+    start = 0
+    if tc.checkpoint_dir:
+        last = latest_step(tc.checkpoint_dir)
+        if last is not None:
+            t0 = time.perf_counter()
+            opt_state = restore_state(tc.checkpoint_dir, last, model)
+            start = last
+            progress(f"resumed from step {start} ({time.perf_counter() - t0:.4f} s)")
+
     per_rank = tc.batch_size // world.size
     rows = slice(world.rank * per_rank, (world.rank + 1) * per_rank)
     losses = []
-    for step in range(tc.steps):
+    for step in range(start, tc.steps):
         # one stream per example: the global batch is identical for any world
         # size (the rows of this rank are cut from it)
         host_batch = data.global_batch(step, tc.batch_size, 1)
@@ -227,6 +268,10 @@ def train(tc: TrainConfig, progress=print, device=None, model: Model | None = No
         losses.append(loss)
         progress(f"step {step:5d} loss {loss:.4f} "
                  f"gnorm {float(metrics['grad_norm']):.3f} dt {dt:.4f}s")
+        if tc.checkpoint_dir and (step + 1) % tc.checkpoint_every == 0 and world.rank == 0:
+            t0 = time.perf_counter()
+            path = save(tc.checkpoint_dir, step + 1, state_tree(model, opt_state))
+            progress(f"saved step {step + 1} to {path} ({time.perf_counter() - t0:.4f} s)")
     return model, opt_state, losses
 
 

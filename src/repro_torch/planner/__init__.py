@@ -1,7 +1,8 @@
 """Unified planning API for BRIDGE collectives (paper Sections 3.3-3.6).
 
-A copy of `repro.planner` for the port (NumPy only).  The ``ocs-sim`` fabric
-and ``Planner(verify=True)`` are not ported yet and raise (planner.py).
+A copy of `repro.planner` for the port.  ``Planner()`` verifies every plan
+before it is cached, as the reference's does; ``ocs-sim`` scoring plays its
+candidates on the card (kernel B6) where one is present.
 
 One entry point for all four collectives — All-to-All, Reduce-Scatter,
 AllGather, and the composite AllReduce (``ar`` = RS + AG):

@@ -1,10 +1,8 @@
 """The unified Planner: one entry point for all four collectives.
 
-A copy of `repro.planner.planner` for the port, with one path left out:
-``verify=True`` raises NotImplementedError (it needs `analysis/verifier.py`,
-ROADMAP A12), so `default_planner()` is built with ``verify=False``.
-``ocs-sim`` scoring plays its candidates on the card's batch engine
-(``sim_backend="torch"``, kernel B6) in place of the reference's JAX one.
+A copy of `repro.planner.planner` for the port.  ``ocs-sim`` scoring plays
+its candidates on the card's batch engine (``sim_backend="torch"``, kernel
+B6) in place of the reference's JAX one.
 
 Evaluates every candidate from the selected strategy families under the
 request's cost model and fabric, ranks them by the request's objective, and
@@ -55,6 +53,7 @@ import dataclasses
 import json
 from typing import NamedTuple, Sequence
 
+from repro_torch.analysis import raise_on_violations, verify_plan
 from repro_torch.core import baselines
 from repro_torch.core.batchsim import batch_completion_times
 from repro_torch.core.schedules import Schedule, changed_links, static_schedule
@@ -99,7 +98,7 @@ class Planner:
                  across backends (the CUDA kernel is bit-compatible on
                  certified lanes); only wall time changes.
     verify     : statically verify every freshly-planned result
-                 (`repro.analysis.verify_plan`) *before* it enters the plan
+                 (`repro_torch.analysis.verify_plan`) *before* it enters the plan
                  cache — a corrupt plan raises `VerificationError` instead
                  of being cached and served to every later hit.  Cache hits
                  are returns of already-verified objects and are not
@@ -111,17 +110,13 @@ class Planner:
     """
 
     def __init__(self, *, cache_size: int = 128, sim_chunks: int = 8,
-                 sim_backend: str = "auto", verify: bool = False):
+                 sim_backend: str = "auto", verify: bool = True):
         if cache_size < 0:
             raise ValueError(f"cache_size must be >= 0, got {cache_size}")
         if sim_backend not in ("auto", "numpy", "torch"):
             raise ValueError(
                 f"sim_backend must be 'auto', 'numpy', or 'torch', "
                 f"got {sim_backend!r}")
-        if verify:
-            raise NotImplementedError(
-                "Planner(verify=True) is not ported to PyTorch yet: it needs "
-                "analysis/verifier.py (ROADMAP A12); pass verify=False")
         self.cache_size = int(cache_size)
         self.sim_chunks = max(1, int(sim_chunks))
         self.sim_backend = sim_backend
@@ -155,7 +150,7 @@ class Planner:
 
     def plan(self, req: PlanRequest) -> PlanResult:
         if self.cache_size == 0:
-            return self._plan_uncached(req)
+            return self._verified(self._plan_uncached(req))
         key = self.cache_key(req)
         hit = self._cache.get(key)
         if hit is not None:
@@ -163,10 +158,19 @@ class Planner:
             self._cache.move_to_end(key)
             return hit
         self._misses += 1
-        res = self._plan_uncached(req)
+        # verify-before-cache: a result that fails static verification must
+        # never be cached, or every later hit would serve the corruption
+        res = self._verified(self._plan_uncached(req))
         self._cache[key] = res
         while len(self._cache) > self.cache_size:
             self._cache.popitem(last=False)
+        return res
+
+    def _verified(self, res: PlanResult) -> PlanResult:
+        if self.verify:
+            raise_on_violations(
+                verify_plan(res),
+                context=f"plan({res.request.kind}, n={res.request.n})")
         return res
 
     def plan_batch(self, requests: Sequence[PlanRequest]) -> tuple[PlanResult, ...]:

@@ -21,6 +21,10 @@ Modes:
                     bridge), from the weights in the .npz file PARAMS (JAX
                     tree layout, flattened); rank 0 writes the loss lists,
                     by mode, to the JSON file OUT.
+  restart DIR OUT   trains stablelm-3b smoke (bridge) 4 steps straight, then
+                    2 steps with a checkpoint into DIR and 4 steps resumed
+                    from it; rank 0 writes the three loss lists and each
+                    rank's progress lines to the JSON file OUT.
 """
 from __future__ import annotations
 
@@ -184,6 +188,25 @@ def _train(n: int, rank: int, params_path: str, out_path: str, *modes: str) -> N
     torch.distributed.barrier()
 
 
+def _restart(n: int, rank: int, ckpt_dir: str, out_path: str) -> None:
+    import torch
+
+    from repro_torch.launch.train import TrainConfig, train
+
+    kw = {"arch": "stablelm-3b", "batch_size": 8, "seq_len": 32, "grad_sync": "bridge"}
+    runs, lines = {}, []
+    for name, tc in (("straight", TrainConfig(steps=4, **kw)),
+                     ("first", TrainConfig(steps=2, checkpoint_dir=ckpt_dir, checkpoint_every=2,
+                                           **kw)),
+                     ("resumed", TrainConfig(steps=4, checkpoint_dir=ckpt_dir, **kw))):
+        _, _, runs[name] = train(tc, progress=lines.append, device="cpu")
+    gathered = [None] * n
+    torch.distributed.all_gather_object(gathered, lines)
+    if rank == 0:
+        Path(out_path).write_text(json.dumps({**runs, "lines": gathered}))
+    torch.distributed.barrier()
+
+
 def main() -> None:
     mode, rank, world, port = sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]
     import torch
@@ -201,6 +224,8 @@ def main() -> None:
             _compressed(world, rank, sys.argv[5])
         elif mode == "train":
             _train(world, rank, *sys.argv[5:])
+        elif mode == "restart":
+            _restart(world, rank, *sys.argv[5:7])
         else:
             raise SystemExit(f"unknown mode {mode!r}")
     finally:

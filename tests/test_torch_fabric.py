@@ -52,17 +52,17 @@ GRID = [(n, r) for n in (6, 12, 48, 96) for r in (2, 3)]
 # the (C, delta) the XLA kernel holds per (n, r): it compiles once a shape
 JAX_POINT = {2: (4, 1e-3), 3: (1, 0.0)}
 
-WHOLE_COPIES = ["core/eventsim.py", "core/multiport.py", "analysis/certifier.py",
-                "analysis/violations.py"]
+WHOLE_COPIES = ["core/eventsim.py", "core/multiport.py", "core/fabricsim.py",
+                "core/faults.py", "analysis/__init__.py", "analysis/certifier.py",
+                "analysis/violations.py", "analysis/verifier.py", "analysis/mutations.py",
+                "checkpoint/__init__.py", "workloads/__init__.py",
+                "workloads/trace_planner.py", "workloads/online_planner.py",
+                "workloads/serve.py", "workloads/tenancy.py", "workloads/recovery.py"]
 # (start, end) markers, in order: the text from each start up to its end (or
 # the file's end) is what the port changed; the rest equals the reference
 CUTS = {
-    "core/fabricsim.py": {
-        "_trace_checkpointed's body raises naming ROADMAP A11": (
-            'full-run sequence."""\n', "    # --- batched (vectorized tape playback) mode"),
-    },
-    "core/faults.py": {
-        "latest_snapshot's body raises naming ROADMAP A11": ('or None if empty."""\n', None),
+    "workloads/traces.py": {
+        "_arch reads the port's configs": ("    from repro", "  # deferred: keep workloads"),
     },
     "core/batchsim.py": {
         "the module docstring's backends: numpy, torch, auto": (
@@ -105,8 +105,6 @@ def test_cut_copies_equal_reference_outside_their_cuts(path):
     cuts = list(CUTS[path].values())
     port, ref = _src("repro_torch", path), _src("repro", path)
     assert _cut(port, cuts) == _cut(ref, cuts)
-    if path != "core/batchsim.py":
-        assert port.count("ROADMAP A11") == 1
 
 
 def test_core_exports_the_references_less_the_tpu_preset():
@@ -524,13 +522,36 @@ def test_auto_takes_the_card_above_the_work_floor(monkeypatch):
 
 
 def test_checkpointed_paths_raise_naming_a11(tmp_path):
-    cm = PAPER_DEFAULT.replace(delta=1e-3)
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-        fabricsim.FabricSim(chunks_per_msg=4).run_trace(_phases(schedules, 12), cm,
-                                                        checkpoint_dir=str(tmp_path))
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-        faults.latest_snapshot(str(tmp_path))
-    assert not any(tmp_path.iterdir())
+    """`run_trace(checkpoint_dir=...)` through the port's store (the sparse
+    engine): the straight run's result, the reference's checkpointed result,
+    the same snapshot files (each package's `latest_snapshot` reads the
+    other's directory)."""
+    _checkpointed_paths_equal(tmp_path, "sparse")
+
+
+def test_checkpointed_batched_path_equals_the_straight_run_and_the_reference(tmp_path):
+    _checkpointed_paths_equal(tmp_path, "batched")
+
+
+def _checkpointed_paths_equal(tmp_path, mode):
+    cm_ref, cm = REF_CM.replace(delta=1e-3), PAPER_DEFAULT.replace(delta=1e-3)
+    phases, ref_phases = _phases(schedules, 12, k=4), _phases(ref_schedules, 12, k=4)
+    straight = fabricsim.FabricSim(mode=mode, chunks_per_msg=4).run_trace(
+        phases, cm, capture_state=True)
+    port_dir, ref_dir = str(tmp_path / "port"), str(tmp_path / "ref")
+    got = fabricsim.FabricSim(mode=mode, chunks_per_msg=4).run_trace(
+        phases, cm, capture_state=True, checkpoint_dir=port_dir, checkpoint_every=2)
+    want = ref_fabricsim.FabricSim(mode=mode, chunks_per_msg=4).run_trace(
+        ref_phases, cm_ref, capture_state=True, checkpoint_dir=ref_dir, checkpoint_every=2)
+    for field in ("completion", "phase_done", "step_done", "chunks_moved", "reconfigs_paid",
+                  "delta_stall"):
+        assert getattr(got, field) == getattr(straight, field) == getattr(want, field), field
+    snap = dataclasses.asdict(straight.final_state)
+    assert dataclasses.asdict(got.final_state) == dataclasses.asdict(want.final_state) == snap
+    assert faults.latest_snapshot(port_dir) == straight.final_state
+    assert faults.latest_snapshot(ref_dir) == straight.final_state
+    assert ref_faults.latest_snapshot(port_dir) == want.final_state
+    assert faults.latest_snapshot(str(tmp_path / "empty")) is None
 
 
 def test_wrapper_rejects_what_the_kernel_does_not_take():

@@ -6,8 +6,9 @@ The copies are held to the reference's text (only their imports point at
 the reference's answers on a grid of world sizes, payloads, fabrics and cost
 models: the same implementation, the same schedules, and the same predicted
 times and alternatives, exactly (the same float operations in the same order).
-The reference's plans come from its default planner, which verifies them.
+Both packages' default planners verify their plans.
 """
+import dataclasses
 import warnings
 from pathlib import Path
 
@@ -21,6 +22,7 @@ from repro.core import schedules as ref_schedules  # noqa: E402
 from repro.core.jsonio import FabricKind as RefFabricKind  # noqa: E402
 from repro.planner import PlanRequest as RefPlanRequest  # noqa: E402
 from repro.planner import default_planner as ref_default_planner  # noqa: E402
+from repro_torch.analysis import VerificationError, verify_plan  # noqa: E402
 from repro_torch.collectives import gradient_sync_plan  # noqa: E402
 from repro_torch.core import schedules  # noqa: E402
 from repro_torch.core.cost_model import PAPER_DEFAULT, CostModel  # noqa: E402
@@ -97,9 +99,35 @@ def test_deprecated_plan_shim_uses_the_port_planner():
     assert got.predicted_time == want.predicted_time
 
 
-def test_unported_planner_paths_raise():
-    # the ocs-sim request that raised here until the fabric stack was ported
-    # is a parity case of tests/test_torch_fabric.py now
-    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-        Planner(verify=True)
+def _corrupt(res):
+    return dataclasses.replace(res, schedule=schedules.static_schedule("rs", res.request.n))
+
+
+def _rejects_a_corrupt_plan(monkeypatch, cache_size):
+    planner = Planner(cache_size=cache_size)
+    req = PlanRequest(kind="a2a", n=8, m_bytes=2**20)
+    good = planner._plan_uncached(req)
+    monkeypatch.setattr(Planner, "_plan_uncached", lambda self, r: _corrupt(good))
+    with pytest.raises(VerificationError, match="plan/kind"):
+        planner.plan(req)
+    assert len(planner._cache) == 0
+    assert Planner(cache_size=cache_size, verify=False).plan(req).schedule.kind == "rs"
+    monkeypatch.undo()
+    res = planner.plan(req)
+    assert not verify_plan(res)
+    assert len(planner._cache) == min(cache_size, 1)
+
+
+def test_unported_planner_paths_raise(monkeypatch):
+    """`Planner()` verifies, as the reference's does (its tests/test_verifier.py
+    trust-boundary case): a corrupted result raises VerificationError and is
+    never cached; `verify=False` serves it unchecked; `default_planner()`
+    verifies."""
+    assert Planner().verify and default_planner().verify
+    assert not Planner(verify=False).verify
+    _rejects_a_corrupt_plan(monkeypatch, cache_size=8)
     assert gradient_sync_plan(1, 1e6, PAPER_DEFAULT).impl == "psum"
+
+
+def test_uncached_planner_rejects_a_corrupt_plan(monkeypatch):
+    _rejects_a_corrupt_plan(monkeypatch, cache_size=0)

@@ -202,7 +202,6 @@ def test_train_cli_default_arch_is_the_references():
 
 
 @pytest.mark.parametrize("option,match", [
-    ({"checkpoint_dir": "ckpt"}, "ROADMAP A11"),
     ({"mesh_shape": (2, 2), "mesh_axes": ("data", "model")}, "ROADMAP A9"),
 ])
 def test_unported_train_options_are_refused(option, match):
