@@ -122,7 +122,15 @@ Phases, in order; any failure raises and the script exits non-zero:
                and from the forward's states; recurrentgemma-9b B4 4, all
                ring, B4' 2, B1
                2, B2 1, B3 1; every B1, B2 and B3 launch in the tensor-core
-               variant).
+               variant).  Then qwen3-moe-235b-a22b at full width cut to 1
+               layer (3.73 G parameters, ~45 GB of state), gspmd, 2 steps,
+               trained unsharded and then on a (1, 1) ("data", "model")
+               mesh (parameters and moments as DTensor shards, gathered on
+               use; the experts behind bruck_all_to_all over a group of
+               one), one after the other: the same losses and final
+               parameters bit for bit; B1 2, B2 1, B3 1 a step (D = 128,
+               GQA 16:1, tensor-core) and 6 exchanges a group a step on
+               the mesh.
   9. multi-card - only with two or more cards: torchrun starts min(4, count)
                NCCL ranks (this script with --rank), which run the Bruck, ring
                and Bridge all-reduce against dist.all_reduce and the Bruck
@@ -133,7 +141,28 @@ Phases, in order; any failure raises and the script exits non-zero:
                with grad_sync "gspmd", "bridge" and "bridge-compressed"; the
                first two's losses must agree with each other and with the
                main path's, the last's be finite and end below 1.5 x its
-               first.  With one card it says that it did not run.
+               first.  With four cards the ranks then run the mesh paths
+               (full width, bf16, full remat, gspmd, 8 x 512, 2 steps):
+               qwen3-moe on a (2, 2) ("data", "model") mesh at 1 layer (its
+               losses against phase 8's unsharded run at rtol 2e-4) and at
+               4 layers (finite; each card's peak memory beside the
+               reckoning; B1 8, B2 4, B3 4 a step and the exchanges
+               counted), the expert-parallel exchange of one rank's 84 MB of
+               slots timed through bruck_all_to_all beside
+               all_to_all_single; recurrentgemma-9b whole (38 layers) on
+               (4,) ('data',), its first loss against one card's forward
+               loss_fn at rtol 1e-5, its launches against the layer
+               pattern, each card's peak memory; GPipe (check 4 of
+               tests/_distributed_worker.py): the reference's tanh stages
+               at 1e-5, then stablelm-3b's 32 blocks as 4 stages of 8 over 4
+               microbatches, forward, bit-identical to one card's
+               sequential run of the same microbatches, B1 8 a microbatch a
+               stage, both walls and the bubble; check 5: stablelm-3b (2
+               layers) saved at step 2 on (4,), resumed on (2, 2) for steps
+               3-4, against 4 straight steps on (4,) at rtol 2e-3, with the
+               checkpoint's bytes and seconds.  With two or three cards the
+               mesh paths say that they did not run; with one card the
+               phase says that it did not run.
  10. fabric playback - the certified tape playback B6 (float64) against
                its plain version on the card, bit for bit and over two runs:
                the deduped a2a / rs / ag candidate sets at n in {6, 12, 48,
@@ -216,6 +245,7 @@ import socket
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import zlib
 from pathlib import Path
@@ -297,6 +327,15 @@ MLA_CASE = (4, 40, 40, 512, 512, 96, True, None, 64)
 INTERNVL_CASE = (4, 48, 8, 1536, 1536, 128, True, None)
 # recurrentgemma-9b training 8 x 512: its local layers' MQA at D = 256
 GRIFFIN_TRAIN_CASE = (8, 16, 1, 512, 512, 256, True, 2048)
+# qwen3-moe-235b-a22b trained (phase 8): GQA 16:1 at D = 128, 8 x 512
+QWEN_TRAIN_CASE = (8, 64, 4, 512, 512, 128, True, None)
+# the multi-card paths of phase 9 give each rank 2 of the 8 rows: qwen3-moe
+# on (2, 2), recurrentgemma-9b on (4,), stablelm-3b's pipeline microbatches
+# and its elastic restart
+QWEN_RANK_CASE = (2, 64, 4, 512, 512, 128, True, None)
+GRIFFIN_RANK_CASE = (2, 16, 1, 512, 512, 256, True, 2048)
+STABLELM_RANK_CASE = (2, 32, 32, 512, 512, 80, True, None)
+RANK_CASES = (QWEN_RANK_CASE, GRIFFIN_RANK_CASE, STABLELM_RANK_CASE)
 NEW_CASES = (WHISPER_ENC_CASE, WHISPER_CROSS_CASE, WHISPER_CROSS_DECODE, WHISPER_SELF_CASE,
              MLA_CASE, INTERNVL_CASE)
 # ragged Sq and Sk (not multiples of 16 or 64): Sq < Sk under GQA, and MQA
@@ -331,6 +370,12 @@ BWD_CASES = [
 TRAIN_CASE = (8, 32, 512, 512, 80, True, None)
 # recurrentgemma-9b's training shape, its one K/V head expanded to 16
 GRIFFIN_BWD_CASE = (8, 16, 512, 512, 256, True, 2048)
+QWEN_BWD_CASE = (8, 64, 512, 512, 128, True, None)          # GQA expanded by the op
+QWEN_RANK_BWD = (2, 64, 512, 512, 128, True, None)
+GRIFFIN_RANK_BWD = (2, 16, 512, 512, 256, True, 2048)
+STABLELM_RANK_BWD = (2, 32, 512, 512, 80, True, None)
+TRAIN_BWD_CASES = (TRAIN_CASE, GRIFFIN_BWD_CASE, QWEN_BWD_CASE, QWEN_RANK_BWD,
+                   GRIFFIN_RANK_BWD, STABLELM_RANK_BWD)
 WIDE_BWD_CASE = (1, 8, 300, 300, 256, True, 100)
 GQA_CASE = (1, 8, 2, 160, 160, 32, True, 64)      # through the op: b, hq, hkv, s, s, d, ...
 GQA_SEEDS = range(5)
@@ -387,6 +432,7 @@ PATH_DTYPE = {"rg_lru_fwd": torch.float32, "wkv6_fwd": torch.bfloat16,
 # (width 4096, f32) and rwkv6-3b's WKV-6 (40 heads of 64, bf16), for B4 and
 # B5 and their backward B4' and B5'
 LRU_TRAIN = (8, 512, 4096, False)
+LRU_RANK = (2, 512, 4096, False)   # recurrentgemma-9b on (4,): a rank's 2 rows
 WKV_TRAIN = (8, 40, 512, 64, 64, False)
 LRU_EXTREME = (2, 64, 48, True)   # a = e^-20: each step forgets almost all
 # B4' and B5' against their plain versions: f32 as the CPU tests hold the
@@ -537,7 +583,8 @@ def flash_check_cases() -> list:
     """(case, dtype) of every check of B1 against its plain version."""
     cases = [(c, dt) for dt in (torch.float32, torch.bfloat16) for c in FLASH_CASES]
     cases += [(c, dt) for c in (SERVE_CASE, TRAIN_FWD_CASE, WIDE_CASE, GRIFFIN_CASE,
-                                GRIFFIN_TRAIN_CASE, QWEN_CASE, *NEW_CASES, *RAGGED_CASES)
+                                GRIFFIN_TRAIN_CASE, QWEN_CASE, QWEN_TRAIN_CASE, *RANK_CASES,
+                                *NEW_CASES, *RAGGED_CASES)
               for dt in (torch.bfloat16, torch.float32)]
     return cases
 
@@ -1090,8 +1137,7 @@ def check_bwd_kernels() -> dict:
     case)."""
     errs = {}
     cases = [(c, dt) for dt in (torch.float32, torch.bfloat16)
-             for c in BWD_CASES + [TRAIN_CASE, GRIFFIN_BWD_CASE, WIDE_BWD_CASE,
-                                   *BWD_RAGGED_CASES]]
+             for c in BWD_CASES + [*TRAIN_BWD_CASES, WIDE_BWD_CASE, *BWD_RAGGED_CASES]]
     for case, dtype in cases:
         d, causal, window = case[4], case[5], case[6]
         q, k, v, do, o, lse, dvec = bwd_inputs(case, dtype)
@@ -1111,7 +1157,7 @@ def check_bwd_kernels() -> dict:
         if not all(ok for _, ok in results.values()) or dq.shape != q.shape \
                 or dk.shape != k.shape or dv.shape != v.shape:
             raise AssertionError(f"backward kernel disagrees with its plain version: {line}")
-        if case in (TRAIN_CASE, GRIFFIN_BWD_CASE) and dtype == torch.bfloat16:
+        if case in TRAIN_BWD_CASES and dtype == torch.bfloat16:
             errs[("flash_attention_bwd_dkv", case)] = max(results["dk"][0], results["dv"][0])
             errs[("flash_attention_bwd_dq", case)] = results["dq"][0]
     # GQA through the op (K/V expanded, dK/dV group-summed): card vs CPU, f32,
@@ -1253,7 +1299,7 @@ def check_recurrent_kernels() -> dict:
     them in."""
     errs = {}
     dtypes = (torch.float32, torch.bfloat16)
-    lru_cases = LRU_CASES + [LRU_DECODE, LRU_PREFILL, LRU_TRAIN, LRU_RAGGED] + LRU_ODD
+    lru_cases = LRU_CASES + [LRU_DECODE, LRU_PREFILL, LRU_TRAIN, LRU_RANK, LRU_RAGGED] + LRU_ODD
     for case, dtype in [(c, dt) for c in lru_cases for dt in dtypes]:
         a, x, h0 = lru_inputs(case, dtype)
         y, h = lru_call(a, x, h0)
@@ -1273,7 +1319,8 @@ def check_recurrent_kernels() -> dict:
             raise AssertionError(f"B4 disagrees with its plain version: {line}")
         if dtype == torch.float32 and not same:
             raise AssertionError(f"B4 in f32 differs from its plain version's bits: {line}")
-        if case in (LRU_PREFILL, LRU_DECODE, LRU_TRAIN) and dtype == PATH_DTYPE["rg_lru_fwd"]:
+        if case in (LRU_PREFILL, LRU_DECODE, LRU_TRAIN, LRU_RANK) \
+                and dtype == PATH_DTYPE["rg_lru_fwd"]:
             errs[("rg_lru_fwd", case)] = max(ey, eh)
     for dtype in dtypes:
         args = lru_inputs(LRU_RAGGED, dtype)
@@ -1386,7 +1433,8 @@ def time_recurrent() -> dict:
     checked against the plain version at LRU_TOL and timed both ways."""
     times = {}
     for name, case in (("rg_lru_fwd", LRU_PREFILL), ("rg_lru_fwd", LRU_DECODE),
-                       ("rg_lru_fwd", LRU_TRAIN), ("wkv6_fwd", WKV_PREFILL),
+                       ("rg_lru_fwd", LRU_TRAIN), ("rg_lru_fwd", LRU_RANK),
+                       ("wkv6_fwd", WKV_PREFILL),
                        ("wkv6_fwd", WKV_DECODE), ("wkv6_fwd", WKV_TRAIN)):
         dtype = PATH_DTYPE[name]
         library = None
@@ -1500,7 +1548,7 @@ def check_recurrent_bwd_kernels() -> dict:
     errs = {}
     dtypes = (torch.float32, torch.bfloat16)
     lru_cases = [(c, dt, None) for c in LRU_CASES + [LRU_RAGGED] for dt in dtypes] \
-        + [(LRU_TRAIN, PATH_DTYPE["rg_lru_bwd"], None)] \
+        + [(c, PATH_DTYPE["rg_lru_bwd"], None) for c in (LRU_TRAIN, LRU_RANK)] \
         + [(LRU_EXTREME, dt, -20.0) for dt in dtypes]
     for case, dtype, decay in lru_cases:
         a, x, h0, gy, gh = lru_bwd_inputs(case, dtype, decay)
@@ -1524,7 +1572,7 @@ def check_recurrent_bwd_kernels() -> dict:
         # version's order, from the forward's y, which in f32 is h itself
         if dtype == torch.float32 and not plain:
             raise AssertionError(f"B4' in f32 differs from its plain version's bits: {line}")
-        if case == LRU_TRAIN:
+        if case in (LRU_TRAIN, LRU_RANK):
             errs[("rg_lru_bwd", case)] = max(e for e, _ in results)
     wkv_cases = [(c, dt, None) for c in WKV_CASES + [WKV_RAGGED] for dt in dtypes] \
         + [(WKV_TRAIN, PATH_DTYPE["wkv6_bwd"], None)] \
@@ -1586,13 +1634,9 @@ def wkv_bwd_tc_flops(r) -> int:
     return b * h * -(-t // 64) * per_chunk * 2048
 
 
-def time_recurrent_bwd() -> dict:
-    """B4' and B5' at the training shapes, in the dtype the model runs them
-    in: kernel (`ms`, `device_ms`) and plain version (fewer calls), beside the
-    bound.  No single PyTorch call computes either; B4' is shown beside a
-    torch.add that moves its bytes (`yardstick_ms`, `yardstick_device_ms`)."""
-    times = {}
-    a, x, h0, gy, gh = lru_bwd_inputs(LRU_TRAIN, PATH_DTYPE["rg_lru_bwd"])
+def time_lru_bwd(case) -> dict:
+    """B4' at a training shape (see time_recurrent_bwd)."""
+    a, x, h0, gy, gh = lru_bwd_inputs(case, PATH_DTYPE["rg_lru_bwd"])
     y, _ = lru_kernel.rg_lru_fwd(a, x, h0)
     n = a.numel()
     moved = 5 * n * a.element_size()               # a, y, gy read; da, db written
@@ -1605,13 +1649,23 @@ def time_recurrent_bwd() -> dict:
     t = time_in_turns(fns, {}, {"plain_ms": 3})
     t["bound_ms"], t["bound_by"] = bound(moved, 3 * n, PEAK_FLOP_S[a.dtype])
     t["library_ms"] = t["library_device_ms"] = None
-    times[("rg_lru_bwd", LRU_TRAIN)] = t
-    print(f"rg_lru_bwd timing {LRU_TRAIN} {str(a.dtype)[6:]}: kernel_ms {t['ms']:.4f} device_ms "
+    print(f"rg_lru_bwd timing {case} {str(a.dtype)[6:]}: kernel_ms {t['ms']:.4f} device_ms "
           f"{t['device_ms']:.4f} plain_ms {t['plain_ms']:.4f} library_ms none (no PyTorch "
           f"call computes the gradient); torch.add moving its {3 * m * 4} bytes "
           f"yardstick_ms {t['yardstick_ms']:.4f} yardstick_device_ms "
           f"{t['yardstick_device_ms']:.4f}; bound_ms {t['bound_ms']:.4f} (by {t['bound_by']}: "
           f"{moved} bytes, {3 * n} FLOP)")
+    return t
+
+
+def time_recurrent_bwd() -> dict:
+    """B4' and B5' at the training shapes, in the dtype the model runs them
+    in: kernel (`ms`, `device_ms`) and plain version (fewer calls), beside the
+    bound.  No single PyTorch call computes either; B4' is shown beside a
+    torch.add that moves its bytes (`yardstick_ms`, `yardstick_device_ms`)."""
+    times = {}
+    for case in (LRU_TRAIN, LRU_RANK):
+        times[("rg_lru_bwd", case)] = time_lru_bwd(case)
     r, k, v, lw, u, s0, gy, gs = wkv_bwd_inputs(WKV_TRAIN, PATH_DTYPE["wkv6_bwd"])
     _, _, ws = wkv_kernel.wkv6_fwd(r, k, v, lw, u, s0)
     fns = {"ms": lambda: wkv_kernel.wkv6_bwd(r, k, v, lw, u, s0, gy, gs, ws),
@@ -1747,6 +1801,16 @@ def check_train_launches(path: str, kinds, steps: int, launches: dict, designs: 
     return per_step
 
 
+def full_config(tc):
+    """`tc`'s model config, checked to be the arch's full published one (bf16,
+    full remat)."""
+    cfg = train_mod.model_config(tc)
+    if (cfg.dtype, cfg.remat, cfg.remat_policy) != ("bfloat16", True, "full") \
+            or cfg != configs.get(tc.arch):
+        raise AssertionError(f"not the full config: {cfg}")
+    return cfg
+
+
 def train_path(arch: str, num_layers: int | None) -> tuple[dict, list[float]]:
     """A main path: `arch` at its full published config (cut to `num_layers`
     where given, full width) trains TRAIN_STEPS steps through `train()`.
@@ -1754,10 +1818,7 @@ def train_path(arch: str, num_layers: int | None) -> tuple[dict, list[float]]:
     b, _, seq = TRAIN_CASE[0], TRAIN_CASE[1], TRAIN_CASE[2]
     tc = train_mod.TrainConfig(arch=arch, scale="full", steps=TRAIN_STEPS,
                                batch_size=b, seq_len=seq, grad_sync="bridge", seed=SEED)
-    cfg = train_mod.model_config(tc)
-    if (cfg.dtype, cfg.remat, cfg.remat_policy) != ("bfloat16", True, "full") \
-            or cfg != configs.get(arch):
-        raise AssertionError(f"not the full config: {cfg}")
+    cfg = full_config(tc)
     model = None
     if num_layers is not None:
         cfg = dataclasses.replace(cfg, num_layers=num_layers)
@@ -1794,6 +1855,386 @@ def train_path(arch: str, num_layers: int | None) -> tuple[dict, list[float]]:
     return launches, losses
 
 
+# --- the mesh paths: qwen3-moe on one card (phase 8), the rest on four (phase 9) ------
+
+MOE_ARCH = "qwen3-moe-235b-a22b"
+MESH_STEPS = 2            # steps of every mesh path
+EP_A2A_PER_LAYER = 6      # dispatch and return, in the forward, its remat and the backward,
+                          # for each group of a rank (groups run one after another)
+GRIFFIN_LOSS_RTOL = 1e-5  # recurrentgemma-9b whole: the first loss against one card's forward
+PIPE_STAGES, PIPE_MICRO = 4, 4
+PIPE_TOL = 1e-5           # tests/_distributed_worker.py check 4
+ELASTIC_RTOL = 2e-3       # tests/_distributed_worker.py check 5
+ELASTIC_LAYERS = 2
+
+
+def mesh_tc(arch: str, mesh: tuple = (), axes: tuple = (), **kw):
+    """A full-config gspmd run of MESH_STEPS steps at 8 x 512 on `mesh`."""
+    b, _, seq = TRAIN_CASE[:3]
+    return train_mod.TrainConfig(**{"arch": arch, "scale": "full", "steps": MESH_STEPS,
+                                    "batch_size": b, "seq_len": seq, "grad_sync": "gspmd",
+                                    "seed": SEED, "mesh_shape": mesh, "mesh_axes": axes} | kw)
+
+
+def whole_params(model) -> list:
+    """Every parameter whole on the host (a sharded one gathered: collective)."""
+    from torch.distributed.tensor import DTensor
+
+    return [(p.full_tensor() if isinstance(p, DTensor) else p).detach().cpu()
+            for p in model.parameters()]
+
+
+def mesh_train(tc, model, label: str, dev="cuda") -> dict:
+    """`train()` with the launch counters and `bruck_all_to_all.calls` set to
+    0 before and read after; checks the launches a step (tensor-core B1, B2
+    and B3) and EP_A2A_PER_LAYER exchanges a MoE layer a step where the run
+    has a 'model' axis.  Returns the losses, launches, exchanges, peak device
+    memory and the trained model."""
+    from repro_torch.collectives import bruck_all_to_all
+
+    lines = []
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches()
+    bruck_all_to_all.calls = 0
+    t0 = time.perf_counter()
+    trained, opt_state, losses = train_mod.train(tc, progress=lines.append, device=dev,
+                                                 model=model)
+    wall = time.perf_counter() - t0
+    launches, designs, calls = read_launches(), read_designs(), bruck_all_to_all.calls
+    check_tensor_core_launches(label)
+    kinds = trained.cfg.layer_kinds
+    per_step = check_train_launches(label, kinds, len(losses), launches, designs)
+    moe_layers = len(kinds) if trained.cfg.ffn == "moe" else 0
+    # a rank's tokens form its own groups here (8 x 512 over at most 4 ranks,
+    # groups of 1024), run one after another: an exchange pair for each
+    ranks = math.prod(tc.mesh_shape) if tc.mesh_shape else 1
+    m = trained.cfg.moe
+    groups = 1 if m is None or m.vectorize_groups else \
+        -(-tc.batch_size * tc.seq_len // ranks // m.group_size)
+    want_calls = EP_A2A_PER_LAYER * moe_layers * groups * len(losses) \
+        if "model" in tc.mesh_axes else 0
+    if calls != want_calls:
+        raise AssertionError(f"{label}: {calls} expert-parallel exchanges, expected {want_calls}")
+    if not losses or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"{label}: losses {losses}")
+    dts = [float(m.group(1)) for ln in lines if (m := re.search(r"dt ([0-9.]+)s", ln))]
+    return {"losses": losses, "launches": launches, "per_step": per_step, "ep_a2a": calls,
+            "peak": torch.cuda.max_memory_allocated(dev), "lines": lines, "step_s": dts,
+            "wall_s": wall, "model": trained, "opt": opt_state}
+
+
+def moe_mesh_path() -> dict:
+    """Phase 8: qwen3-moe-235b-a22b at full width cut to 1 layer trains
+    MESH_STEPS steps (gspmd, bf16, full remat, 8 x 512) unsharded, then on a
+    (1, 1) ("data", "model") mesh (parameters and moments as DTensors, the
+    experts' exchange through bruck_all_to_all over a group of one), one
+    after the other; the two must give the same losses and final parameters
+    bit for bit."""
+    tc = mesh_tc(MOE_ARCH)
+    cfg = dataclasses.replace(full_config(tc), num_layers=1)
+    runs, finals = {}, {}
+    for name, mesh in (("unsharded", {}),
+                       ("mesh (1, 1)", {"mesh_shape": (1, 1), "mesh_axes": ("data", "model")})):
+        model = init_params(cfg, torch.Generator(device="cuda").manual_seed(SEED), "cuda")
+        params = sum(p.numel() for p in model.parameters())
+        run = mesh_train(dataclasses.replace(tc, **mesh), model, f"train {MOE_ARCH} {name}")
+        finals[name] = whole_params(run.pop("model"))
+        del model, run["opt"]
+        gc.collect()
+        torch.cuda.empty_cache()
+        runs[name] = run
+        print(f"train {MOE_ARCH} full width cut to 1 layer, {name} ({params} parameters, bf16, "
+              f"remat full, gspmd, 1 card), batch 8 x 512: losses {run['losses']}, steps "
+              f"{run['step_s']} s, peak memory {run['peak'] / 2**30:.3f} GiB ({run['peak']} "
+              f"bytes; reckoning {params} x 12 B = {params * 12 / 2**30:.3f} GiB of state), "
+              f"launches a step {run['per_step']}, expert-parallel exchanges "
+              f"(bruck_all_to_all calls) {run['ep_a2a']}", flush=True)
+    a, b = runs["unsharded"], runs["mesh (1, 1)"]
+    same = all(torch.equal(x, y) for x, y in
+               zip(finals["unsharded"], finals["mesh (1, 1)"], strict=True))
+    print(f"train {MOE_ARCH}: mesh (1, 1) against unsharded: losses bit-identical "
+          f"{a['losses'] == b['losses']}, final parameters bit-identical {same}")
+    if a["losses"] != b["losses"] or not same:
+        raise AssertionError(f"{MOE_ARCH} on a (1, 1) mesh differs from the unsharded run: "
+                             f"{b['losses']} against {a['losses']}")
+    del finals
+    gc.collect()
+    return runs
+
+
+def rank_memory(dev) -> list[int]:
+    """Every rank's peak device memory since the last reset."""
+    import torch.distributed as dist
+
+    peaks = [None] * dist.get_world_size()
+    dist.all_gather_object(peaks, torch.cuda.max_memory_allocated(dev))
+    return peaks
+
+
+def mesh_moe(n: int, dev, say, layers: int) -> dict:
+    """Check 3 on the cards: qwen3-moe at full width cut to `layers` layers on
+    a (2, 2) ("data", "model") mesh, MESH_STEPS gspmd steps; each rank holds
+    its shards and runs half the experts on both model ranks' slots."""
+    tc = mesh_tc(MOE_ARCH, (2, 2), ("data", "model"))
+    cfg = dataclasses.replace(full_config(tc), num_layers=layers)
+    model = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED), dev)
+    params = sum(p.numel() for p in model.parameters())
+    per_layer = sum(p.numel() for p in model.blocks[0].parameters())
+    experts = sum(model.blocks[0].ffn[k].numel() for k in ("w_gate", "w_up", "w_down"))
+    run = mesh_train(tc, model, f"train {MOE_ARCH} (2, 2) {layers} layers", dev)
+    del model, run["model"], run["opt"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    peaks = rank_memory(dev)
+    state = params * 12 / n
+    gathered = experts // 2 * 2   # one block's experts: half of E a rank, 2 bytes each
+    say(f"mesh train {MOE_ARCH} full width cut to {layers} layers on (2, 2) (data, model), "
+        f"{n} cards, {params} parameters ({per_layer} a layer), bf16, remat full, gspmd, "
+        f"global batch 8 x 512: losses {run['losses']}, steps {run['step_s']} s, launches a "
+        f"step {run['per_step']}, expert-parallel exchanges {run['ep_a2a']}; peak memory a card "
+        f"{[round(x / 2**30, 3) for x in peaks]} GiB ({peaks} bytes) against the reckoning "
+        f"{params} x 12 B / {n} = {state / 2**30:.3f} GiB of state + one block's gathered "
+        f"experts {gathered / 2**30:.3f} GiB + activations")
+    return {k: run[k] for k in ("losses", "launches", "per_step", "ep_a2a", "step_s")} \
+        | {"peaks": peaks, "params": params}
+
+
+def time_ep_exchange(dev, say) -> dict:
+    """The expert-parallel exchange of one rank's payload on (2, 2): its one
+    group's (E, C, d) bf16 slots as (2, E/2, C, d) over the 2-rank 'model'
+    group, bruck_all_to_all against dist.all_to_all_single (the same bits),
+    on the host clock, median of 9 rounds of 5."""
+    import torch.distributed as dist
+
+    from repro_torch.collectives import bruck_all_to_all
+    from repro_torch.launch.mesh import make_mesh
+
+    cfg = configs.get(MOE_ARCH)
+    m = cfg.moe
+    c = moe_mod._capacity(m.group_size, m)
+    group = make_mesh((2, 2), ("data", "model"), dev).get_group("model")
+    gen = torch.Generator(device=dev).manual_seed(SEED + dist.get_rank())
+    x = torch.randn((2, m.num_experts // 2, c, cfg.d_model), generator=gen,
+                    device=dev).to(torch.bfloat16)
+    want = torch.empty_like(x)
+    dist.all_to_all_single(want, x, group=group)
+    if not torch.equal(bruck_all_to_all(x, group), want):
+        raise AssertionError("the EP exchange differs from all_to_all_single")
+    recv = torch.empty_like(x)
+    rounds = {"bruck": [], "library": []}
+    for _ in range(9):
+        rounds["library"].append(host_ms(
+            lambda: dist.all_to_all_single(recv, x, group=group), 5))
+        rounds["bruck"].append(host_ms(lambda: bruck_all_to_all(x, group), 5))
+    ms = {k: sorted(v)[4] for k, v in rounds.items()}
+    say(f"mesh EP exchange {MOE_ARCH}: one rank's slots ({m.num_experts}, C = {c}, "
+        f"{cfg.d_model}) bf16 = {x.numel() * 2} bytes over the 2-rank model group: "
+        f"bruck_all_to_all equals all_to_all_single bit for bit; host clock ms, median of 9 "
+        f"x 5: {ms} (rounds {rounds})")
+    return {"bytes": x.numel() * 2, "ms": ms}
+
+
+def griffin_whole(n: int, dev, say) -> dict:
+    """recurrentgemma-9b whole (38 layers) on a (4,) ('data',) mesh, MESH_STEPS
+    gspmd steps; its first loss against one card's forward `loss_fn` of the
+    same weights and global batch (rank 0, before the run)."""
+    import torch.distributed as dist
+
+    arch = "recurrentgemma-9b"
+    tc = mesh_tc(arch, (n,), ("data",))
+    cfg = full_config(tc)
+    rank = dist.get_rank()
+    reference = None
+    if rank == 0:
+        model = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED), dev)
+        b, _, seq = TRAIN_CASE[:3]
+        batch = SyntheticLM(cfg.vocab_size, seq, seed=tc.seed).global_batch(0, b, 1)
+        with torch.no_grad():
+            loss, _ = loss_fn(cfg, model, {k: torch.from_numpy(v).to(dev)
+                                           for k, v in batch.items()})
+        reference = float(loss)
+        del model, loss
+        gc.collect()
+        torch.cuda.empty_cache()
+    dist.barrier()
+    run = mesh_train(tc, None, f"train {arch} whole on ({n},)", dev)
+    params = sum(p.numel() for p in run["model"].parameters())
+    del run["model"], run["opt"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    peaks = rank_memory(dev)
+    out = {k: run[k] for k in ("losses", "launches", "per_step", "step_s")} | {
+        "peaks": peaks, "params": params}
+    if rank == 0:
+        diff = abs(run["losses"][0] - reference) / abs(reference)
+        say(f"mesh train {arch} whole ({cfg.num_layers} layers, {params} parameters) on ({n},) "
+            f"(data), bf16, remat full, gspmd, global batch 8 x 512: losses {run['losses']}, "
+            f"steps {run['step_s']} s, launches a step {run['per_step']}; first loss against "
+            f"one card's forward loss_fn {reference}: relative difference {diff:.3e} (rtol "
+            f"{GRIFFIN_LOSS_RTOL}); peak memory a card "
+            f"{[round(x / 2**30, 3) for x in peaks]} GiB ({peaks} bytes) against the "
+            f"reckoning {params} x 12 B / {n} = {params * 12 / n / 2**30:.3f} GiB of state + "
+            f"the tied embedding gathered {cfg.vocab_size * cfg.d_model * 2 / 2**30:.3f} GiB + "
+            f"the f32 logits of a rank's 1024 tokens "
+            f"{1024 * cfg.vocab_size * 4 / 2**30:.3f} GiB + activations")
+        if diff > GRIFFIN_LOSS_RTOL:
+            raise AssertionError(f"{arch} whole: first loss {run['losses'][0]} against one "
+                                 f"card's {reference}")
+        out["reference_loss"] = reference
+    return out
+
+
+def pipeline_paths(n: int, dev, say) -> dict:
+    """Check 4 on the cards: the reference's tanh stages (S = 4, D = 16,
+    batch 8, 4 microbatches) equal sequential at PIPE_TOL; then stablelm-3b's
+    32 blocks at full width as 4 stages of 8, 8 x 512 in 4 microbatches,
+    forward, equal to rank 0's sequential run of the same blocks on the same
+    microbatches bit for bit, with B1 8 times a microbatch a stage."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.pipeline import run_pipeline
+    from repro_torch.models.model import _embed_inputs, apply_block
+
+    rank = dist.get_rank()
+    mesh = make_mesh((n,), ("pod",), dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    d = 16
+    stage_w = torch.randn((n, d, d), generator=gen, device=dev) / d ** 0.5
+    x = torch.randn((8, d), generator=gen, device=dev)
+
+    def tanh_stage(w, h):
+        return torch.tanh(h @ w)
+
+    out = run_pipeline(mesh, "pod", tanh_stage, stage_w, x, PIPE_MICRO)
+    seq = x
+    for w in stage_w:
+        seq = tanh_stage(w, seq)
+    tanh_err = (out - seq).abs().max().item()
+    say(f"pipeline tanh stages (S = {n}, D = {d}, batch 8, {PIPE_MICRO} microbatches, f32): "
+        f"max|pipeline - sequential| {tanh_err:.3e} (atol {PIPE_TOL})")
+    if not tanh_err <= PIPE_TOL:
+        raise AssertionError(f"pipeline differs from sequential: {tanh_err}")
+
+    arch = "stablelm-3b"
+    cfg = configs.get(arch)
+    model = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED), dev)
+    per = cfg.num_layers // n
+    stages = [list(model.blocks[s * per:(s + 1) * per]) for s in range(n)]
+    b, _, seq_len = TRAIN_CASE[:3]
+    tokens = SyntheticLM(cfg.vocab_size, seq_len, seed=SEED).global_batch(0, b, 1)["tokens"]
+
+    def blocks_stage(blocks, h):
+        positions = torch.arange(h.shape[1], dtype=torch.int32, device=h.device).expand(
+            h.shape[0], h.shape[1])
+        for blk in blocks:
+            h = apply_block(cfg, blk, blk.kind, h, positions)[0]
+        return h
+
+    with torch.inference_mode():
+        h, _ = _embed_inputs(cfg, model, {"tokens": torch.from_numpy(tokens).to(dev)})
+        torch.cuda.synchronize(dev)
+        dist.barrier()
+        reset_launches()
+        t0 = time.perf_counter()
+        piped = run_pipeline(mesh, "pod", blocks_stage, stages, h, PIPE_MICRO)
+        torch.cuda.synchronize(dev)
+        dist.barrier()
+        pipe_wall = time.perf_counter() - t0
+        launches = read_launches()
+        check_tensor_core_launches(f"pipeline {arch} stage {rank}")
+        want = {k: 0 for k in launches} | {"flash_attention_fwd": per * PIPE_MICRO}
+        if launches != want:
+            raise AssertionError(f"pipeline {arch} stage {rank}: launches {launches}, "
+                                 f"expected {want}")
+        out = {"launches": launches, "pipe_wall_s": pipe_wall}
+        if rank == 0:
+            reset_launches()
+            t0 = time.perf_counter()
+            outs = []
+            for hm in h.reshape(PIPE_MICRO, -1, *h.shape[1:]):
+                for blocks in stages:
+                    hm = blocks_stage(blocks, hm)
+                outs.append(hm)
+            sequential = torch.cat(outs)
+            torch.cuda.synchronize(dev)
+            seq_wall = time.perf_counter() - t0
+            same = torch.equal(piped, sequential)
+            bubble = (n - 1) / (PIPE_MICRO + n - 1)
+            say(f"pipeline {arch} ({cfg.num_layers} blocks as {n} stages of {per}, full width, "
+                f"bf16, forward, 8 x 512 in {PIPE_MICRO} microbatches of "
+                f"{b // PIPE_MICRO}): output bit-identical to one card's sequential run of the "
+                f"same microbatches {same}; B1 launches a stage {launches['flash_attention_fwd']} "
+                f"({per} a microbatch); wall pipeline {pipe_wall:.4f} s, sequential "
+                f"{seq_wall:.4f} s (host clock); bubble (S - 1)/(M + S - 1) = "
+                f"{n - 1}/{PIPE_MICRO + n - 1} = {bubble:.4f}")
+            if not same:
+                raise AssertionError(f"pipeline {arch} differs from the sequential run")
+            out |= {"seq_wall_s": seq_wall, "bubble": bubble, "tanh_err": tanh_err}
+    del model, stages
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def elastic_path(n: int, dev, say) -> dict:
+    """Check 5 on the cards: stablelm-3b at full width cut to ELASTIC_LAYERS,
+    2 gspmd steps on (4,) ('data',) saving a checkpoint, steps 3-4 resumed on
+    (2, 2) ("data", "model") (launches counted), against 4 straight steps on
+    (4,) at ELASTIC_RTOL."""
+    import torch.distributed as dist
+
+    arch = "stablelm-3b"
+    flat, square = ((n,), ("data",)), ((2, 2), ("data", "model"))
+    cfg = dataclasses.replace(full_config(mesh_tc(arch)), num_layers=ELASTIC_LAYERS)
+
+    def fresh():
+        return init_params(cfg, torch.Generator(device=dev).manual_seed(SEED), dev)
+
+    holder = [tempfile.mkdtemp(prefix="chip_smoke_elastic_") if dist.get_rank() == 0 else None]
+    dist.broadcast_object_list(holder, src=0)
+    d = holder[0]
+    try:
+        straight = mesh_train(mesh_tc(arch, *flat, steps=4), fresh(), f"elastic {arch} straight",
+                              dev)
+        first = mesh_train(mesh_tc(arch, *flat, checkpoint_dir=d, checkpoint_every=2),
+                           fresh(), f"elastic {arch} first", dev)
+        ckpt_bytes = dir_bytes(os.path.join(d, "step_00000002"))
+        resumed = mesh_train(mesh_tc(arch, *square, steps=4, checkpoint_dir=d), fresh(),
+                             f"elastic {arch} resumed", dev)
+    finally:
+        dist.barrier()
+        if dist.get_rank() == 0:
+            shutil.rmtree(d, ignore_errors=True)
+    lines = first["lines"] + resumed["lines"]
+    seconds = [float(x) for x in re.findall(r"\(([0-9.]+) s\)", "\n".join(lines))]
+    got, want = first["losses"] + resumed["losses"], straight["losses"]
+    diff = [abs(a - b) / abs(b) for a, b in zip(got, want, strict=True)]
+    say(f"elastic {arch} ({ELASTIC_LAYERS} layers, bf16, gspmd, 8 x 512): 2 steps on {flat[0]} "
+        f"saved, steps 3-4 resumed on {square[0]}: losses {got} against the straight "
+        f"{flat[0]} run's {want}, relative differences {diff} (rtol {ELASTIC_RTOL}); "
+        f"checkpoint {ckpt_bytes} bytes, save / restore seconds {seconds}; resumed launches a "
+        f"step {resumed['per_step']}")
+    if len(got) != 4 or max(diff) > ELASTIC_RTOL:
+        raise AssertionError(f"elastic restart {got} against {want}")
+    for run in (straight, first, resumed):
+        del run["model"], run["opt"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"losses": got, "straight": want, "diff": diff, "checkpoint_bytes": ckpt_bytes,
+            "seconds": seconds, "launches": resumed["launches"]}
+
+
+def mesh_paths(n: int, dev, say) -> dict:
+    """Phase 9's mesh paths (four cards): check 3 at 1 and 4 layers and the EP
+    exchange, recurrentgemma-9b whole, check 4 and check 5."""
+    out = {"moe_1": mesh_moe(n, dev, say, 1), "moe_4": mesh_moe(n, dev, say, 4),
+           "ep_exchange": time_ep_exchange(dev, say), "griffin": griffin_whole(n, dev, say),
+           "pipeline": pipeline_paths(n, dev, say), "elastic": elastic_path(n, dev, say)}
+    return out
+
+
 # --- multi-card phase ---------------------------------------------------------------
 
 
@@ -1803,13 +2244,34 @@ def _free_port() -> int:
         return sock.getsockname()[1]
 
 
-def multi_card(n: int, main_losses: list[float]) -> dict:
+def sample_card_memory(stop: threading.Event, peaks: dict) -> None:
+    """Every half second until `stop`: each card's memory in use as
+    nvidia-smi reads it (every process on the card), the peak kept in
+    `peaks` (card index -> MiB)."""
+    while not stop.wait(0.5):
+        out = subprocess.run(["nvidia-smi", "--query-gpu=index,memory.used",
+                              "--format=csv,noheader,nounits"],
+                             capture_output=True, text=True, timeout=30).stdout
+        for line in out.strip().splitlines():
+            card, used = (int(x) for x in line.split(","))
+            peaks[card] = max(peaks.get(card, 0), used)
+
+
+def multi_card(n: int, main_losses: list[float], moe_losses: list[float]) -> dict:
     """Start n ranks of this script (--rank) with torchrun and return rank 0's
     results.  Their first training losses must match the main path's: the
-    global batch does not depend on the world size."""
+    global batch does not depend on the world size; so must qwen3-moe's on
+    (2, 2) at 1 layer those of phase 8's unsharded run (`moe_losses`).  Card
+    0 holds this process beside rank 0: each card's peak use is sampled."""
     cmd = [sys.executable, "-m", "torch.distributed.run", "--nnodes", "1",
            "--nproc-per-node", str(n), "--master-addr", "127.0.0.1",
            "--master-port", str(_free_port()), __file__, "--rank"]
+    print(f"multi-card: this process holds {torch.cuda.memory_reserved() / 2**30:.2f} GiB "
+          f"reserved on card 0 as the ranks start")
+    stop, peaks = threading.Event(), {}
+    sampler = threading.Thread(target=sample_card_memory, args=(stop, peaks))
+    sampler.start()
+    t0 = time.perf_counter()
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                             text=True, start_new_session=True)
     try:
@@ -1818,7 +2280,12 @@ def multi_card(n: int, main_losses: list[float]) -> dict:
         if proc.poll() is None:  # stop torchrun and every rank it started
             os.killpg(proc.pid, signal.SIGKILL)
             proc.communicate()
+        stop.set()
+        sampler.join()
     print(out, end="")
+    print(f"multi-card: {n} ranks ran {time.perf_counter() - t0:.1f} s; each card's peak "
+          f"memory in use (nvidia-smi, every process, sampled every 0.5 s): "
+          f"{[peaks.get(i) for i in range(n)]} MiB")
     if proc.returncode != 0:
         raise AssertionError(f"multi-card ranks exited {proc.returncode}")
     res = json.loads([ln for ln in out.splitlines() if ln.startswith('{"ranks"')][-1])
@@ -1830,6 +2297,14 @@ def multi_card(n: int, main_losses: list[float]) -> dict:
                                  f"main path's {want} beyond rtol {LOSS_RTOL}")
     print(f"multi-card train: {n}-rank gspmd and bridge losses match the one-rank main "
           f"path's {want} (rtol {LOSS_RTOL})")
+    if "mesh" in res:
+        got = res["mesh"]["moe_1"]["losses"]
+        diff = [abs(a - b) / abs(b) for a, b in zip(got, moe_losses, strict=True)]
+        print(f"mesh train {MOE_ARCH} 1 layer on (2, 2) against phase 8's unsharded run on one "
+              f"card: losses {got} against {moe_losses}, relative differences {diff} (the "
+              f"first step's is the forward's alone; rtol {LOSS_RTOL})")
+        if max(diff) > LOSS_RTOL:
+            raise AssertionError(f"{MOE_ARCH} on (2, 2) differs from one card: {diff}")
     return res
 
 
@@ -2011,6 +2486,11 @@ def _rank_main() -> None:
         compressed = losses["bridge-compressed"]
         if not (all(math.isfinite(x) for x in compressed) and compressed[-1] < 1.5 * compressed[0]):
             raise AssertionError(f"bridge-compressed losses {compressed} not finite or diverging")
+        if n == 4:
+            out["mesh"] = mesh_paths(n, dev, say)
+        else:
+            say(f"mesh paths (check 3, recurrentgemma-9b whole, check 4, check 5): not run "
+                f"({n} ranks; they need 4)")
         say(json.dumps(out))
     finally:
         dist.destroy_process_group()
@@ -2427,11 +2907,7 @@ def restart_path(arch: str) -> dict:
     b, _, seq = TRAIN_CASE[0], TRAIN_CASE[1], TRAIN_CASE[2]
     tc = train_mod.TrainConfig(arch=arch, scale="full", steps=RESTART_STEPS, batch_size=b,
                                seq_len=seq, grad_sync="bridge", seed=SEED)
-    cfg = train_mod.model_config(tc)
-    if (cfg.dtype, cfg.remat, cfg.remat_policy) != ("bfloat16", True, "full") \
-            or cfg != configs.get(arch):
-        raise AssertionError(f"not the full config: {cfg}")
-    cfg = dataclasses.replace(cfg, num_layers=RESTART_LAYERS)
+    cfg = dataclasses.replace(full_config(tc), num_layers=RESTART_LAYERS)
 
     def fresh():
         return init_params(cfg, torch.Generator(device="cuda").manual_seed(SEED), "cuda")
@@ -2707,8 +3183,8 @@ def main() -> None:
     phase("4 kernel timing")
     fwd_times = {case: time_flash(case)
                  for case in (TRAIN_FWD_CASE, SERVE_CASE, GRIFFIN_CASE, GRIFFIN_TRAIN_CASE,
-                              QWEN_CASE, *NEW_CASES)}
-    bwd_times = {case: time_bwd(case) for case in (TRAIN_CASE, GRIFFIN_BWD_CASE)}
+                              QWEN_CASE, QWEN_TRAIN_CASE, *RANK_CASES, *NEW_CASES)}
+    bwd_times = {case: time_bwd(case) for case in TRAIN_BWD_CASES}
     rec_times = time_recurrent()
     rec_times.update(time_recurrent_bwd())
     phase("5 model parity card vs cpu")
@@ -2731,11 +3207,16 @@ def main() -> None:
         train_launches[arch], train_losses[arch] = train_path(arch, num_layers)
         gc.collect()
         torch.cuda.empty_cache()
+    moe_runs = moe_mesh_path()
+    gc.collect()
+    torch.cuda.empty_cache()
     phase("9 multi-card")
+    multi = {}
     if count >= 2:
         gc.collect()
         torch.cuda.empty_cache()  # rank 0 shares this card
-        multi_card(min(4, count), train_losses["stablelm-3b"])
+        multi = multi_card(min(4, count), train_losses["stablelm-3b"],
+                           moe_runs["unsharded"]["losses"])
     else:
         print(f"multi-card phase: not run ({count} device)")
     phase("10 fabric playback")
@@ -2830,7 +3311,38 @@ def main() -> None:
         *(("train restart rwkv6-3b", name, WKV_TRAIN, restarts["rwkv6-3b"]["launches"],
            rec_errs[(name, WKV_TRAIN)], rec_times[(name, WKV_TRAIN)])
           for name in ("wkv6_fwd", "wkv6_bwd")),
+        # phase 8: qwen3-moe trained unsharded and on a (1, 1) mesh
+        *((f"train {MOE_ARCH} {run}", name, case, moe_runs[run]["launches"], err, times)
+          for run in ("unsharded", "mesh (1, 1)")
+          for name, case, err, times in (
+              ("flash_attention_fwd", QWEN_TRAIN_CASE, fwd_errs[QWEN_TRAIN_CASE],
+               fwd_times[QWEN_TRAIN_CASE]),
+              *((name, QWEN_BWD_CASE, bwd_errs[(name, QWEN_BWD_CASE)],
+                 bwd_times[QWEN_BWD_CASE][name]) for name in bwd_names))),
     ]
+    # phase 9's mesh paths (four cards): rank 0's launches, at a rank's shapes
+    mesh = multi.get("mesh", {})
+    rank_paths = {
+        "moe_1": (f"mesh train {MOE_ARCH} 1 layer (2, 2), rank 0", QWEN_RANK_CASE, QWEN_RANK_BWD),
+        "moe_4": (f"mesh train {MOE_ARCH} 4 layers (2, 2), rank 0", QWEN_RANK_CASE,
+                  QWEN_RANK_BWD),
+        "griffin": ("mesh train recurrentgemma-9b whole (4,), rank 0", GRIFFIN_RANK_CASE,
+                    GRIFFIN_RANK_BWD),
+        "elastic": ("mesh train stablelm-3b resumed on (2, 2), rank 0", STABLELM_RANK_CASE,
+                    STABLELM_RANK_BWD),
+        "pipeline": ("pipeline stablelm-3b, stage 0", STABLELM_RANK_CASE, None)}
+    for key, (path, fwd_case, bwd_case) in rank_paths.items():
+        if key not in mesh:
+            continue
+        launches = mesh[key]["launches"]
+        entries.append((path, "flash_attention_fwd", fwd_case, launches, fwd_errs[fwd_case],
+                        fwd_times[fwd_case]))
+        if bwd_case is not None:
+            entries += [(path, name, bwd_case, launches, bwd_errs[(name, bwd_case)],
+                         bwd_times[bwd_case][name]) for name in bwd_names]
+        if key == "griffin":
+            entries += [(path, name, LRU_RANK, launches, rec_errs[(name, LRU_RANK)],
+                         rec_times[(name, LRU_RANK)]) for name in ("rg_lru_fwd", "rg_lru_bwd")]
     print(f"launches: serve {serve_launches}, train {train_launches}")
     kernels = [{
         "name": name,

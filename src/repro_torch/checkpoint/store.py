@@ -14,8 +14,12 @@ The reference's layout, functions and guarantees, in numpy and torch:
     bf16 tensor is written as its 2-byte words (a ``V2`` array, "bfloat16" in
     the manifest), which is how numpy writes the reference's bf16 arrays, and
     read back through the same words.
-Elastic restore onto another mesh stays with the 2-D meshes (ROADMAP A9):
-`restore_into` places each leaf on one device.
+Elastic restore: `restore_into(..., sharding_fn=)` lays every leaf out for
+the *current* mesh, whatever mesh wrote it, as the reference's does: each
+rank reads the whole array and keeps what the caller's function cuts from
+it (its shard).  A save stays in the reference's unsharded layout: the
+caller gathers sharded leaves first (every rank takes part, a gather being a
+collective) and one rank writes.
 """
 from __future__ import annotations
 
@@ -106,24 +110,32 @@ def restore(directory: str, step: int | None = None) -> dict:
         return {k: z[k] for k in z.files}
 
 
-def _leaf(arr: np.ndarray, leaf, device):
+def _leaf(arr: np.ndarray, leaf, device, cut=None):
     """`arr` as `leaf` is: a tensor of its dtype on its device (or `device`),
-    or, as in the reference, a numpy array of its dtype."""
+    or, as in the reference, a numpy array of its dtype; with `cut`, what
+    `cut` returns for the whole tensor, on the host in the leaf's dtype."""
     if not isinstance(leaf, torch.Tensor):
         return arr.astype(np.asarray(leaf).dtype)
     t = (torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16) if _bf16_words(arr)
          else torch.from_numpy(arr))
+    if cut is not None:
+        return cut(t.to(leaf.dtype))
     return t.to(device=leaf.device if device is None else device, dtype=leaf.dtype)
 
 
-def restore_into(directory: str, template, step: int | None = None, device=None):
+def restore_into(directory: str, template, step: int | None = None, device=None,
+                 sharding_fn=None):
     """Restore into `template`'s structure (dicts, lists, tuples and
     dataclasses of tensors or numpy arrays).
 
     Each leaf takes the template leaf's dtype, and a tensor leaf its device
     unless `device` is given (a template of meta tensors costs no memory).
-    A key missing from the checkpoint raises KeyError, a shape that differs
-    ValueError, as in the reference."""
+    `sharding_fn(keystr, tensor) -> cut | None` lays a tensor leaf out for
+    the *current* mesh (elastic restart): `cut(whole)` takes the whole
+    tensor, on the host in the template leaf's dtype, and returns what this
+    rank keeps of it (its shard, on its device).  A key missing from the
+    checkpoint raises KeyError, a shape that differs ValueError, as in the
+    reference."""
     raw = restore(directory, step)
 
     def build(node, prefix: str):
@@ -145,7 +157,9 @@ def restore_into(directory: str, template, step: int | None = None, device=None)
         if tuple(arr.shape) != shape:
             raise ValueError(f"{prefix}: checkpoint shape {arr.shape} != "
                              f"template {shape}")
-        return _leaf(arr, node, device)
+        cut = (None if sharding_fn is None or not isinstance(node, torch.Tensor)
+               else sharding_fn(prefix, node))
+        return _leaf(arr, node, device, cut)
 
     return build(template, "")
 

@@ -11,6 +11,11 @@ movement: the result equals the library's bit for bit.
 On an OCS fabric each step is a single hop after a BRIDGE reconfiguration;
 on a static ring the offset-2^k shift crosses min(2^k, n - 2^k) hops, the
 same h_k the cost model scores.
+
+The exchange is differentiable (the MoE's expert-parallel dispatch runs it
+inside the model): an all-to-all is its own transpose, so the gradient of
+the output comes back to the input through the same exchange.
+`bruck_all_to_all.calls` counts exchanges, forward and backward alike.
 """
 from __future__ import annotations
 
@@ -21,8 +26,8 @@ from repro_torch.core.bruck import num_steps
 from .bruck_rs_ag import _world, shift
 
 
-def bruck_all_to_all(x: torch.Tensor, group=None) -> torch.Tensor:
-    """Log-step all-to-all; x.shape[0] must equal the group size."""
+def _exchange(x: torch.Tensor, group) -> torch.Tensor:
+    bruck_all_to_all.calls += 1
     n, i = _world(group)
     if x.shape[0] != n:
         raise ValueError(f"leading dim {x.shape[0]} != group size {n}")
@@ -43,3 +48,26 @@ def bruck_all_to_all(x: torch.Tensor, group=None) -> torch.Tensor:
     # Phase 3 — inverse rotation: after phase 2, slot j holds the block destined
     # for me that originated at (i - j) % n, so out[p] = buf[(i - p) % n].
     return buf[(i - slots) % n]
+
+
+class _AllToAll(torch.autograd.Function):
+    """The exchange with its backward: row p of the output on rank i is row i
+    of rank p's input, so d input[j] on rank i is d output[i] on rank j, which
+    is the exchange applied to the gradient."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _exchange(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _exchange(g.contiguous(), ctx.group), None
+
+
+def bruck_all_to_all(x: torch.Tensor, group=None) -> torch.Tensor:
+    """Log-step all-to-all; x.shape[0] must equal the group size."""
+    return _AllToAll.apply(x, group)
+
+
+bruck_all_to_all.calls = 0

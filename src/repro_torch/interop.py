@@ -83,8 +83,8 @@ def _layout(model: Model, leaf, stack) -> dict:
         return {k: stack_reps([t[k] for t in trees]) if isinstance(v, dict) else
                 stack([t[k] for t in trees]) for k, v in trees[0].items()}
 
-    def block_tree(block) -> dict:
-        return {name: leaves(block[name]) for name, _ in block.named_children()}
+    def block_tree(block) -> dict:  # the parameters themselves, never gathered copies
+        return {name: leaves(sub) for name, sub in block.named_children()}
 
     cfg = model.cfg
     tree = {"embed": leaves(model.embed)}
@@ -138,6 +138,27 @@ def tree_from_tensors(model: Model, tensors) -> dict:
         return torch.stack(ts)
 
     return _layout(model, lambda _, p: tensors[index[id(p)]], stack)
+
+
+def leaf_parameters(model: Model) -> dict:
+    """{keystr: what the leaf holds} for every leaf of `model`'s JAX tree
+    layout, each path written as `jax.tree_util.keystr` writes it (as the
+    checkpoint keys its arrays): a parameter, or the list of parameters that
+    a stacked leaf holds (one per block of its segment)."""
+    out = {}
+
+    def walk(slot, key: str):
+        if isinstance(slot, dict):
+            for k, v in slot.items():
+                walk(v, f"{key}[{k!r}]")
+        elif isinstance(slot, torch.Tensor) or isinstance(slot[0], torch.Tensor):
+            out[key] = slot
+        else:
+            for i, v in enumerate(slot):
+                walk(v, f"{key}[{i}]")
+
+    walk(_layout(model, lambda _, p: p, list), "")
+    return out
 
 
 def tensors_from_tree(model: Model, tree: dict) -> list:

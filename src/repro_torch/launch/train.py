@@ -1,9 +1,16 @@
-"""Training driver of the port: data-parallel train loop with BRIDGE gradient
-sync over `torch.distributed`.
+"""Training driver of the port: the train loop with BRIDGE gradient sync over
+`torch.distributed`, on a mesh or not.
 
-The port of `repro.launch.train`.  Every rank holds the whole model and
-computes the loss and gradients of its rows of the global batch; gradients
-are then summed across ranks and divided by the world size:
+The port of `repro.launch.train`.  The world is `torch.distributed` when it
+is initialised (`torchrun`), else one rank; ranks run on `cuda:{LOCAL_RANK}`
+(NCCL), or on the CPU (gloo) when `device="cpu"`.  Each rank computes the
+loss and gradients of its rows of `SyntheticLM.global_batch` (rank i of n
+takes rows [i B/n, (i+1) B/n), so the global batch does not depend on the
+layout), and the loss and metrics are averaged across the ranks that hold
+distinct rows, as `pmean` does.
+
+Without `mesh_shape` every rank holds the whole model and gradients are
+summed across ranks and divided by the world size:
   gspmd  : the library all-reduce, `dist.all_reduce(SUM)` — the counterpart
            of the all-reduce the reference's GSPMD inserts;
   bridge : the paper's technique.  `gradient_sync_plan` picks, under the
@@ -13,19 +20,34 @@ are then summed across ranks and divided by the world size:
   bridge-compressed : the int8 all-reduce with error feedback
            (`compressed_all_reduce`), the residuals kept across steps from
            zero; it quantizes on one rank too, as the reference does.
-The loss and metrics are averaged across ranks, as `pmean` does.
+(The reference's default is a `(device_count,)` 'data' mesh; the math is the
+same, the layout differs: pass `mesh_shape=(n,), mesh_axes=("data",)` for
+the reference's layout.)
 
-The world is `torch.distributed` when it is initialised (`torchrun`), else one
-rank.  Rank r takes rows [r B/n, (r+1) B/n) of `SyntheticLM.global_batch`, so
-the global batch does not depend on the world size.  Ranks run on
-`cuda:{LOCAL_RANK}` (NCCL), or on the CPU (gloo) when `device="cpu"`.
+With `mesh_shape` / `mesh_axes` (a `DeviceMesh` over the whole world,
+`launch.mesh`):
+  gspmd  : the parameters and AdamW moments live only as their shards under
+           the rule table (`launch.shardings.shard_model`), gathered where
+           the model reads them; every rank takes distinct rows (the model
+           group of each data shard splits that shard's rows), the gradient
+           of each shard comes back summed over the ranks and is divided by
+           the world size; a 'model' axis runs the MoE's experts in parallel
+           over it (`models.moe`).
+  bridge, bridge-compressed : as the reference's `shard_map`: parameters
+           replicated, the batch split over 'data' (the ranks of one data
+           shard compute the same rows), gradients summed over the 'data'
+           subgroup by the paper's collectives.
+Under `gspmd` (mesh or not) the MoE forms the reference's global token
+groups across ranks (`models.sharding.TokenSplit`); the `bridge` modes keep
+each rank's own groups, as the reference's per-shard `loss_fn` does.
 
 Checkpoint/restart as the reference's: with `checkpoint_dir`, a run resumes
-from the newest step found there (the parameters written into the model in
-place, the AdamW state onto the device) and saves `{"params", "opt"}` every
-`checkpoint_every` steps in the reference's train-state layout (rank 0
-writes), so a checkpoint of either package resumes in the other.  Not ported
-yet, and refused with NotImplementedError: 2-D meshes (ROADMAP A9).
+from the newest step found there, whatever layout wrote it (elastic
+restart: each rank keeps its shard of every leaf, `restore_into(...,
+sharding_fn=)`), and saves `{"params", "opt"}` every `checkpoint_every` steps
+in the reference's unsharded train-state layout (sharded leaves are gathered
+by every rank, rank 0 writes), so a checkpoint of either package resumes in
+the other.
 
 Run (random weights from a seed, scaled-down config unless --scale full):
   PYTHONPATH=src python -m repro_torch.launch.train            # rwkv6-3b
@@ -45,6 +67,8 @@ import time
 import torch
 import torch.distributed as dist
 
+from torch.distributed.tensor import DTensor, Shard
+
 from repro_torch import configs, interop
 from repro_torch._device import resolve_device
 from repro_torch.checkpoint import latest_step, restore_into, save
@@ -54,7 +78,11 @@ from repro_torch.collectives import (bruck_all_reduce, compressed_all_reduce,
 from repro_torch.core.cost_model import H100_NVLINK
 from repro_torch.data import SyntheticLM
 from repro_torch.models.model import Model, init_params, loss_fn
+from repro_torch.models.sharding import TokenSplit, activation_sharding
 from repro_torch.optim import AdamWState, adamw_init, adamw_update, cosine_warmup_schedule
+
+from .mesh import axis_sizes, make_mesh
+from .shardings import activation_rules, local_shard, shard_model
 
 
 @dataclasses.dataclass
@@ -82,9 +110,11 @@ GRAD_SYNCS = ("gspmd", "bridge", "bridge-compressed")
 def _check_supported(tc: TrainConfig) -> None:
     if tc.grad_sync not in GRAD_SYNCS:
         raise ValueError(f"grad_sync must be one of {GRAD_SYNCS}, got {tc.grad_sync!r}")
-    if tc.mesh_shape:
-        raise NotImplementedError("mesh_shape: 2-D meshes are not ported to PyTorch "
-                                  "yet: ROADMAP A9")
+    if len(tc.mesh_shape) != len(tc.mesh_axes):
+        raise ValueError(f"mesh_shape {tc.mesh_shape} and mesh_axes {tc.mesh_axes}")
+    if tc.mesh_shape and tc.grad_sync != "gspmd" and "data" not in tc.mesh_axes:
+        raise ValueError(f"{tc.grad_sync} syncs over a 'data' axis: mesh_axes "
+                         f"{tc.mesh_axes}")
 
 
 def model_config(tc: TrainConfig):
@@ -97,11 +127,12 @@ def model_config(tc: TrainConfig):
 
 @dataclasses.dataclass(frozen=True)
 class World:
-    """The data-parallel group (the default process group): its size and this
-    process's rank in it."""
+    """A group of ranks (`group`; None: the default process group): its size
+    and this process's rank in it."""
 
     size: int = 1
     rank: int = 0
+    group: object = None
 
 
 def current_world() -> World:
@@ -110,14 +141,42 @@ def current_world() -> World:
     return World()
 
 
+@dataclasses.dataclass(frozen=True)
+class Layout:
+    """Where a step's work lies.  `rows`: the ranks that hold distinct rows
+    of the global batch (this rank's rows are its share of them; the loss
+    and metrics are averaged over them); `sync`: the group whose gradients
+    are summed by `sync_gradients` (None where the parameters are sharded
+    and the sums come back with the shards); `split`: what the model reads
+    (gspmd's global MoE groups, the expert-parallel group)."""
+
+    rows: World
+    sync: World | None
+    sharded: bool
+    split: TokenSplit | None
+
+
+def layout(tc: TrainConfig, world: World, mesh) -> Layout:
+    if mesh is None:
+        split = (TokenSplit(tc.batch_size // world.size)
+                 if tc.grad_sync == "gspmd" and world.size > 1 else None)
+        return Layout(world, world, False, split)
+    if tc.grad_sync == "gspmd":
+        experts = mesh.get_group("model") if "model" in axis_sizes(mesh) else None
+        return Layout(world, None, True,
+                      TokenSplit(tc.batch_size // world.size, experts=experts))
+    data = World(mesh["data"].size(), mesh.get_local_rank("data"), mesh.get_group("data"))
+    return Layout(data, data, False, None)
+
+
 def sync_gradients(grads: list[torch.Tensor], grad_sync: str, world: World,
                    ef_state: list[torch.Tensor] | None = None):
     """Sum gradient leaves across the world and divide by its size.  Returns
     (grads, ef_state): `bridge-compressed` reads and replaces the error
     feedback residuals, the other modes pass them through."""
-    n = world.size
+    n, group = world.size, world.group
     if grad_sync == "bridge-compressed":
-        grads, ef_state = compressed_all_reduce(grads, ef_state)
+        grads, ef_state = compressed_all_reduce(grads, ef_state, group)
         for g in grads:  # f32 sums of this call's own: divided in place
             g /= n
         return grads, ef_state
@@ -125,46 +184,53 @@ def sync_gradients(grads: list[torch.Tensor], grad_sync: str, world: World,
         return grads, ef_state
     if grad_sync == "gspmd":
         for g in grads:
-            dist.all_reduce(g, op=dist.ReduceOp.SUM)
+            dist.all_reduce(g, op=dist.ReduceOp.SUM, group=group)
     else:
         plan = gradient_sync_plan(
             n, sum(g.numel() * g.element_size() for g in grads), H100_NVLINK)
         if plan.impl == "bruck":
-            grads = [bruck_all_reduce(g, plan.rs_schedule, plan.ag_schedule)
+            grads = [bruck_all_reduce(g, plan.rs_schedule, plan.ag_schedule, group)
                      for g in grads]
         elif plan.impl == "ring":
-            grads = [ring_all_reduce(g) for g in grads]
+            grads = [ring_all_reduce(g, group) for g in grads]
         else:
             for g in grads:
-                dist.all_reduce(g, op=dist.ReduceOp.SUM)
+                dist.all_reduce(g, op=dist.ReduceOp.SUM, group=group)
     return [g / n for g in grads], ef_state
 
 
 def _pmean(x: torch.Tensor, world: World) -> torch.Tensor:
     x = x.detach().clone()
     if world.size > 1:
-        dist.all_reduce(x, op=dist.ReduceOp.SUM)
+        dist.all_reduce(x, op=dist.ReduceOp.SUM, group=world.group)
         x /= world.size
     return x
 
 
-def make_train_step(cfg, tc: TrainConfig, world: World):
+def make_train_step(cfg, tc: TrainConfig, lay: Layout, mesh=None):
     """step(model, opt_state, batch, ef) -> (opt_state, metrics, ef); the
     model's parameters are updated in place, and `ef` is the error feedback
     state of `bridge-compressed` (None for the other modes)."""
     lr = cosine_warmup_schedule(tc.lr, tc.warmup, tc.steps)
+    rules = {} if mesh is None else activation_rules(mesh)
 
     def step(model: Model, opt_state, batch: dict, ef=None):
         params = list(model.parameters())
         for p in params:
             p.grad = None
-        loss, metrics = loss_fn(cfg, model, batch)
-        loss.backward()
-        grads, ef = sync_gradients([p.grad for p in params], tc.grad_sync, world, ef)
-        metrics = {k: _pmean(m, world) for k, m in metrics.items()}
+        # the backward too: the remat recompute reads the split
+        with activation_sharding(mesh, rules, lay.split):
+            loss, metrics = loss_fn(cfg, model, batch)
+            loss.backward()
+        grads = [p.grad for p in params]
+        if lay.sync is not None:
+            grads, ef = sync_gradients(grads, tc.grad_sync, lay.sync, ef)
+        elif lay.rows.size > 1:  # sharded: the shards came back summed over the ranks
+            grads = [g / lay.rows.size for g in grads]
+        metrics = {k: _pmean(m, lay.rows) for k, m in metrics.items()}
         _, opt_state, om = adamw_update(grads, opt_state, params, lr)
         metrics.update(om)
-        metrics["loss"] = _pmean(loss, world)
+        metrics["loss"] = _pmean(loss, lay.rows)
         return opt_state, metrics, ef
 
     return step
@@ -181,19 +247,69 @@ def state_tree(model: Model, opt_state: AdamWState, params=None) -> dict:
                               v=interop.tree_from_tensors(model, opt_state.v))}
 
 
+def _whole(params: list, tensors: list, keep: bool) -> list:
+    """`tensors`, one per parameter, whole: a sharded parameter's (or its
+    moment's) shards gathered, a collective every rank takes part in; kept
+    on the host where `keep`, else as meta tensors of the whole shape."""
+    out = []
+    for p, t in zip(params, tensors, strict=True):
+        if isinstance(p, DTensor):
+            if not isinstance(t, DTensor):  # a moment: this rank's shard
+                t = DTensor.from_local(t, p.device_mesh, p.placements, run_check=False)
+            t = t.full_tensor()
+        out.append(t.detach().cpu() if keep else torch.empty_like(t, device="meta"))
+    return out
+
+
+def whole_state(model: Model, opt_state: AdamWState, keep: bool = True) -> dict:
+    """`state_tree` of a sharded model: every rank gathers, and the ranks that
+    `keep` hold the unsharded tree on the host."""
+    params = list(model.parameters())
+    return state_tree(model, AdamWState(step=opt_state.step.detach().cpu(),
+                                        m=_whole(params, opt_state.m, keep),
+                                        v=_whole(params, opt_state.v, keep)),
+                      _whole(params, params, keep))
+
+
+def _sharding_fn(model: Model):
+    """restore_into's sharding_fn for the train state of a sharded `model`: a
+    leaf of the params or of a moment is cut as its parameter is sharded (its
+    `placements`; a leaf that stacks a segment's blocks one dim further in),
+    and this rank's shard goes to the model's device; the step stays whole."""
+    cuts = {}
+    for key, held in interop.leaf_parameters(model).items():
+        lead = int(isinstance(held, list))
+        p = held[0] if lead else held
+        pl = tuple(Shard(q.dim + lead) if isinstance(q, Shard) else q for q in p.placements)
+        cuts[key] = (lambda whole, mesh=p.device_mesh, pl=pl:
+                     local_shard(whole, mesh, pl).to(model.device))
+
+    def fn(key: str, _tensor):
+        for head in ("['params']", "['opt'].m", "['opt'].v"):
+            if key.startswith(head):
+                return cuts[key[len(head):]]
+        return None
+
+    return fn
+
+
 def restore_state(directory: str, step: int, model: Model) -> AdamWState:
     """Restore the train state of `step`: the parameters are written into
-    `model` in place, and the AdamW state comes back on the model's device."""
+    `model` in place, and the AdamW state comes back on the model's device;
+    on a sharded model each rank keeps its shards, whatever layout wrote the
+    checkpoint."""
     params = list(model.parameters())
-    meta = [torch.empty_like(p, device="meta") for p in params]
-    f32 = [torch.empty_like(p, dtype=torch.float32, device="meta") for p in params]
+    meta = [torch.empty(p.shape, dtype=p.dtype, device="meta") for p in params]
+    f32 = [torch.empty(p.shape, dtype=torch.float32, device="meta") for p in params]
     template = state_tree(model, AdamWState(
         step=torch.zeros((), dtype=torch.int32, device="meta"), m=f32, v=f32), meta)
-    state = restore_into(directory, template, step=step, device=model.device)
+    sharded = isinstance(params[0], DTensor)  # shard_model makes every parameter one
+    state = restore_into(directory, template, step=step, device=model.device,
+                         sharding_fn=_sharding_fn(model) if sharded else None)
     with torch.no_grad():
         for p, value in zip(params, interop.tensors_from_tree(model, state["params"]),
                             strict=True):
-            p.copy_(value)
+            (p.to_local() if isinstance(p, DTensor) else p).copy_(value)
     opt = state["opt"]
     return AdamWState(step=opt.step, m=interop.tensors_from_tree(model, opt.m),
                       v=interop.tensors_from_tree(model, opt.v))
@@ -216,16 +332,19 @@ def train(tc: TrainConfig, progress=print, device=None, model: Model | None = No
     the whole one does not fit a card (it must live on `device` and match
     `tc`'s config but for `num_layers`, whose value it keeps); by default the
     weights are drawn from `tc.seed`.  Either way, rank 0's weights are
-    broadcast so every rank starts from the same ones."""
+    broadcast so every rank starts from the same ones; on a `gspmd` mesh each
+    rank then keeps its shards and the whole copy is freed."""
     _check_supported(tc)
     cfg = model_config(tc)
-    world = current_world()
     dev = _rank_device(device)
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
-    if tc.batch_size % world.size:
+    mesh = make_mesh(tc.mesh_shape, tc.mesh_axes, dev) if tc.mesh_shape else None
+    world = current_world()
+    lay = layout(tc, world, mesh)
+    if tc.batch_size % lay.rows.size:
         raise ValueError(f"global batch {tc.batch_size} does not split over "
-                         f"{world.size} ranks")
+                         f"{lay.rows.size} ranks")
     data = SyntheticLM(cfg.vocab_size, tc.seq_len, seed=tc.seed)
 
     if model is None:
@@ -239,10 +358,12 @@ def train(tc: TrainConfig, progress=print, device=None, model: Model | None = No
         with torch.no_grad():
             for p in model.parameters():
                 dist.broadcast(p.data, src=0)
+    if lay.sharded:
+        shard_model(model, mesh)
     opt_state = adamw_init(list(model.parameters()))
     ef = (make_error_feedback_state(list(model.parameters()))
           if tc.grad_sync == "bridge-compressed" else None)
-    step_fn = make_train_step(cfg, tc, world)
+    step_fn = make_train_step(cfg, tc, lay, mesh)
 
     start = 0
     if tc.checkpoint_dir:
@@ -253,12 +374,12 @@ def train(tc: TrainConfig, progress=print, device=None, model: Model | None = No
             start = last
             progress(f"resumed from step {start} ({time.perf_counter() - t0:.4f} s)")
 
-    per_rank = tc.batch_size // world.size
-    rows = slice(world.rank * per_rank, (world.rank + 1) * per_rank)
+    per_rank = tc.batch_size // lay.rows.size
+    rows = slice(lay.rows.rank * per_rank, (lay.rows.rank + 1) * per_rank)
     losses = []
     for step in range(start, tc.steps):
-        # one stream per example: the global batch is identical for any world
-        # size (the rows of this rank are cut from it)
+        # one stream per example: the global batch is identical for any layout
+        # (the rows of this rank are cut from it)
         host_batch = data.global_batch(step, tc.batch_size, 1)
         batch = {k: torch.from_numpy(v[rows]).to(dev) for k, v in host_batch.items()}
         t0 = time.perf_counter()
@@ -268,10 +389,18 @@ def train(tc: TrainConfig, progress=print, device=None, model: Model | None = No
         losses.append(loss)
         progress(f"step {step:5d} loss {loss:.4f} "
                  f"gnorm {float(metrics['grad_norm']):.3f} dt {dt:.4f}s")
-        if tc.checkpoint_dir and (step + 1) % tc.checkpoint_every == 0 and world.rank == 0:
+        if tc.checkpoint_dir and (step + 1) % tc.checkpoint_every == 0:
             t0 = time.perf_counter()
-            path = save(tc.checkpoint_dir, step + 1, state_tree(model, opt_state))
-            progress(f"saved step {step + 1} to {path} ({time.perf_counter() - t0:.4f} s)")
+            if lay.sharded:  # every rank gathers, rank 0 writes
+                tree = whole_state(model, opt_state, keep=world.rank == 0)
+            elif world.rank == 0:
+                tree = state_tree(model, opt_state)
+            if world.rank == 0:
+                path = save(tc.checkpoint_dir, step + 1, tree)
+                progress(f"saved step {step + 1} to {path} "
+                         f"({time.perf_counter() - t0:.4f} s)")
+            if world.size > 1:  # no rank resumes before the step is written
+                dist.barrier()
     return model, opt_state, losses
 
 

@@ -38,7 +38,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from .._device import resolve_device
-from . import attention, layers, moe, recurrent
+from . import attention, layers, moe, recurrent, sharding
 from .config import ArchConfig
 
 _KINDS = ("attn", "local", "mla", "rglru", "rwkv6")
@@ -87,7 +87,9 @@ class Block(nn.Module):
     """One layer: norm1, mix (attention), norm2, ffn — each a ParameterDict.
 
     Indexing by name (`block["mix"]`, `block["ffn"]["dense"]`) mirrors the
-    JAX parameter dicts."""
+    JAX parameter dicts; on a sharded model it gathers the group's
+    parameters (`sharding.gathered`), so the gather runs where the block
+    reads them, inside its remat."""
 
     def __init__(self, kind: str, params: dict):
         super().__init__()
@@ -96,7 +98,7 @@ class Block(nn.Module):
             self.add_module(name, _trainable(sub))
 
     def __getitem__(self, name: str) -> nn.ParameterDict:
-        return getattr(self, name)
+        return sharding.gathered(getattr(self, name))
 
     def __contains__(self, name: str) -> bool:
         return name in self._modules
@@ -132,6 +134,11 @@ class Model(nn.Module):
     @property
     def device(self) -> torch.device:
         return self.embed["table"].device
+
+    def __getitem__(self, name: str):
+        """A top-level group (`embed`, `unembed`, `final_norm`, `patch_proj`)
+        as the forward reads it: gathered on a sharded model."""
+        return sharding.gathered(getattr(self, name))
 
 
 def _init_ffn(cfg: ArchConfig, generator, dtype) -> dict:
@@ -277,7 +284,7 @@ def apply_block(cfg: ArchConfig, p: Block, kind: str, x, positions, *, cache=Non
         cache["mix"] = new_mix
         if kind == "rwkv6":
             cache["cmix"] = new_cmix
-    return x + y, cache, aux
+    return sharding.shard(x + y, "act"), cache, aux
 
 
 # --- public entry points ----------------------------------------------------------------
@@ -293,13 +300,14 @@ class ModelOutput:
 def _embed_inputs(cfg: ArchConfig, params: Model, batch: dict):
     """(x, positions): the token embeddings, after the projected patches
     where the frontend is `patch_stub` and the batch has `patches`."""
-    x = layers.embed(params.embed, batch["tokens"].long()) * (cfg.d_model ** 0.5)
+    x = layers.embed(params["embed"], batch["tokens"].long()) * (cfg.d_model ** 0.5)
     x = x.to(getattr(torch, cfg.dtype))
     if cfg.frontend == "patch_stub" and "patches" in batch:
-        px = layers.linear(params.patch_proj, batch["patches"])
+        px = layers.linear(params["patch_proj"], batch["patches"])
         x = torch.cat([px.to(x.dtype), x], dim=1)
     b, s = x.shape[:2]
-    return x, torch.arange(s, dtype=torch.int32, device=x.device).expand(b, s)
+    return sharding.shard(x, "act"), torch.arange(s, dtype=torch.int32,
+                                                  device=x.device).expand(b, s)
 
 
 def _encode(cfg: ArchConfig, params: Model, frames):
@@ -310,7 +318,7 @@ def _encode(cfg: ArchConfig, params: Model, frames):
     positions = torch.arange(s, dtype=torch.int32, device=x.device).expand(b, s)
     for block in params.encoder:
         x, _, _ = apply_block(cfg, block, "attn", x, positions, bidirectional=True)
-    return layers.rmsnorm(params.final_norm, x)
+    return layers.rmsnorm(params["final_norm"], x)
 
 
 def forward(cfg: ArchConfig, params: Model, batch: dict, *, caches=None,
@@ -344,9 +352,10 @@ def forward(cfg: ArchConfig, params: Model, batch: dict, *, caches=None,
             x, _, aux = apply_block(cfg, block, block.kind, x, positions, cache=cache,
                                     enc_out=enc_out)
         total_aux = total_aux + aux
-    x = layers.rmsnorm(params.final_norm, x)
-    head = params.embed if cfg.tied_embeddings else params.unembed
-    return ModelOutput(logits=layers.unembed(head, x), caches=caches,
+    x = layers.rmsnorm(params["final_norm"], x)
+    head = params["embed"] if cfg.tied_embeddings else params["unembed"]
+    logits = sharding.shard(layers.unembed(head, x), "logits")
+    return ModelOutput(logits=logits, caches=caches,
                        aux_loss=torch.as_tensor(total_aux, dtype=torch.float32,
                                                 device=x.device))
 

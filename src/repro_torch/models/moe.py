@@ -20,15 +20,54 @@ the reference, so a step reads every expert's weights.
 The group axis is a leading batch axis of `_moe_groups`: groups run one
 after another (`vectorize_groups=False`, the reference's `lax.map`) or all
 at once (`jax.vmap`), with the same arithmetic per group.
+
+Groups across ranks.  The reference's `gspmd` step runs `moe_ffn` on the
+global batch, so its groups are cut from the global token order (rows in
+order, then positions).  Where the launcher installs a `TokenSplit` (the
+port's `gspmd` on several ranks, on a mesh or not; `models.sharding`), rank
+i holds tokens [i t, (i + 1) t) of that order, and the port forms the same
+groups:
+  - a rank whose t tokens are a whole number of groups dispatches them as
+    it would alone;
+  - otherwise (a group spans ranks: t is not a multiple of the group) the
+    ranks gather every rank's tokens (an all-gather over the split, whose
+    backward sums the gathered gradient back to each rank's rows), cut the
+    global groups, run the groups that hold any of their rows, and each
+    keeps its own rows of the output.  Under expert parallelism a rank runs
+    the groups that hold rows of any rank of its 'model' group (the same
+    groups on every peer, so that their exchanges pair up); a group without
+    rows of its own adds nothing to its output, gradients or aux loss.
+The Switch aux loss is a mean over the global groups, which is not a mean
+of per-rank means when groups span ranks; each rank returns its share in
+the form whose mean over ranks is the global mean: n / n_groups times the
+sum of its groups' terms, each weighted by the fraction of the group's
+tokens that are its own (1 for a rank holding whole groups alone: its own
+mean).  The capacity C follows the global group size.  Without a split (one
+rank, and the `bridge` modes, whose reference runs `loss_fn` per shard
+inside `shard_map`) the groups are the rank's own.
+
+Expert parallelism.  On a mesh with a 'model' axis the expert stacks stay
+sharded over it (E/tp experts a rank, `launch.shardings`) and the split
+names the 'model' group.  Each rank dispatches its groups to (E, n C, d)
+slots, regroups them as (tp, E/tp, n C, d) and exchanges them with the
+Bruck all-to-all (`collectives.bruck_all_to_all`, differentiable), runs its
+E/tp experts over the slots of every peer, exchanges the results back and
+combines: the All-to-All that the reference's GSPMD lowers its dispatch
+to.  With tp = 1 the exchange returns its input and the arithmetic is the
+unsharded path's.
 """
 from __future__ import annotations
 
 import math
 
 import torch
+import torch.distributed as dist
+import torch.distributed.nn.functional as dist_nn
 import torch.nn.functional as F
 
-from . import layers
+from repro_torch.collectives import bruck_all_to_all
+
+from . import layers, sharding
 from .config import ArchConfig, MoEConfig
 
 
@@ -77,8 +116,28 @@ def route(p, xg, m: MoEConfig):
     return probs, top_p, top_i, pos, pos < _capacity(g, m)
 
 
-def _moe_groups(p, xg, m: MoEConfig):
-    """xg: (n, G, d), n groups.  Returns (yg (n, G, d), aux (n,))."""
+def _experts(p, xe, dtype):
+    """The expert FFNs on their slots: xe (E, rows, d) -> (E, rows, d)."""
+    h = layers.dot(xe, p["w_gate"])
+    u = layers.dot(xe, p["w_up"])
+    return layers.dot((F.silu(h) * u).to(dtype), p["w_down"]).to(dtype)
+
+
+def _expert_parallel(p, xe, dtype, group):
+    """`_experts` with this rank's E/tp experts: every rank's slots for them
+    come in through the all-to-all over `group` and their results go back."""
+    tp = dist.get_world_size(group)
+    e, rows, d = xe.shape
+    mine = bruck_all_to_all(xe.reshape(tp, e // tp, rows, d), group)  # (peer, E/tp, ...)
+    ye = _experts(p, mine.transpose(0, 1).reshape(e // tp, tp * rows, d), dtype)
+    back = ye.reshape(e // tp, tp, rows, d).transpose(0, 1).contiguous()
+    return bruck_all_to_all(back, group).reshape(e, rows, d)
+
+
+def _moe_groups(p, xg, m: MoEConfig, experts_group=None):
+    """xg: (n, G, d), n groups.  Returns (yg (n, G, d), aux (n,)).  With
+    `experts_group`, `p`'s expert stacks are this rank's E/tp experts of
+    that group (expert parallelism)."""
     n, g, d = xg.shape
     e, k, dtype = m.num_experts, m.top_k, xg.dtype
     c = _capacity(g, m)
@@ -93,9 +152,8 @@ def _moe_groups(p, xg, m: MoEConfig):
     xe = torch.matmul(disp.mT, xg)                                      # (n, E*C, d)
     # experts: (E, n*C, d) @ (E, d, f), f32 accumulation
     xe = xe.reshape(n, e, c, d).transpose(0, 1).reshape(e, n * c, d)
-    h = layers.dot(xe, p["w_gate"])
-    u = layers.dot(xe, p["w_up"])
-    ye = layers.dot((F.silu(h) * u).to(dtype), p["w_down"]).to(dtype)
+    ye = (_experts(p, xe, dtype) if experts_group is None else
+          _expert_parallel(p, xe, dtype, experts_group))
     ye = ye.reshape(e, n, c, d).transpose(0, 1).reshape(n, e * c, d)
 
     combine = torch.zeros((n, g, e * c), dtype=dtype, device=xg.device)
@@ -108,25 +166,73 @@ def _moe_groups(p, xg, m: MoEConfig):
     return yg, aux
 
 
-def moe_ffn(cfg: ArchConfig, p, x):
-    """x: (B, S, d).  Returns (y, aux_loss)."""
-    m = cfg.moe
-    b, s, d = x.shape
-    flat = x.reshape(b * s, d)
-    gs = min(m.group_size, flat.shape[0])
+def _grouped(p, flat, gs: int, m: MoEConfig, experts_group):
+    """flat (t, d) cut into groups of gs (the last zero-padded).  Returns
+    (y (t, d), aux (groups,))."""
+    d = flat.shape[1]
     pad = (-flat.shape[0]) % gs
     if pad:
         flat = torch.cat([flat, flat.new_zeros((pad, d))])
     groups = flat.reshape(-1, gs, d)
     if m.vectorize_groups or groups.shape[0] == 1:
-        y, aux = _moe_groups(p, groups, m)
+        y, aux = _moe_groups(p, groups, m, experts_group)
     else:  # one group after another
-        outs = [_moe_groups(p, groups[i:i + 1], m) for i in range(groups.shape[0])]
+        outs = [_moe_groups(p, groups[i:i + 1], m, experts_group)
+                for i in range(groups.shape[0])]
         y, aux = (torch.cat(t) for t in zip(*outs, strict=True))
     y = y.reshape(-1, d)
-    if pad:
-        y = y[:-pad]
+    return (y[:-pad] if pad else y), aux
+
+
+def _experts_group(p, m: MoEConfig, split):
+    """The expert-parallel group where `p`'s stacks are this rank's E/tp
+    experts of the split's 'model' group, else None."""
+    if split is None or split.experts is None:
+        return None
+    e_local, tp = p["w_gate"].shape[0], dist.get_world_size(split.experts)
+    if e_local * tp == m.num_experts:
+        return split.experts
+    if e_local == m.num_experts:  # the rule's guard left E whole
+        return None
+    raise ValueError(f"{e_local} experts a rank over {tp} ranks, of {m.num_experts}")
+
+
+def _peers(split, ep) -> list[int]:
+    """The ranks, in the split's group, of the expert-parallel group `ep`."""
+    ranks = dist.get_process_group_ranks(ep)
+    return ranks if split.group is None else [dist.get_group_rank(split.group, r)
+                                              for r in ranks]
+
+
+def moe_ffn(cfg: ArchConfig, p, x):
+    """x: (B, S, d).  Returns (y, aux_loss)."""
+    m = cfg.moe
+    b, s, d = x.shape
+    flat = x.reshape(b * s, d)
+    split = sharding.token_split()
+    n = 1 if split is None else dist.get_world_size(split.group)
+    ep = _experts_group(p, m, split)
+    t = flat.shape[0]
+    gs = min(m.group_size, n * t)
+    if t % gs == 0 or n == 1:  # this rank's groups are its own
+        y, aux = _grouped(p, flat, gs, m, ep)
+        aux = torch.mean(aux)
+    else:  # a group spans ranks: cut the global groups from every rank's tokens
+        total, rank = n * t, dist.get_rank(split.group)
+        lo, hi = rank * t, (rank + 1) * t
+        # the groups that hold this rank's rows, or, under expert parallelism,
+        # any rows of its exchange's peers: every peer runs the same groups
+        ranks = [rank] if ep is None else _peers(split, ep)
+        first, last = min(ranks) * t // gs, ((max(ranks) + 1) * t - 1) // gs
+        gathered = torch.cat(dist_nn.all_gather(flat, split.group))
+        y, aux_g = _grouped(p, gathered[first * gs:min((last + 1) * gs, total)], gs, m, ep)
+        y = y[lo - first * gs:hi - first * gs]
+        n_groups = -(-total // gs)
+        weights = [max(0, min(hi, (g + 1) * gs) - max(lo, g * gs)) * n
+                   / ((min(total, (g + 1) * gs) - g * gs) * n_groups)
+                   for g in range(first, last + 1)]
+        aux = sum(a * w for a, w in zip(aux_g, weights, strict=True))
     y = y.reshape(b, s, d)
     if "dense" in p:  # Arctic dense residual
         y = y + layers.swiglu(p["dense"], x)
-    return y, torch.mean(aux)
+    return y, aux

@@ -10,6 +10,15 @@ place under `torch.no_grad()`, and scales each gradient leaf by the clip
 factor as it goes instead of materialising all clipped leaves first (the
 same numbers, without an f32 copy of every gradient).  `torch.optim.AdamW`
 is not used: its defaults and its clipping differ from the reference.
+
+Sharded parameters (DTensors, `launch.shardings.shard_model`) are updated on
+their local shards, with moments of the shard's shape: AdamW is elementwise,
+so each shard's arithmetic is the reference's.  The global gradient norm
+sums the squares of every rank's shards and all-reduces the sum over the
+mesh (the whole world); a leaf replicated over mesh axes (norms, biases, the
+router over 'model', any leaf whose rule's guard dropped an axis) holds the
+same gradient on each of its copies, so its square sum is divided by its
+number of copies and the leaf counts once.
 """
 from __future__ import annotations
 
@@ -18,6 +27,8 @@ import math
 from typing import Callable, Sequence
 
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, Replicate
 
 
 @dataclasses.dataclass
@@ -27,16 +38,35 @@ class AdamWState:
     v: list[torch.Tensor]
 
 
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's shard on this rank; any other tensor itself."""
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
 def adamw_init(params: Sequence[torch.Tensor]) -> AdamWState:
     def zeros(p):
-        return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        return torch.zeros(_local(p).shape, dtype=torch.float32, device=p.device)
     dev = params[0].device if params else None
     return AdamWState(step=torch.zeros((), dtype=torch.int32, device=dev),
                       m=[zeros(p) for p in params], v=[zeros(p) for p in params])
 
 
+def _square_sum(g: torch.Tensor) -> torch.Tensor:
+    """This rank's part of the sum of squares of the whole gradient `g`."""
+    total = torch.sum(torch.square(_local(g).float()))
+    if isinstance(g, DTensor):
+        copies = math.prod(g.device_mesh.size(i) for i, pl in enumerate(g.placements)
+                           if isinstance(pl, Replicate))
+        if copies > 1:
+            total = total / copies
+    return total
+
+
 def _global_norm(grads: Sequence[torch.Tensor]) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in grads))
+    total = sum(_square_sum(g) for g in grads)
+    if any(isinstance(g, DTensor) for g in grads):  # the mesh is the whole world
+        dist.all_reduce(total)
+    return torch.sqrt(total)
 
 
 def _clip_scale(gnorm: torch.Tensor, max_norm: float) -> torch.Tensor:
@@ -87,7 +117,7 @@ def adamw_update(
     bc1 = 1 - b1 ** step.to(torch.float32)
     bc2 = 1 - b2 ** step.to(torch.float32)
     for p, g, m, v in zip(params, grads, state.m, state.v, strict=True):
-        g = g.float() * scale
+        p, g = _local(p), _local(g).float() * scale
         m.mul_(b1).add_((1 - b1) * g)
         v.mul_(b2).add_((1 - b2) * torch.square(g))
         mhat = m / bc1

@@ -25,6 +25,37 @@ Modes:
                     2 steps with a checkpoint into DIR and 4 steps resumed
                     from it; rank 0 writes the three loss lists and each
                     rank's progress lines to the JSON file OUT.
+  mesh PARAMS OUT ARCH STEPS BATCH SEQ RUN ...
+                    trains ARCH smoke (STEPS steps, global batch BATCH x SEQ)
+                    once per RUN, `MODE@SHAPE` (`gspmd@2x2`: a (2, 2)
+                    ("data", "model") mesh, `gspmd@4`: a (4,) ("data",) one,
+                    `gspmd@-`: no mesh), from the weights in the .npz file
+                    PARAMS (or drawn from the seed where PARAMS is `-`);
+                    rank 0 writes {run: losses} to the JSON file OUT and each
+                    run's final parameters, whole, in the JAX tree layout to
+                    OUT.<run>.npz.  On a mesh it checks that every parameter
+                    and moment is a shard of the rule table's placements.
+  elastic DIR OUT [JAXDIR]
+                    check 5 of tests/_distributed_worker.py on stablelm-3b
+                    smoke: 2 gspmd steps on a (4,) mesh saving into DIR, then
+                    steps 3-4 resumed on a (2, 2) mesh, and 4 straight steps
+                    on (4,); with JAXDIR (a JAX checkpoint of step 2) it also
+                    resumes that one on (2, 2).  Rank 0 writes the loss lists
+                    to the JSON file OUT.
+  a2a_grad OUT      the differentiable bruck_all_to_all on a seeded (n, 3, 5)
+                    input per rank: its output against dist.all_to_all_single
+                    and the gradient of sum(out * w) against the plain
+                    transpose; rank 0 writes every rank's arrays to OUT.npz.
+  adamw OUT         adamw_update on DTensor shards over a (2, 2) mesh (leaves
+                    sharded on both axes, on one, replicated; gradients large
+                    enough to clip), 2 steps, against adamw_update on the
+                    whole tensors; rank 0 writes both to OUT.npz.
+  pipeline IN OUT N_MICRO
+                    run_pipeline of the reference's tanh stages on a (world,)
+                    ("pod",) mesh, stage weights and input from the .npz file
+                    IN, N_MICRO microbatches; rank 0 writes the pipeline's
+                    output and the port's sequential run of the same
+                    microbatches to the .npz file OUT.
 """
 from __future__ import annotations
 
@@ -154,12 +185,9 @@ def _compressed(n: int, rank: int, out_path: str) -> None:
     torch.distributed.barrier()
 
 
-def _train(n: int, rank: int, params_path: str, out_path: str, *modes: str) -> None:
+def _load_tree(params_path: str) -> dict:
+    """The JAX-layout tree flattened into the .npz file `params_path`."""
     import numpy as np
-    import torch
-
-    from repro_torch.interop import params_from_jax
-    from repro_torch.launch.train import TrainConfig, model_config, train
 
     flat = np.load(params_path)
     tree: dict = {}
@@ -176,7 +204,16 @@ def _train(n: int, rank: int, params_path: str, out_path: str, *modes: str) -> N
             return [lists(node[str(i)]) for i in range(len(node))]
         return {k: lists(v) for k, v in node.items()}
 
-    tree = lists(tree)
+    return lists(tree)
+
+
+def _train(n: int, rank: int, params_path: str, out_path: str, *modes: str) -> None:
+    import torch
+
+    from repro_torch.interop import params_from_jax
+    from repro_torch.launch.train import TrainConfig, model_config, train
+
+    tree = _load_tree(params_path)
     kw = {"arch": "stablelm-3b", "steps": 4, "batch_size": 8, "seq_len": 32}
     losses = {}
     for mode in modes or ("gspmd", "bridge"):
@@ -207,6 +244,194 @@ def _restart(n: int, rank: int, ckpt_dir: str, out_path: str) -> None:
     torch.distributed.barrier()
 
 
+def _flat(tree, prefix: str = "") -> dict:
+    """{"a/b/0/c": tensor} of a JAX-layout tree (as `_torch_parity.flatten`)."""
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, (list, tuple)):
+        items = enumerate(tree)
+    else:
+        return {prefix[:-1]: tree}
+    out = {}
+    for k, v in items:
+        out.update(_flat(v, f"{prefix}{k}/"))
+    return out
+
+
+def _mesh_of(shape: str) -> dict:
+    """TrainConfig's mesh fields of a RUN's SHAPE: `2x2`, `4` or `-`."""
+    if shape == "-":
+        return {}
+    dims = tuple(int(d) for d in shape.split("x"))
+    return {"mesh_shape": dims, "mesh_axes": ("data", "model")[:len(dims)]}
+
+
+def _check_shards(model, opt_state) -> None:
+    """Every parameter a DTensor of the rule table's placements, its moments
+    of the shard's shape."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.launch.shardings import param_shardings, placements
+
+    mesh = next(model.parameters()).device_mesh
+    specs = param_shardings(mesh, model)
+    for (name, p), m, v in zip(model.named_parameters(), opt_state.m, opt_state.v,
+                               strict=True):
+        assert isinstance(p, DTensor), name
+        assert tuple(p.placements) == placements(mesh, specs[name]), (name, p.placements)
+        assert m.shape == v.shape == p.to_local().shape, name
+
+
+def _mesh(n: int, rank: int, params_path: str, out_path: str, arch: str, steps: str,
+          batch: str, seq: str, *runs: str) -> None:
+    import numpy as np
+    import torch
+
+    from repro_torch.interop import params_from_jax, tree_from_tensors
+    from repro_torch.launch.train import TrainConfig, model_config, train
+
+    tree = None if params_path == "-" else _load_tree(params_path)
+    out = {}
+    for run in runs:
+        mode, shape = run.split("@")
+        tc = TrainConfig(arch=arch, steps=int(steps), batch_size=int(batch),
+                         seq_len=int(seq), grad_sync=mode, **_mesh_of(shape))
+        model = (None if tree is None else
+                 params_from_jax(model_config(tc), tree, device="cpu"))
+        model, opt_state, out[run] = train(tc, progress=lambda *_: None, device="cpu",
+                                           model=model)
+        if tc.mesh_shape and mode == "gspmd":
+            from repro_torch.launch.train import whole_state
+
+            _check_shards(model, opt_state)
+            state = whole_state(model, opt_state, keep=rank == 0)["params"]
+        else:
+            state = tree_from_tensors(model, [p.detach() for p in model.parameters()])
+        if rank == 0:
+            np.savez(f"{out_path}.{run}.npz",
+                     **{k: v.float().numpy() for k, v in _flat(state).items()})
+    if rank == 0:
+        Path(out_path).write_text(json.dumps(out))
+    torch.distributed.barrier()
+
+
+def _elastic(n: int, rank: int, ckpt_dir: str, out_path: str, jax_dir: str = "") -> None:
+    import torch
+
+    from repro_torch.launch.train import TrainConfig, train
+
+    kw = {"arch": "stablelm-3b", "batch_size": 8, "seq_len": 32}
+    flat, square = {"mesh_shape": (4,), "mesh_axes": ("data",)}, \
+        {"mesh_shape": (2, 2), "mesh_axes": ("data", "model")}
+    runs = {}
+    for name, tc in (("first", TrainConfig(steps=2, checkpoint_dir=ckpt_dir, checkpoint_every=2,
+                                           **flat, **kw)),
+                     ("resumed", TrainConfig(steps=4, checkpoint_dir=ckpt_dir,
+                                             checkpoint_every=2, **square, **kw)),
+                     ("straight", TrainConfig(steps=4, **flat, **kw))):
+        _, _, runs[name] = train(tc, progress=lambda *_: None, device="cpu")
+    if jax_dir:
+        _, _, runs["from_jax"] = train(TrainConfig(steps=4, checkpoint_dir=jax_dir,
+                                                   checkpoint_every=2, **square, **kw),
+                                       progress=lambda *_: None, device="cpu")
+    if rank == 0:
+        Path(out_path).write_text(json.dumps(runs))
+    torch.distributed.barrier()
+
+
+def _a2a_grad(n: int, rank: int, out_path: str) -> None:
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.collectives import bruck_all_to_all
+
+    rng = np.random.default_rng(7)  # every rank draws the same global arrays
+    xs = rng.standard_normal((n, n, 3, 5)).astype(np.float32)
+    ws = rng.standard_normal((n, n, 3, 5)).astype(np.float32)
+    x = torch.from_numpy(xs[rank]).requires_grad_()
+    out = bruck_all_to_all(x)
+    want = torch.empty_like(x)
+    dist.all_to_all_single(want, x.detach())
+    (out * torch.from_numpy(ws[rank])).sum().backward()
+    got = [torch.empty_like(x) for _ in range(n)]
+    dist.all_gather(got, out.detach())
+    lib = [torch.empty_like(x) for _ in range(n)]
+    dist.all_gather(lib, want)
+    grads = [torch.empty_like(x) for _ in range(n)]
+    dist.all_gather(grads, x.grad)
+    if rank == 0:
+        np.savez(out_path, x=xs, w=ws, out=torch.stack(got).numpy(),
+                 library=torch.stack(lib).numpy(), grad=torch.stack(grads).numpy())
+    dist.barrier()
+
+
+def _adamw(n: int, rank: int, out_path: str) -> None:
+    import numpy as np
+    import torch
+    from torch.distributed.tensor import Replicate, Shard
+
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.shardings import distribute
+    from repro_torch.optim import adamw_init, adamw_update
+
+    mesh = make_mesh((2, 2), ("data", "model"), "cpu")
+    layout = [((4, 6), (Shard(0), Shard(1))), ((6,), (Replicate(), Replicate())),
+              ((8, 4), (Replicate(), Shard(0))), ((3, 8, 2), (Shard(1), Replicate()))]
+    rng = np.random.default_rng(3)  # every rank draws the same global arrays
+    whole = [torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+             for shape, _ in layout]
+    grads = [[torch.from_numpy(10 * rng.standard_normal(shape).astype(np.float32))
+              for shape, _ in layout] for _ in range(2)]
+    params = [distribute(w, mesh, pl) for w, (_, pl) in zip(whole, layout, strict=True)]
+    state, want_state = adamw_init(params), adamw_init(whole)
+    gnorm, want_gnorm = [], []
+    for step_grads in grads:
+        shards = [distribute(g, mesh, pl) for g, (_, pl) in zip(step_grads, layout, strict=True)]
+        _, state, om = adamw_update(shards, state, params, 1e-2)
+        _, want_state, want_om = adamw_update(step_grads, want_state, whole, 1e-2)
+        gnorm.append(om["grad_norm"].item())
+        want_gnorm.append(want_om["grad_norm"].item())
+    got = [p.full_tensor().numpy() for p in params]
+    if rank == 0:
+        np.savez(out_path, gnorm=gnorm, want_gnorm=want_gnorm, leaves=len(layout),
+                 **{f"p{i}": g for i, g in enumerate(got)},
+                 **{f"want_p{i}": w.numpy() for i, w in enumerate(whole)})
+    torch.distributed.barrier()
+
+
+def _pipeline(n: int, rank: int, in_path: str, out_path: str, n_micro: str) -> None:
+    import numpy as np
+    import torch
+
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.pipeline import run_pipeline
+
+    data = np.load(in_path)
+    stage_w, x = torch.from_numpy(data["stage_w"]), torch.from_numpy(data["x"])
+    calls = [0]
+
+    def stage_fn(w, h):  # a stage of one (D, D) layer or of several
+        calls[0] += 1
+        for layer in (w if w.dim() == 3 else [w]):
+            h = torch.tanh(h @ layer)
+        return h
+
+    mesh = make_mesh((n,), ("pod",), "cpu")
+    out = run_pipeline(mesh, "pod", stage_fn, stage_w, x, int(n_micro))
+    counts = [None] * n
+    torch.distributed.all_gather_object(counts, calls[0])
+    if rank == 0:
+        seq = []
+        for xm in x.reshape(int(n_micro), -1, x.shape[-1]):  # the same microbatches
+            for w in stage_w:
+                xm = stage_fn(w, xm)
+            seq.append(xm)
+        np.savez(out_path, pipeline=out.numpy(), sequential=torch.cat(seq).numpy(),
+                 calls=counts)
+    torch.distributed.barrier()
+
+
 def main() -> None:
     mode, rank, world, port = sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]
     import torch
@@ -226,6 +451,16 @@ def main() -> None:
             _train(world, rank, *sys.argv[5:])
         elif mode == "restart":
             _restart(world, rank, *sys.argv[5:7])
+        elif mode == "mesh":
+            _mesh(world, rank, *sys.argv[5:])
+        elif mode == "elastic":
+            _elastic(world, rank, *sys.argv[5:])
+        elif mode == "a2a_grad":
+            _a2a_grad(world, rank, sys.argv[5])
+        elif mode == "adamw":
+            _adamw(world, rank, sys.argv[5])
+        elif mode == "pipeline":
+            _pipeline(world, rank, *sys.argv[5:8])
         else:
             raise SystemExit(f"unknown mode {mode!r}")
     finally:

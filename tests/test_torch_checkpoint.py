@@ -35,10 +35,12 @@ from repro.core import schedules as ref_schedules  # noqa: E402
 from repro.launch.train import TrainConfig as JaxTrainConfig  # noqa: E402
 from repro.launch.train import train as jax_train  # noqa: E402
 from repro.optim import adamw_init as jax_adamw_init  # noqa: E402
+from repro_torch import configs, interop  # noqa: E402
 from repro_torch.checkpoint import (garbage_collect, latest_step, restore,  # noqa: E402
-                                    restore_into, save)
+                                    restore_into, save, store)
 from repro_torch.core import PAPER_DEFAULT, FabricSim, latest_snapshot, schedules  # noqa: E402
 from repro_torch.launch.train import TrainConfig, build_parser, train  # noqa: E402
+from repro_torch.models import init_params  # noqa: E402
 from repro_torch.optim import AdamWState  # noqa: E402
 
 MB = 1024.0 ** 2
@@ -122,6 +124,51 @@ def test_restore_into_casts_to_the_template_and_places_on_device(tmp_path):
     assert torch.equal(as_f32["h"].view(torch.int32), bf16.float().view(torch.int32))
     assert as_f32["i"].dtype == np.int64 and as_f32["i"] == 7
     assert sorted(os.listdir(d)) == ["LATEST", "step_00000002"]
+
+
+def test_restore_into_lays_leaves_out_through_sharding_fn(tmp_path):
+    """`sharding_fn(keystr, template leaf)` names a cut for a tensor leaf:
+    the cut gets the whole tensor on the host in the template's dtype and
+    its result is the leaf; None (and a non-tensor leaf) restores as usual."""
+    d = str(tmp_path / "ckpt")
+    w = torch.arange(24.0).reshape(4, 6).bfloat16()
+    save(d, 1, {"params": {"w": w, "b": torch.ones(3)}, "n": np.int32(5)})
+    seen = []
+
+    def sharding_fn(key, leaf):
+        seen.append((key, leaf.dtype))
+        if key != "['params']['w']":
+            return None
+        return lambda whole: (whole.device, whole.dtype, whole[2:].clone())
+
+    back = restore_into(d, {"params": {"w": torch.empty(4, 6, device="meta"),
+                                       "b": torch.zeros(3)}, "n": np.int64(0)},
+                        sharding_fn=sharding_fn)
+    assert sorted(seen) == [("['params']['b']", torch.float32),
+                            ("['params']['w']", torch.float32)]
+    device, dtype, rows = back["params"]["w"]
+    assert device.type == "cpu" and dtype == torch.float32
+    assert torch.equal(rows, w[2:].float())
+    assert torch.equal(back["params"]["b"], torch.ones(3)) and back["n"] == 5
+
+
+@pytest.mark.parametrize("arch", ["recurrentgemma-9b", "qwen3-moe-235b-a22b"])
+def test_leaf_parameters_are_keyed_as_the_checkpoint_keys_the_state(arch):
+    """`interop.leaf_parameters` keys every leaf of the JAX tree layout as the
+    store writes it, and holds the parameters the leaf is made of (a stacked
+    leaf, one per block of its segment, in order)."""
+    cfg = configs.get(arch).scaled_down()
+    model = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    params = list(model.parameters())
+    tree = interop.tree_from_tensors(model, params)
+    held = interop.leaf_parameters(model)
+    flat = dict(store._flatten(tree))
+    assert sorted(held) == sorted(flat)
+    for key, h in held.items():
+        want = torch.stack(h) if isinstance(h, list) else h
+        assert torch.equal(flat[key], want), key
+    n = sum(len(h) if isinstance(h, list) else 1 for h in held.values())
+    assert n == len(params)
 
 
 # --- checkpoints across the packages -------------------------------------------

@@ -116,3 +116,15 @@ def test_compressed_all_reduce_over_gloo_ranks(n, tmp_path):
         assert rel < 0.05, f"int8 quantization error too large: {rel}"
         err_fb = np.abs(out[f"round1_{i}"] + out[f"round2_{i}"] - 2 * want_sum).max()
         assert err_fb <= 2 * err1 + 1e-6, (err_fb, err1)
+
+
+def test_bruck_all_to_all_is_differentiable(tmp_path):
+    """4 gloo ranks: the exchange equals dist.all_to_all_single bit for bit,
+    and the gradient of sum(out * w) is the plain transpose of w over the
+    (rank, block) axes: d x_i[j] = w_j[i]."""
+    out = tmp_path / "a2a.npz"
+    spawn("a2a_grad", 4, str(out), timeout=120)
+    r = np.load(out)
+    np.testing.assert_array_equal(r["out"], r["library"])
+    np.testing.assert_array_equal(r["out"], r["x"].transpose(1, 0, 2, 3))
+    np.testing.assert_array_equal(r["grad"], r["w"].transpose(1, 0, 2, 3))

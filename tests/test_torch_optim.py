@@ -8,6 +8,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from _torch_dist_worker import spawn  # noqa: E402
+
 from repro.optim import adamw_init as jax_adamw_init  # noqa: E402
 from repro.optim import adamw_update as jax_adamw_update  # noqa: E402
 from repro.optim import cosine_warmup_schedule as jax_schedule  # noqa: E402
@@ -75,3 +77,15 @@ def test_clip_and_schedule_match_jax():
     for step in (0, 5, 9, 10, 20, 55, 99, 150):
         _close(lr(torch.tensor(step, dtype=torch.int32)),
                jlr(jnp.asarray(step, jnp.int32)), f"lr({step})")
+
+
+def test_sharded_adamw_equals_the_whole_update(tmp_path):
+    """AdamW on DTensor shards over (2, 2) (sharded on both axes, on one,
+    replicated): the global norm counts each leaf once and every shard's
+    update is the whole update's, against `adamw_update` on whole tensors."""
+    out = tmp_path / "adamw.npz"
+    spawn("adamw", 4, str(out), timeout=120)
+    r = np.load(out)
+    np.testing.assert_allclose(r["gnorm"], r["want_gnorm"], rtol=1e-6)
+    for i in range(int(r["leaves"])):
+        np.testing.assert_allclose(r[f"p{i}"], r[f"want_p{i}"], rtol=1e-6, atol=1e-7)

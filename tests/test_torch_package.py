@@ -58,12 +58,13 @@ def test_port_imports_no_jax_and_no_reference_package():
     proc = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
                           text=True, timeout=120, check=False)
     assert proc.returncode == 0, proc.stderr
-    # every module of the package was imported: the fabric slice's, and the
-    # checkpoint store, the verifier and the workloads
-    assert int(proc.stdout) >= 84
+    # every module of the package was imported: the fabric slice's, the
+    # checkpoint store, the verifier, the workloads, and the mesh layer
+    assert int(proc.stdout) >= 88
     for name in ("checkpoint.store", "analysis.verifier", "analysis.mutations",
                  "workloads.traces", "workloads.trace_planner", "workloads.online_planner",
-                 "workloads.serve", "workloads.tenancy", "workloads.recovery"):
+                 "workloads.serve", "workloads.tenancy", "workloads.recovery",
+                 "launch.mesh", "launch.shardings", "launch.pipeline", "models.sharding"):
         assert (SRC / "repro_torch" / f"{name.replace('.', '/')}.py").exists(), name
 
 

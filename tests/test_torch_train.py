@@ -201,14 +201,6 @@ def test_train_cli_default_arch_is_the_references():
         == "rwkv6-3b"
 
 
-@pytest.mark.parametrize("option,match", [
-    ({"mesh_shape": (2, 2), "mesh_axes": ("data", "model")}, "ROADMAP A9"),
-])
-def test_unported_train_options_are_refused(option, match):
-    with pytest.raises(NotImplementedError, match=match):
-        train(TrainConfig(**{**TRAIN_KW, **option}), device="cpu")
-
-
 def test_bridge_and_gspmd_over_gloo_ranks_equal_jax(tmp_path):
     """4 gloo ranks: the port's bridge losses equal its gspmd losses (the
     reference's tests/_distributed_worker.py check 1), and both equal the
