@@ -16,10 +16,15 @@ Phases, in order; any failure raises and the script exits non-zero:
                64, padded by the op; whisper-base's bidirectional encoder,
                its cross attention in prefill and in decode (one query) and
                its self attention; internvl2-26b's GQA 6:1 over 1536
-               positions) and the training shape, and ragged
-               shapes; the backward B2 (dK/dV)
+               positions; gemma3-4b's D = 256 GQA 2:1 at 1536 and 1000
+               tokens, local and global; command-r-plus-104b's GQA 12:1 at
+               D = 128) and the training shapes (minicpm3-4b's MLA at 8 x
+               512, gemma3-4b's local and global layers at 2 x 2048), and
+               ragged shapes; the backward B2 (dK/dV)
                and B3 (dQ) at the reference gradient shapes, the training
-               shape, ragged shapes, a GQA case on several seeds and a
+               shapes (minicpm3-4b's at D = 96 with V and dO zero past 64,
+               as the op pads them; gemma3-4b's), ragged shapes (one at
+               D = 96), a GQA case on several seeds and a
                D = 256 window case (B1, B2 and B3 in bf16 run their
                tensor-core variants, in f32 their CUDA-core ones); the
                recurrences B4 (RG-LRU) and B5 (WKV-6) in f32 and bf16 at the
@@ -33,8 +38,9 @@ Phases, in order; any failure raises and the script exits non-zero:
                counters).  B4 in f32 equals its plain version bit for bit.
                Every bf16 output of B1 is also held to its own rows' scale
                (BF16_ROW_TOL), which TOL's 5e-2 is not at whisper's shapes.
-               B2, B3, B4's ring and B5's two-pass design are bit-identical
-               over two runs.  The recurrences' backward B4' (RG-LRU) and
+               B2, B3 (at stablelm-3b's training shape, and at minicpm3-4b's
+               in both dtypes), B4's ring and B5's two-pass design are
+               bit-identical over two runs.  The recurrences' backward B4' (RG-LRU) and
                B5' (WKV-6) against their plain reverse loops in f32 and bf16:
                at the reference test shapes, from a nonzero h0 / s0 with a
                nonzero cotangent on h_last / s_last, at the training shapes
@@ -70,18 +76,24 @@ Phases, in order; any failure raises and the script exits non-zero:
                yardstick is timed, both ways,
                under each SDPA backend that runs at the shape (flash, cuDNN,
                efficient); the fastest is the library time (`library_ms`,
-               `library_device_ms`), and its backend is recorded.
+               `library_device_ms`), and its backend is recorded.  A window
+               shorter than the keys goes to SDPA as a boolean mask; MLA's
+               yardstick takes V of 64 as it is.
   5. parity  - at full width, f32, depth cut: stablelm-3b (4 layers),
                recurrentgemma-9b (one pattern period: rglru, rglru, local),
                rwkv6-3b (2 layers), qwen3-moe-235b-a22b (1 layer, ~15 GB),
                minicpm3-4b (2 layers), whisper-base whole (6 + 6 layers,
-               1500 frames) and internvl2-26b (1 layer, 64 patches):
+               1500 frames), internvl2-26b (1 layer, 64 patches) and
+               gemma3-4b (5 local layers and the global one, its window cut
+               to 100, so that the 128-token prefill masks and wraps the
+               local ring and the decode steps read the wrapped ring):
                the same weights on the card (kernels) and on the CPU (plain
                versions) give the same prefill and decode logits; for the MoE
                arch it also prints how many (token, choice) routing decisions
                (expert and kept or dropped) agree between card and CPU, and
                the top-k probability gap of any token that differs.
-  6. train parity - stablelm-3b and rwkv6-3b at full width cut to 2 layers,
+  6. train parity - stablelm-3b, rwkv6-3b and minicpm3-4b (B2 and B3 at
+               D = 96) at full width cut to 2 layers,
                and recurrentgemma-9b cut to its two RG-LRU layers, f32, 2 x
                128 tokens: the same weights on the card (B1, B2, B3; B4, B4';
                B5, B5') and on the CPU (plain versions) give the same loss and
@@ -96,7 +108,11 @@ Phases, in order; any failure raises and the script exits non-zero:
                prompts) and internvl2-26b (48 layers, 1024 patches before
                512-token prompts), whose inputs that driver does not take,
                go through the entry points `prefill` and `decode_step` in
-               the same loop;
+               the same loop; gemma3-4b whole twice past its 1024-token
+               window (4 prompts of 1536 + 32 new tokens: the prefill
+               outruns the window; 4 of 1000 + 64: the decode crosses the
+               local ring's wrap), and command-r-plus-104b at full width
+               cut to 12 of its 64 layers (~50.3 GB, GQA 12:1);
                the kernel launch counts of each run, in prefill and in decode,
                are read and checked (B1 once per attention or MLA layer in
                prefill, whisper's once per encoder layer and per cross
@@ -122,7 +138,16 @@ Phases, in order; any failure raises and the script exits non-zero:
                and from the forward's states; recurrentgemma-9b B4 4, all
                ring, B4' 2, B1
                2, B2 1, B3 1; every B1, B2 and B3 launch in the tensor-core
-               variant).  Then qwen3-moe-235b-a22b at full width cut to 1
+               variant); minicpm3-4b whole (62 MLA layers: B1 124, B2 62, B3
+               62 a step at D = 96) and gemma3-4b whole at 2 x 2048 (B1 68,
+               B2 34, B3 34, its 29 local layers masked by their window).
+               stablelm-3b and rwkv6-3b are trained a second time from the
+               same seed under remat "dots" (a model whose config carries
+               the policy, through `train()`'s model seam): the same
+               launches, the losses against the "full" run's (bit for bit,
+               else at rtol 1e-5), and one more backward of each run under
+               torch.profiler counting its aten::mm and aten::bmm.  Then
+               qwen3-moe-235b-a22b at full width cut to 1
                layer (3.73 G parameters, ~45 GB of state), gspmd, 2 steps,
                trained unsharded and then on a (1, 1) ("data", "model")
                mesh (parameters and moments as DTensor shards, gathered on
@@ -338,6 +363,21 @@ STABLELM_RANK_CASE = (2, 32, 32, 512, 512, 80, True, None)
 RANK_CASES = (QWEN_RANK_CASE, GRIFFIN_RANK_CASE, STABLELM_RANK_CASE)
 NEW_CASES = (WHISPER_ENC_CASE, WHISPER_CROSS_CASE, WHISPER_CROSS_DECODE, WHISPER_SELF_CASE,
              MLA_CASE, INTERNVL_CASE)
+# minicpm3-4b trained at 8 x 512 (phase 8): MLA's 40 heads, q/k of 96, V of 64
+MLA_TRAIN_CASE = (8, 40, 40, 512, 512, 96, True, None, 64)
+# gemma3-4b trained at 2 x 2048 (phase 8): 8 query heads of 256 on 4 K/V heads,
+# its 29 local layers masked by their 1024-token window, its 5 global ones causal
+GEMMA_TRAIN_LOCAL = (2, 8, 4, 2048, 2048, 256, True, 1024)
+GEMMA_TRAIN_GLOBAL = (2, 8, 4, 2048, 2048, 256, True, None)
+# gemma3-4b served (phase 7): 4 prompts of 1536, whose prefill outruns the
+# window, and 4 of 1000, whose decode crosses the local ring's wrap
+GEMMA_SERVE_LOCAL = (4, 8, 4, 1536, 1536, 256, True, 1024)
+GEMMA_SERVE_GLOBAL = (4, 8, 4, 1536, 1536, 256, True, None)
+GEMMA_WRAP_CASE = (4, 8, 4, 1000, 1000, 256, True, 1024)
+# command-r-plus-104b served (phase 7): 96 query heads of 128 on 8 (GQA 12:1)
+COMMAND_R_CASE = (4, 96, 8, 512, 512, 128, True, None)
+SLICE15_CASES = (MLA_TRAIN_CASE, GEMMA_TRAIN_LOCAL, GEMMA_TRAIN_GLOBAL, GEMMA_SERVE_LOCAL,
+                 GEMMA_SERVE_GLOBAL, GEMMA_WRAP_CASE, COMMAND_R_CASE)
 # ragged Sq and Sk (not multiples of 16 or 64): Sq < Sk under GQA, and MQA
 # with a window
 RAGGED_CASES = [(1, 4, 2, 72, 300, 80, True, None), (2, 4, 1, 300, 300, 80, True, 100)]
@@ -374,13 +414,20 @@ QWEN_BWD_CASE = (8, 64, 512, 512, 128, True, None)          # GQA expanded by th
 QWEN_RANK_BWD = (2, 64, 512, 512, 128, True, None)
 GRIFFIN_RANK_BWD = (2, 16, 512, 512, 256, True, 2048)
 STABLELM_RANK_BWD = (2, 32, 512, 512, 80, True, None)
+# minicpm3-4b's: the eighth field is the value head (64), which the op pads
+# to 96, so V and dO are zero past it; gemma3-4b's at 2 x 2048, K/V expanded
+MLA_BWD_CASE = (8, 40, 512, 512, 96, True, None, 64)
+GEMMA_BWD_LOCAL = (2, 8, 2048, 2048, 256, True, 1024)
+GEMMA_BWD_GLOBAL = (2, 8, 2048, 2048, 256, True, None)
 TRAIN_BWD_CASES = (TRAIN_CASE, GRIFFIN_BWD_CASE, QWEN_BWD_CASE, QWEN_RANK_BWD,
-                   GRIFFIN_RANK_BWD, STABLELM_RANK_BWD)
+                   GRIFFIN_RANK_BWD, STABLELM_RANK_BWD, MLA_BWD_CASE, GEMMA_BWD_LOCAL,
+                   GEMMA_BWD_GLOBAL)
 WIDE_BWD_CASE = (1, 8, 300, 300, 256, True, 100)
 GQA_CASE = (1, 8, 2, 160, 160, 32, True, 64)      # through the op: b, hq, hkv, s, s, d, ...
 GQA_SEEDS = range(5)
 # ragged Sq and Sk: Sq < Sk causal, Sq > Sk bidirectional
-BWD_RAGGED_CASES = [(1, 4, 72, 300, 80, True, None), (1, 2, 100, 72, 80, False, None)]
+BWD_RAGGED_CASES = [(1, 4, 72, 300, 80, True, None), (1, 2, 100, 72, 80, False, None),
+                    (1, 4, 72, 300, 96, True, None, 64)]
 # f32: the reference's gradient bound (tests/test_kernels.py); both sides run in
 # f32.  bf16: 2e-2 + 2e-2 |want|.  Both sides round their outputs to bf16
 # (spacing 2^-8 relative), so they may differ by one bf16 step; and B2's
@@ -392,6 +439,7 @@ BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 TRAIN_LOSS_RTOL = 1e-5
 TRAIN_GRAD_RTOL = 1e-4
 TRAIN_STEPS = 4          # 1 warm-up + 3 timed
+DOTS_LOSS_RTOL = 1e-5    # remat dots against full, where not bit for bit
 LOSS_RTOL = 2e-4         # bridge vs gspmd (tests/_distributed_worker.py)
 MULTI_SIZES_MB = (1, 256)  # all-reduce payloads of the multi-card phase
 MULTI_STEPS = 2            # training steps per grad-sync mode there
@@ -443,27 +491,46 @@ LRU_BWD_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 WKV_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 # card vs CPU training parity: arch, layers kept (recurrentgemma-9b's two
 # RG-LRU layers; full width otherwise)
-TRAIN_PARITY_ARCHS = (("stablelm-3b", 2), ("rwkv6-3b", 2), ("recurrentgemma-9b", 2))
+TRAIN_PARITY_ARCHS = (("stablelm-3b", 2), ("rwkv6-3b", 2), ("recurrentgemma-9b", 2),
+                      ("minicpm3-4b", 2))
 # trained on the main path: arch, layers kept (None: all).  recurrentgemma-9b
 # whole is ~9.4 G parameters, ~113 GB of bf16 weights and gradients and f32
-# moments: one pattern period (rglru, rglru, local) at full width fits
-TRAIN_ARCHS = (("stablelm-3b", None), ("rwkv6-3b", None), ("recurrentgemma-9b", 3))
+# moments: one pattern period (rglru, rglru, local) at full width fits.
+# minicpm3-4b (4.26 G) and gemma3-4b (3.88 G) train whole
+TRAIN_ARCHS = (("stablelm-3b", None), ("rwkv6-3b", None), ("recurrentgemma-9b", 3),
+               ("minicpm3-4b", None), ("gemma3-4b", None))
+# (batch, sequence) of a trained arch where it is not TRAIN_CASE's 8 x 512:
+# gemma3-4b's 4096 tokens a step as 2 x 2048, so that every local layer's
+# window (1024) masks
+TRAIN_SHAPE = {"gemma3-4b": (2, 2048)}
+# trained again under remat_policy "dots" right after their "full" run
+DOTS_ARCHS = ("stablelm-3b", "rwkv6-3b")
 # card vs CPU model parity: arch, layers kept (full width otherwise)
 PARITY_ARCHS = (("stablelm-3b", 4), ("recurrentgemma-9b", 3), ("rwkv6-3b", 2),
                 ("qwen3-moe-235b-a22b", 1), ("minicpm3-4b", 2), ("whisper-base", 6),
-                ("internvl2-26b", 1))
-# other cuts of the parity check: internvl2's 1024 patches to 64, so that the
-# CPU side stays in seconds (whisper keeps its 6 encoder layers and 1500 frames)
-PARITY_CUTS = {"internvl2-26b": {"frontend_seq": 64}}
+                ("internvl2-26b", 1), ("gemma3-4b", 6))
+# other cuts of the parity check, so that the CPU side stays in seconds:
+# internvl2's 1024 patches to 64 (whisper keeps its 6 encoder layers and 1500
+# frames); gemma3's window to 100 (5 local layers and the global one), so that
+# the 128-token prefill masks by it and wraps the local ring, and the decode
+# steps read the wrapped ring
+PARITY_CUTS = {"internvl2-26b": {"frontend_seq": 64}, "gemma3-4b": {"window": 100}}
 SERVE_ARCHS = ("stablelm-3b", "recurrentgemma-9b", "rwkv6-3b", "qwen3-moe-235b-a22b",
-               "minicpm3-4b", "whisper-base", "internvl2-26b")
+               "minicpm3-4b", "whisper-base", "internvl2-26b", "gemma3-4b",
+               "command-r-plus-104b")
 # served prompt lengths (tokens; 512 unless named): whisper's decoder context
 # is 448 tokens, so 64 + 32 new; internvl2 prepends its 1024 patches to 512
 SERVE_PROMPT = {"whisper-base": 64}
+# served runs of (prompt, new tokens) where not (SERVE_PROMPT, 32): gemma3-4b
+# past its 1024-token window, in prefill (1536) and across the ring's wrap in
+# decode (1000 + 64)
+SERVE_LENGTHS = {"gemma3-4b": ((1536, 32), (1000, 64))}
 # served depth where the whole model does not fit one card: qwen3-moe's 94
 # layers are ~470 GB in bf16; 8 layers and the untied embed and unembed are
-# ~42.3 GB.  The other served models keep their full configs.
-SERVE_DEPTH = {"qwen3-moe-235b-a22b": 8}
+# ~42.3 GB.  command-r-plus-104b's 64 are ~208 GB; 12 layers and its untied
+# embed and unembed are 25.17 G parameters, ~50.3 GB.  The other served
+# models keep their full configs.
+SERVE_DEPTH = {"qwen3-moe-235b-a22b": 8, "command-r-plus-104b": 12}
 # the SDPA backends tried for the attention yardstick (torch.nn.attention.SDPBackend)
 SDPA_BACKENDS = ("FLASH_ATTENTION", "CUDNN_ATTENTION", "EFFICIENT_ATTENTION")
 
@@ -584,7 +651,7 @@ def flash_check_cases() -> list:
     cases = [(c, dt) for dt in (torch.float32, torch.bfloat16) for c in FLASH_CASES]
     cases += [(c, dt) for c in (SERVE_CASE, TRAIN_FWD_CASE, WIDE_CASE, GRIFFIN_CASE,
                                 GRIFFIN_TRAIN_CASE, QWEN_CASE, QWEN_TRAIN_CASE, *RANK_CASES,
-                                *NEW_CASES, *RAGGED_CASES)
+                                *NEW_CASES, *SLICE15_CASES, *RAGGED_CASES)
               for dt in (torch.bfloat16, torch.float32)]
     return cases
 
@@ -708,6 +775,15 @@ def library_text(times: dict) -> str:
             f"{rounded(times['library_device_ms_by_backend'])})")
 
 
+def sdpa_mask(sq: int, sk: int, causal: bool, window: int | None):
+    """None where SDPA's is_causal computes the mask (no window, or one that
+    covers every causal key), else the boolean (sq, sk) mask on the card: a
+    window shorter than the keys, which SDPA takes only as a mask."""
+    if window is None or window >= sk:
+        return None
+    return flash_ref.attention_mask(sq, sk, causal, window).to("cuda")
+
+
 def time_flash(case) -> dict:
     """B1 at `case`, bf16: kernel, plain, library (each SDPA backend), bound.
     A case with a narrower value head (MLA) times the op's call, padding and
@@ -718,10 +794,10 @@ def time_flash(case) -> dict:
     q, k, v = (t.to(torch.bfloat16) for t in flash_inputs(case))
     dv = v.shape[-1]
     scale = d ** -0.5
-    # SDPA has no sliding window: the yardstick only where the window
-    # covers every causal key (recurrentgemma's 2048 at 512 tokens)
+    mask = sdpa_mask(sq, sk, causal, window)
     sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
-        q, k, v, is_causal=causal, scale=scale, enable_gqa=hq != hkv)
+        q, k, v, attn_mask=mask, is_causal=causal and mask is None, scale=scale,
+        enable_gqa=hq != hkv)
     if dv == d:
         call = lambda: flash_kernel.flash_attention_fwd_lse(  # noqa: E731
             q, k, v, scale=scale, causal=causal, window=window)
@@ -871,7 +947,7 @@ def expected_serve_launches(cfg, new_tokens: int) -> tuple[dict, dict]:
     and in each decode step; no backward kernel."""
     kinds = cfg.layer_kinds
     cross = cfg.num_layers if cfg.enc_dec else 0
-    per_pass = {"flash_attention_fwd": sum(k in ("attn", "local", "mla") for k in kinds)
+    per_pass = {"flash_attention_fwd": sum(k in ATTENTION_KINDS for k in kinds)
                 + cross + (cfg.num_encoder_layers if cfg.enc_dec else 0),
                 "flash_attention_bwd_dkv": 0, "flash_attention_bwd_dq": 0,
                 "rg_lru_fwd": kinds.count("rglru"), "wkv6_fwd": kinds.count("rwkv6"),
@@ -911,17 +987,17 @@ def serve_entry_points(cfg, model, prompts, extra: dict, new_tokens: int, max_se
     return {i: out[i].tolist() for i in range(batch)}
 
 
-def serve_path(arch: str) -> dict:
+def serve_path(arch: str, prompt_len: int, new_tokens: int) -> dict:
     """`arch` at its full published config (its depth cut to SERVE_DEPTH
-    where that names it) answers 4 requests of 512-token prompts (whisper:
-    64, after encoding 1500 frames; internvl2: after its 1024 patches) and 32
-    new tokens each, through `serve_requests`, or through the model entry
-    points where the model needs frames or patches.  Returns the launch
-    counts of the run, split into prefill and decode."""
+    where that names it) answers 4 requests of `prompt_len`-token prompts
+    (whisper: after encoding 1500 frames; internvl2: after its 1024 patches)
+    and `new_tokens` new tokens each, through `serve_requests`, or through
+    the model entry points where the model needs frames or patches.  Returns
+    the launch counts of the run, split into prefill and decode."""
     cfg = configs.get(arch)
     if arch in SERVE_DEPTH:
         cfg = dataclasses.replace(cfg, num_layers=SERVE_DEPTH[arch])
-    batch, prompt_len, new_tokens = 4, SERVE_PROMPT.get(arch, 512), 32
+    batch = 4
     max_seq = cfg.frontend_seq + prompt_len + new_tokens + 1
     model = init_params(cfg, torch.Generator(device="cuda").manual_seed(SEED), "cuda")
     rng = torch.Generator().manual_seed(SEED + 2)
@@ -1109,12 +1185,17 @@ def moe_breakdown(cfg, model) -> None:
 
 
 def bwd_inputs(case, dtype):
-    """q, k, v, do (MHA) and the forward's o, lse, dvec on the card."""
-    b, h, sq, sk, d, causal, window = case
+    """q, k, v, do (MHA) and the forward's o, lse, dvec on the card.  Where
+    the case has an eighth field (MLA's value head, narrower than D), V and
+    dO are zero past it, as `ops.flash_attention` pads them, and so is O."""
+    b, h, sq, sk, d, causal, window = case[:7]
     gen = case_generator("bwd", case)
     shapes = ((b, h, sq, d), (b, h, sk, d), (b, h, sk, d), (b, h, sq, d))
     q, k, v, do = (torch.randn(s, generator=gen, device="cuda").to(dtype)
                    for s in shapes)
+    if len(case) > 7:
+        v[..., case[7]:] = 0
+        do[..., case[7]:] = 0
     o, lse = flash_ref.attention_fwd_lse(q, k, v, scale=d ** -0.5, causal=causal,
                                          window=window)
     dvec = (do.float() * o.float()).sum(-1)
@@ -1194,43 +1275,52 @@ def check_bwd_kernels() -> dict:
         print(line)
         if not all(ok for _, ok in results.values()):
             raise AssertionError(f"GQA gradient disagrees between card and CPU: {line}")
-    # the same at the training shape, kernel by kernel
-    d, causal, window = TRAIN_CASE[4], TRAIN_CASE[5], TRAIN_CASE[6]
-    args = bwd_inputs(TRAIN_CASE, torch.bfloat16)
-    q, k, v, do, _, lse, dvec = args
-    kw = {"scale": d ** -0.5, "causal": causal, "window": window}
-    for fn in (flash_bwd.flash_attention_bwd_dkv, flash_bwd.flash_attention_bwd_dq):
-        first, second = (fn(q, k, v, do, lse, dvec, **kw) for _ in range(2))
-        if not all(torch.equal(a, b) for a, b in zip(first, second, strict=True)):
-            raise AssertionError(f"{fn.__name__} differs between two runs on the card")
-    print("flash op and bwd kernels: two runs on the card are bit-identical")
+    # the same at the training shapes (MLA's at D = 96 in both dtypes), kernel
+    # by kernel
+    for case, dtype in ((TRAIN_CASE, torch.bfloat16), (MLA_BWD_CASE, torch.bfloat16),
+                        (MLA_BWD_CASE, torch.float32)):
+        d, causal, window = case[4], case[5], case[6]
+        q, k, v, do, _, lse, dvec = bwd_inputs(case, dtype)
+        kw = {"scale": d ** -0.5, "causal": causal, "window": window}
+        for fn in (flash_bwd.flash_attention_bwd_dkv, flash_bwd.flash_attention_bwd_dq):
+            first, second = (fn(q, k, v, do, lse, dvec, **kw) for _ in range(2))
+            if not all(torch.equal(a, b) for a, b in zip(first, second, strict=True)):
+                raise AssertionError(f"{fn.__name__} {case} {dtype} differs between two "
+                                     f"runs on the card")
+    print(f"flash op and bwd kernels: two runs on the card are bit-identical (bwd at "
+          f"{TRAIN_CASE} bf16, {MLA_BWD_CASE} bf16 and f32)")
     return errs
 
 
 def time_bwd(case) -> dict:
     """B2 and B3 at a training shape, bf16: kernel, plain, library, bound.
-    SDPA has no sliding window: its causal backward is the yardstick where
-    the window covers every causal key (recurrentgemma-9b's 2048 at 512)."""
-    b, h, sq, sk, d, causal, window = case
-    if window is not None and window < sk:
-        raise ValueError(f"{case}: a window shorter than the keys has no SDPA yardstick")
+    SDPA takes a window shorter than the keys as a boolean mask.  An MLA case
+    (an eighth field: the value head) times the kernels on V and dO padded as
+    the op pads them; its bound and library time are the unpadded
+    function's (V, dO and dV of 64)."""
+    b, h, sq, sk, d, causal, window = case[:7]
+    dv = case[7] if len(case) > 7 else d
     q, k, v, do, o, lse, dvec = bwd_inputs(case, torch.bfloat16)
     kw = {"scale": d ** -0.5, "causal": causal, "window": window}
     # the library yardstick: the backward of PyTorch's fused attention on the
     # same inputs (dq, dk and dv together) under each SDPA backend that runs
     # here, timed only for comparison
-    lq, lk, lv = (t.detach().requires_grad_() for t in (q, k, v))
+    lq, lk, lv = (t.detach().requires_grad_() for t in (q, k, v[..., :dv].contiguous()))
+    ldo = do[..., :dv].contiguous()
+    mask = sdpa_mask(sq, sk, causal, window)
+
+    def sdpa():
+        return torch.nn.functional.scaled_dot_product_attention(
+            lq, lk, lv, attn_mask=mask, is_causal=causal and mask is None, scale=d ** -0.5)
 
     def library_fn(backend):
         from torch.nn.attention import SDPBackend, sdpa_kernel
         with sdpa_kernel(getattr(SDPBackend, backend)):
-            lout = torch.nn.functional.scaled_dot_product_attention(
-                lq, lk, lv, is_causal=causal, scale=d ** -0.5)
-        return lambda: torch.autograd.grad(lout, (lq, lk, lv), do, retain_graph=True)
+            lout = sdpa()
+        return lambda: torch.autograd.grad(lout, (lq, lk, lv), ldo, retain_graph=True)
 
     library = {name: library_fn(name) for name in sdpa_backends(
-        lambda: torch.autograd.grad(torch.nn.functional.scaled_dot_product_attention(
-            lq, lk, lv, is_causal=causal, scale=d ** -0.5), (lq, lk, lv), do))}
+        lambda: torch.autograd.grad(sdpa(), (lq, lk, lv), ldo))}
     fns = {
         "flash_attention_bwd_dkv": {
             "ms": lambda: flash_bwd.flash_attention_bwd_dkv(q, k, v, do, lse, dvec, **kw),
@@ -1249,13 +1339,15 @@ def time_bwd(case) -> dict:
     lib = {key: med.pop(key) for key in list(med) if isinstance(key, str)}
     pick_library(lib)
     # bound: inputs read once and outputs written once; the operations on the
-    # live (query, key) pairs: B2 QK^T, dO V^T, P^T dO, dS^T Q (8 D each),
-    # B3 QK^T, dO V^T, dS K (6 D each)
+    # live (query, key) pairs: B2 QK^T, dO V^T, P^T dO, dS^T Q (8 D each,
+    # 4 D + 4 Dv with a value head Dv), B3 QK^T, dO V^T, dS K (6 D, 4 D + 2 Dv)
     elem = q.element_size()
     live = int(flash_ref.attention_mask(sq, sk, causal, window).sum()) * b * h
-    reads = (q.numel() + k.numel() + v.numel() + do.numel()) * elem + 2 * lse.numel() * 4
-    work = {"flash_attention_bwd_dkv": (reads + 2 * k.numel() * elem, 8 * d * live),
-            "flash_attention_bwd_dq": (reads + q.numel() * elem, 6 * d * live)}
+    narrow = b * h * sk * dv  # V's and dV's elements, dO's b h sq dv
+    reads = (q.numel() + k.numel() + narrow + b * h * sq * dv) * elem + 2 * lse.numel() * 4
+    work = {"flash_attention_bwd_dkv": (reads + (k.numel() + narrow) * elem,
+                                        (4 * d + 4 * dv) * live),
+            "flash_attention_bwd_dq": (reads + q.numel() * elem, (4 * d + 2 * dv) * live)}
     times = {}
     for name in fns:
         moved, flops = work[name]
@@ -1707,7 +1799,7 @@ def check_train_parity(arch: str, num_layers: int) -> float:
         loss.backward()
         losses.append(loss.item())
     launches, kinds = read_launches(), cfg.layer_kinds
-    want = {"flash_attention_bwd_dkv": sum(k in ("attn", "local") for k in kinds),
+    want = {"flash_attention_bwd_dkv": sum(k in ATTENTION_KINDS for k in kinds),
             "rg_lru_bwd": kinds.count("rglru"), "wkv6_bwd": kinds.count("rwkv6")}
     got = {name: launches[name] for name in want}
     text = f"{arch} ({num_layers} layers {kinds}, f32, 2 x 128 tokens)"
@@ -1780,10 +1872,16 @@ def check_tensor_core_launches(path: str) -> None:
                              f"tensor-core variant: {counts}")
 
 
+# the layer kinds that run B1 (and B2, B3 in training)
+ATTENTION_KINDS = ("attn", "local", "mla")
+
+
 def check_train_launches(path: str, kinds, steps: int, launches: dict, designs: dict) -> dict:
     """The launch counts of `steps` bf16 training steps of layers `kinds` at
-    the training shape, checked; returns the counts a step."""
-    attn = sum(k in ("attn", "local") for k in kinds)
+    the training shape, checked; returns the counts a step.  Under either
+    remat policy B1 and the recurrences' forward run twice a layer: "dots"
+    saves only the projections' products, and recomputes the kernels."""
+    attn = sum(k in ATTENTION_KINDS for k in kinds)
     rglru, rwkv = kinds.count("rglru"), kinds.count("rwkv6")
     per_step = {"flash_attention_fwd": 2 * attn,   # forward + remat recompute
                 "flash_attention_bwd_dkv": attn, "flash_attention_bwd_dq": attn,
@@ -1811,17 +1909,45 @@ def full_config(tc):
     return cfg
 
 
-def train_path(arch: str, num_layers: int | None) -> tuple[dict, list[float]]:
+def backward_products(cfg, model, batch: dict) -> dict:
+    """The matrix products (`aten::mm`, `aten::bmm`) that one backward of
+    `model` on `batch` runs on the card, counted under torch.profiler: the
+    gradients' products and what the remat recompute runs again.  A call
+    that the selective-checkpoint context answers from its saved products
+    still shows as an `aten::mm` event (the profiler records it as it
+    enters the dispatcher), but launches no kernel: only the events with
+    device time count as run ("calls" counts them all)."""
+    loss, _ = loss_fn(cfg, model, batch)
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        loss.backward()
+        torch.cuda.synchronize()
+    for p in model.parameters():
+        p.grad = None
+    counts = {}
+    for op in ("aten::mm", "aten::bmm"):
+        events = [e for e in prof.events() if e.name == op]
+        counts[op] = sum(e.device_time_total > 0 for e in events)
+        counts[f"{op} calls"] = len(events)
+    return counts
+
+
+def train_path(arch: str, num_layers: int | None,
+               policy: str = "full") -> tuple[dict, list[float], dict | None]:
     """A main path: `arch` at its full published config (cut to `num_layers`
-    where given, full width) trains TRAIN_STEPS steps through `train()`.
-    Returns the launch counts of the run and its losses."""
-    b, _, seq = TRAIN_CASE[0], TRAIN_CASE[1], TRAIN_CASE[2]
+    where given, full width) trains TRAIN_STEPS steps through `train()`,
+    under remat `policy` ("dots": a model whose config carries it, through
+    `train()`'s model seam, drawn from the seed `train()` draws from).
+    Returns the launch counts of the run, its losses and, for DOTS_ARCHS,
+    the products one more backward runs (`backward_products`)."""
+    b, seq = TRAIN_SHAPE.get(arch, (TRAIN_CASE[0], TRAIN_CASE[2]))
     tc = train_mod.TrainConfig(arch=arch, scale="full", steps=TRAIN_STEPS,
                                batch_size=b, seq_len=seq, grad_sync="bridge", seed=SEED)
     cfg = full_config(tc)
     model = None
-    if num_layers is not None:
-        cfg = dataclasses.replace(cfg, num_layers=num_layers)
+    if num_layers is not None or policy != "full":
+        cfg = dataclasses.replace(cfg, num_layers=num_layers or cfg.num_layers,
+                                  remat_policy=policy)
         model = init_params(cfg, torch.Generator(device="cuda").manual_seed(SEED), "cuda")
     lines = []
 
@@ -1834,10 +1960,11 @@ def train_path(arch: str, num_layers: int | None) -> tuple[dict, list[float]]:
     reset_launches()
     trained, _, losses = train_mod.train(tc, progress=progress, device="cuda", model=model)
     launches, designs = read_launches(), read_designs()
-    check_tensor_core_launches(f"train {arch}")
+    label = f"train {arch}" + (f" (remat {policy})" if policy != "full" else "")
+    check_tensor_core_launches(label)
     peak = torch.cuda.max_memory_allocated()
     kinds = cfg.layer_kinds
-    per_step = check_train_launches(f"train {arch}", kinds, TRAIN_STEPS, launches, designs)
+    per_step = check_train_launches(label, kinds, TRAIN_STEPS, launches, designs)
     if len(losses) != TRAIN_STEPS or not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"losses not finite: {losses}")
     dts = [float(re.search(r"dt ([0-9.]+)s", line).group(1)) for line in lines]
@@ -1847,12 +1974,40 @@ def train_path(arch: str, num_layers: int | None) -> tuple[dict, list[float]]:
     cut = "" if num_layers is None else \
         f" cut to {num_layers} of {configs.get(arch).num_layers} layers {kinds}"
     print(f"train {arch} full config{cut} "
-          f"(bf16, remat full, grad_sync bridge, 1 rank, {params} parameters), batch {b} x "
+          f"(bf16, remat {policy}, grad_sync bridge, 1 rank, {params} parameters), batch {b} x "
           f"{seq}: losses {losses}, warm-up step {dts[0]:.4f} s, timed steps {timed} s, mean "
           f"{step_s:.4f} s = {b * seq / step_s:.1f} tokens/s, peak memory "
           f"{peak / 2**30:.3f} GiB ({peak} bytes), launches {launches} (per step {per_step}), "
           f"designs {designs}")
-    return launches, losses
+    products = None
+    if arch in DOTS_ARCHS:
+        host = SyntheticLM(cfg.vocab_size, seq, seed=SEED).global_batch(0, b, 1)
+        products = backward_products(cfg, trained, {k: torch.from_numpy(v).cuda()
+                                                    for k, v in host.items()})
+        print(f"{label}: one more backward (batch {b} x {seq}) runs {products} "
+              f"under torch.profiler")
+    return launches, losses, products
+
+
+def dots_against_full(arch: str, full: tuple, dots: tuple) -> None:
+    """The "dots" run of `arch` against its "full" run from the same seed:
+    the losses bit for bit (else, named, at rtol 1e-5), and the projections
+    its backward no longer recomputes."""
+    (_, full_losses, full_products), (_, dots_losses, dots_products) = full, dots
+    same = full_losses == dots_losses
+    print(f"train {arch} remat dots against full: losses {dots_losses} vs {full_losses}, "
+          f"bit for bit {same}")
+    if not same and not all(math.isclose(a, b, rel_tol=DOTS_LOSS_RTOL)
+                            for a, b in zip(dots_losses, full_losses, strict=True)):
+        raise AssertionError(f"{arch}: dots losses differ from full beyond {DOTS_LOSS_RTOL}")
+    layers = configs.get(arch).num_layers
+    drop = full_products["aten::mm"] - dots_products["aten::mm"]
+    print(f"train {arch}: aten::mm in a backward {full_products['aten::mm']} (full) -> "
+          f"{dots_products['aten::mm']} (dots), {drop} fewer = {drop / layers:.2f} a layer "
+          f"over {layers}; aten::bmm {full_products['aten::bmm']} -> "
+          f"{dots_products['aten::bmm']}")
+    if drop <= 0 or dots_products["aten::bmm"] != full_products["aten::bmm"]:
+        raise AssertionError(f"{arch}: dots recomputes {dots_products}, full {full_products}")
 
 
 # --- the mesh paths: qwen3-moe on one card (phase 8), the rest on four (phase 9) ------
@@ -3183,7 +3338,8 @@ def main() -> None:
     phase("4 kernel timing")
     fwd_times = {case: time_flash(case)
                  for case in (TRAIN_FWD_CASE, SERVE_CASE, GRIFFIN_CASE, GRIFFIN_TRAIN_CASE,
-                              QWEN_CASE, QWEN_TRAIN_CASE, *RANK_CASES, *NEW_CASES)}
+                              QWEN_CASE, QWEN_TRAIN_CASE, *RANK_CASES, *NEW_CASES,
+                              *SLICE15_CASES)}
     bwd_times = {case: time_bwd(case) for case in TRAIN_BWD_CASES}
     rec_times = time_recurrent()
     rec_times.update(time_recurrent_bwd())
@@ -3198,15 +3354,25 @@ def main() -> None:
     phase("7 serve")
     serve_launches = {}
     for arch in SERVE_ARCHS:  # one model at a time: each is freed before the next
-        serve_launches[arch] = serve_path(arch)
-        gc.collect()
-        torch.cuda.empty_cache()
+        for prompt_len, new_tokens in SERVE_LENGTHS.get(arch, ((SERVE_PROMPT.get(arch, 512),
+                                                                 32),)):
+            key = arch if arch not in SERVE_LENGTHS else f"{arch} {prompt_len}+{new_tokens}"
+            serve_launches[key] = serve_path(arch, prompt_len, new_tokens)
+            gc.collect()
+            torch.cuda.empty_cache()
     phase("8 train (main path)")
-    train_launches, train_losses = {}, {}
+    train_launches, train_losses, dots_launches = {}, {}, {}
     for arch, num_layers in TRAIN_ARCHS:  # one model at a time
-        train_launches[arch], train_losses[arch] = train_path(arch, num_layers)
+        run = train_path(arch, num_layers)
+        train_launches[arch], train_losses[arch] = run[:2]
         gc.collect()
         torch.cuda.empty_cache()
+        if arch in DOTS_ARCHS:  # the same run under remat "dots", from the same seed
+            dots = train_path(arch, num_layers, policy="dots")
+            dots_against_full(arch, run, dots)
+            dots_launches[arch] = dots[0]
+            gc.collect()
+            torch.cuda.empty_cache()
     moe_runs = moe_mesh_path()
     gc.collect()
     torch.cuda.empty_cache()
@@ -3259,6 +3425,17 @@ def main() -> None:
         for case in (WHISPER_SELF_CASE, WHISPER_CROSS_CASE)])
     bwd_names = ("flash_attention_bwd_dkv", "flash_attention_bwd_dq")
     rwkv_train, griffin_train = train_launches["rwkv6-3b"], train_launches["recurrentgemma-9b"]
+
+    def with_other(times: dict, *cases, errs=None, name=None) -> dict:
+        """`times` with the numbers of a path's other shapes under other_shapes."""
+        return dict(times, other_shapes=[
+            {"shape": list(case), "max_abs_err": (errs[case] if name is None
+                                                  else errs[(name, case)]),
+             **(fwd_times[case] if name is None else bwd_times[case][name])}
+            for case in cases])
+
+    gemma_long, gemma_wrap = (serve_launches[f"gemma3-4b {n}+{m}"]
+                              for n, m in SERVE_LENGTHS["gemma3-4b"])
     entries = [
         ("train stablelm-3b", "flash_attention_fwd", TRAIN_FWD_CASE,
          train_launches["stablelm-3b"], fwd_errs[TRAIN_FWD_CASE], fwd_times[TRAIN_FWD_CASE]),
@@ -3274,6 +3451,29 @@ def main() -> None:
         *(("train recurrentgemma-9b", name, GRIFFIN_BWD_CASE, griffin_train,
            bwd_errs[(name, GRIFFIN_BWD_CASE)], bwd_times[GRIFFIN_BWD_CASE][name])
           for name in bwd_names),
+        # phase 8: minicpm3-4b (MLA at D = 96) and gemma3-4b (local layers
+        # masked by their window, the global ones' numbers under other_shapes)
+        ("train minicpm3-4b", "flash_attention_fwd", MLA_TRAIN_CASE,
+         train_launches["minicpm3-4b"], fwd_errs[MLA_TRAIN_CASE], fwd_times[MLA_TRAIN_CASE]),
+        *(("train minicpm3-4b", name, MLA_BWD_CASE, train_launches["minicpm3-4b"],
+           bwd_errs[(name, MLA_BWD_CASE)], bwd_times[MLA_BWD_CASE][name])
+          for name in bwd_names),
+        ("train gemma3-4b", "flash_attention_fwd", GEMMA_TRAIN_LOCAL,
+         train_launches["gemma3-4b"], fwd_errs[GEMMA_TRAIN_LOCAL],
+         with_other(fwd_times[GEMMA_TRAIN_LOCAL], GEMMA_TRAIN_GLOBAL, errs=fwd_errs)),
+        *(("train gemma3-4b", name, GEMMA_BWD_LOCAL, train_launches["gemma3-4b"],
+           bwd_errs[(name, GEMMA_BWD_LOCAL)],
+           with_other(bwd_times[GEMMA_BWD_LOCAL][name], GEMMA_BWD_GLOBAL, errs=bwd_errs,
+                      name=name))
+          for name in bwd_names),
+        # phase 8: stablelm-3b and rwkv6-3b trained again under remat "dots"
+        ("train stablelm-3b (remat dots)", "flash_attention_fwd", TRAIN_FWD_CASE,
+         dots_launches["stablelm-3b"], fwd_errs[TRAIN_FWD_CASE], fwd_times[TRAIN_FWD_CASE]),
+        *(("train stablelm-3b (remat dots)", name, TRAIN_CASE, dots_launches["stablelm-3b"],
+           bwd_errs[(name, TRAIN_CASE)], bwd_times[TRAIN_CASE][name]) for name in bwd_names),
+        *(("train rwkv6-3b (remat dots)", name, WKV_TRAIN, dots_launches["rwkv6-3b"],
+           rec_errs[(name, WKV_TRAIN)], rec_times[(name, WKV_TRAIN)])
+          for name in ("wkv6_fwd", "wkv6_bwd")),
         ("serve stablelm-3b prefill", "flash_attention_fwd", SERVE_CASE, stablelm["prefill"],
          fwd_errs[SERVE_CASE], fwd_times[SERVE_CASE]),
         ("serve recurrentgemma-9b prefill", "flash_attention_fwd", GRIFFIN_CASE,
@@ -3289,6 +3489,14 @@ def main() -> None:
         ("serve internvl2-26b prefill", "flash_attention_fwd", INTERNVL_CASE,
          serve_launches["internvl2-26b"]["prefill"], fwd_errs[INTERNVL_CASE],
          fwd_times[INTERNVL_CASE]),
+        ("serve gemma3-4b prefill 1536", "flash_attention_fwd", GEMMA_SERVE_LOCAL,
+         gemma_long["prefill"], fwd_errs[GEMMA_SERVE_LOCAL],
+         with_other(fwd_times[GEMMA_SERVE_LOCAL], GEMMA_SERVE_GLOBAL, errs=fwd_errs)),
+        ("serve gemma3-4b prefill 1000", "flash_attention_fwd", GEMMA_WRAP_CASE,
+         gemma_wrap["prefill"], fwd_errs[GEMMA_WRAP_CASE], fwd_times[GEMMA_WRAP_CASE]),
+        ("serve command-r-plus-104b prefill", "flash_attention_fwd", COMMAND_R_CASE,
+         serve_launches["command-r-plus-104b"]["prefill"], fwd_errs[COMMAND_R_CASE],
+         fwd_times[COMMAND_R_CASE]),
         *((f"serve recurrentgemma-9b {part}", "rg_lru_fwd", case, griffin[part],
            rec_errs[("rg_lru_fwd", case)], rec_times[("rg_lru_fwd", case)])
           for part, case in (("prefill", LRU_PREFILL), ("decode", LRU_DECODE))),

@@ -1,9 +1,8 @@
 """Architecture registry of the port: one module per arch, `CONFIG` in each.
 
-Usage: repro_torch.configs.get("stablelm-3b") -> ArchConfig.
-
-`ARCHS` names only the architectures the port can run; the others are added
-by the slices that port their blocks.
+Usage: repro_torch.configs.get("stablelm-3b") -> ArchConfig;
+       repro_torch.configs.ARCHS lists all ten assigned ids, as the
+       reference's registry does, and `cells()` / `runnable()` are its.
 """
 from __future__ import annotations
 
@@ -12,15 +11,16 @@ import importlib
 from repro_torch.models.config import SHAPES, ArchConfig, ShapeConfig
 
 ARCHS: tuple[str, ...] = (
-    "arctic-480b",
-    "gemma3-4b",
+    "recurrentgemma-9b",
     "internvl2-26b",
     "minicpm3-4b",
-    "qwen3-moe-235b-a22b",
-    "recurrentgemma-9b",
-    "rwkv6-3b",
+    "command-r-plus-104b",
+    "gemma3-4b",
     "stablelm-3b",
     "whisper-base",
+    "arctic-480b",
+    "qwen3-moe-235b-a22b",
+    "rwkv6-3b",
 )
 
 _MODULES = {name: name.replace("-", "_").replace(".", "_") for name in ARCHS}
@@ -33,4 +33,18 @@ def get(name: str) -> ArchConfig:
     return mod.CONFIG
 
 
-__all__ = ["ARCHS", "SHAPES", "ArchConfig", "ShapeConfig", "get"]
+def cells() -> list[tuple[str, str]]:
+    """All 40 assigned (arch, shape) cells; skips are resolved by runnable()."""
+    return [(a, s) for a in ARCHS for s in SHAPES]
+
+
+def runnable(arch: str, shape: str) -> tuple[bool, str]:
+    """(should_run, reason).  long_500k only for sub-quadratic archs."""
+    cfg = get(arch)
+    if shape == "long_500k" and not cfg.sub_quadratic:
+        return False, "long_500k skipped: pure full-attention arch (DESIGN.md S4)"
+    return True, ""
+
+
+__all__ = ["ARCHS", "SHAPES", "ArchConfig", "ShapeConfig", "get", "cells",
+           "runnable"]

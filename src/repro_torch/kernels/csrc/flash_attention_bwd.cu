@@ -43,15 +43,17 @@
 //   dP^T = V dO^T;  dS^T = P^T (dP^T - dvec) scale;
 //   dK += dS^T Q  (dS^T rounded to bf16 in registers, Q by ldmatrix.trans).
 // Every product is warp-local: no cross-warp reduction, no atomics, and every
-// sum runs in a fixed order, so two runs give the same bits.  Up to D = 80 one
+// sum runs in a fixed order, so two runs give the same bits.  Up to D = 96 one
 // pass accumulates dK and dV together (166 registers at D = 80: three CTAs an
-// SM); from D = 128 on, one pass accumulates dV and a second one dK, each
+// SM; at D = 96, MLA's query/key head, two 16 x 96 f32 accumulators take 96
+// registers a thread and two CTAs fit an SM); from D = 128 on, one pass accumulates dV and a second one dK, each
 // recomputing P^T, so that at D = 256 one 16 x 256 f32 accumulator (128
 // registers) lives at a time and the kernel stays under 255 registers without
 // spills.  Rounding P^T and dS^T to bf16 before their products is the one
 // numerical difference from the TPU kernel, which multiplies them in f32.
 // Shared memory: K, V and two stages of Q and dO tiles, (2 * 64 + 4 * 32) x
-// (D + 8) bf16, and 128 floats: 45 KB at D = 80 and 133 KB at D = 256.
+// (D + 8) bf16, and 128 floats: 45 KB at D = 80, 53 KB at D = 96 and 133 KB
+// at D = 256.  D = 96 rows are 192 bytes, twelve 16-byte cp.async chunks.
 //
 // dQ, bf16 design (tensor cores, the forward's loop).  One CTA per (b*h,
 // 64-query tile), 4 warps of 16 query rows; under a causal mask the query
@@ -71,7 +73,7 @@
 // on every run.  Rounding dS to bf16 before dS K is the one numerical
 // difference from the TPU kernel.  Shared memory: Q and dO tiles and two
 // stages of K and V tiles, (2 * 64 + 4 * 64) x (D + 8) bf16 = 66 KB at D = 80,
-// (2 * 64 + 4 * 32) x 264 = 132 KB at D = 256.  Up to D = 80 it is held to 170
+// 78 KB at D = 96, (2 * 64 + 4 * 32) x 264 = 132 KB at D = 256.  Up to D = 80 it is held to 170
 // registers: three CTAs an SM.  Inputs must be 16-byte aligned (the wrapper
 // checks).
 //
@@ -451,6 +453,7 @@ cudaError_t launch_dq(const Args& a, void* dq) {
     case 32: { constexpr int D = 32; return __VA_ARGS__; }       \
     case 64: { constexpr int D = 64; return __VA_ARGS__; }       \
     case 80: { constexpr int D = 80; return __VA_ARGS__; }       \
+    case 96: { constexpr int D = 96; return __VA_ARGS__; }       \
     case 128: { constexpr int D = 128; return __VA_ARGS__; }     \
     case 256: { constexpr int D = 256; return __VA_ARGS__; }     \
     default: return cudaErrorInvalidValue;                       \
@@ -677,7 +680,7 @@ __device__ __forceinline__ void dkv_pass(unsigned char* smem, const T* q_g, cons
 
 // dK, dV of one 64-key tile.  grid = (B*H, ceil(sk / 64)): under a causal mask
 // the first key tiles, which the most queries attend, start first.  Up to
-// D = 80 one pass accumulates both; from D = 128 on, dV and then dK each take
+// D = 96 one pass accumulates both; from D = 128 on, dV and then dK each take
 // a pass over the query tiles (recomputing P^T), so that one f32 accumulator
 // of 16 x D lives at a time and the kernel stays under 255 registers.
 template <int D>
@@ -698,7 +701,7 @@ flash_bwd_dkv_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const float* dvec_g = dvec + bh * sq;
   T* dk_g = dk + bh * sk * D;
   T* dv_g = dv + bh * sk * D;
-  if constexpr (D <= 80) {
+  if constexpr (D <= 96) {
     dkv_pass<D, true, true>(smem, q_g, k_g, v_g, do_g, lse_g, dvec_g, dk_g, dv_g, k0, sq, sk,
                             scale, causal, use_window, window);
   } else {

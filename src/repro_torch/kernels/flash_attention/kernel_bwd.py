@@ -23,10 +23,7 @@ from __future__ import annotations
 import torch
 
 from . import ref
-from .kernel import _DTYPES, check_aligned
-
-# The forward also takes 96 (MLA); the backward kernels do not yet.
-HEAD_DIMS = (16, 32, 64, 80, 128, 256)
+from .kernel import _DTYPES, HEAD_DIMS, check_aligned
 
 
 def _check(q, k, v, do, lse, dvec):
@@ -43,8 +40,7 @@ def _check(q, k, v, do, lse, dvec):
     b, h, sq, d = q.shape
     sk = k.shape[2]
     if d not in HEAD_DIMS:
-        why = " (training MLA at D = 96 waits for ROADMAP B: B2 and B3 at D = 96)"
-        raise ValueError(f"head dim {d} not in {HEAD_DIMS}" + (why if d == 96 else ""))
+        raise ValueError(f"head dim {d} not in {HEAD_DIMS}")
     if (k.shape != (b, h, sk, d) or v.shape != k.shape or do.shape != q.shape
             or lse.shape != (b, h, sq) or dvec.shape != lse.shape):
         raise ValueError(f"shapes q {tuple(q.shape)}, k {tuple(k.shape)}, v "

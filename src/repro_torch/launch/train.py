@@ -207,10 +207,11 @@ def _pmean(x: torch.Tensor, world: World) -> torch.Tensor:
     return x
 
 
-def make_train_step(cfg, tc: TrainConfig, lay: Layout, mesh=None):
-    """step(model, opt_state, batch, ef) -> (opt_state, metrics, ef); the
-    model's parameters are updated in place, and `ef` is the error feedback
-    state of `bridge-compressed` (None for the other modes)."""
+def make_train_step(tc: TrainConfig, lay: Layout, mesh=None):
+    """step(model, opt_state, batch, ef) -> (opt_state, metrics, ef): the
+    loss of the model's own config (`model.cfg`); the model's parameters are
+    updated in place, and `ef` is the error feedback state of
+    `bridge-compressed` (None for the other modes)."""
     lr = cosine_warmup_schedule(tc.lr, tc.warmup, tc.steps)
     rules = {} if mesh is None else activation_rules(mesh)
 
@@ -220,7 +221,7 @@ def make_train_step(cfg, tc: TrainConfig, lay: Layout, mesh=None):
             p.grad = None
         # the backward too: the remat recompute reads the split
         with activation_sharding(mesh, rules, lay.split):
-            loss, metrics = loss_fn(cfg, model, batch)
+            loss, metrics = loss_fn(model.cfg, model, batch)
             loss.backward()
         grads = [p.grad for p in params]
         if lay.sync is not None:
@@ -329,8 +330,10 @@ def train(tc: TrainConfig, progress=print, device=None, model: Model | None = No
     Runs on `device` (default `cuda:{LOCAL_RANK}`).  `model` is a test seam,
     not a feature: the parity tests pass the weights converted from the JAX
     package's initialisation, and `chip_smoke.py` a model cut in depth where
-    the whole one does not fit a card (it must live on `device` and match
-    `tc`'s config but for `num_layers`, whose value it keeps); by default the
+    the whole one does not fit a card, or one whose config carries another
+    remat policy (it must live on `device` and match `tc`'s config but for
+    `num_layers` and `remat_policy`, whose values it keeps; the reference's
+    dry run sets the policy on the config too); by default the
     weights are drawn from `tc.seed`.  Either way, rank 0's weights are
     broadcast so every rank starts from the same ones; on a `gspmd` mesh each
     rank then keeps its shards and the whole copy is freed."""
@@ -349,11 +352,11 @@ def train(tc: TrainConfig, progress=print, device=None, model: Model | None = No
 
     if model is None:
         model = init_params(cfg, torch.Generator(device=dev).manual_seed(tc.seed), dev)
-    elif dataclasses.replace(cfg, num_layers=model.cfg.num_layers) != model.cfg \
+    elif dataclasses.replace(cfg, num_layers=model.cfg.num_layers,
+                             remat_policy=model.cfg.remat_policy) != model.cfg \
             or model.device != dev:
         raise ValueError(f"model ({model.cfg.name} on {model.device}) does not match "
                          f"the run ({cfg.name} on {dev})")
-    cfg = model.cfg
     if world.size > 1:
         with torch.no_grad():
             for p in model.parameters():
@@ -363,7 +366,7 @@ def train(tc: TrainConfig, progress=print, device=None, model: Model | None = No
     opt_state = adamw_init(list(model.parameters()))
     ef = (make_error_feedback_state(list(model.parameters()))
           if tc.grad_sync == "bridge-compressed" else None)
-    step_fn = make_train_step(cfg, tc, lay, mesh)
+    step_fn = make_train_step(tc, lay, mesh)
 
     start = 0
     if tc.checkpoint_dir:

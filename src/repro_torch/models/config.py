@@ -9,8 +9,8 @@ Two runtime knobs are kept only for that field parity and are ignored here:
 `use_pallas` is set (default False); the port instead picks the hand-written
 kernel or its plain version from the *device* of the tensors: a CUDA tensor
 launches the kernel, a CPU tensor takes the plain version.  `remat` and
-`remat_policy` are read by the training forward (`models/model.py`); the
-policy "dots" is not ported yet.
+`remat_policy` ("full", "dots", "none") are read by the training forward
+(`models/model.py`).
 
 Every assigned architecture is expressed as an `ArchConfig`; layer stacking is
 described by a repeating `pattern` of block kinds so heterogeneous stacks

@@ -11,8 +11,11 @@ JAX parameters with it).
 Parameters are trainable `nn.Parameter`s; inference callers run under
 `torch.inference_mode()` so that no autograd graph is built.  In training
 (`mode="train"` with grad enabled) each block runs under
-`torch.utils.checkpoint` when `cfg.remat` and `cfg.remat_policy == "full"`,
-as the JAX package wraps its scan body in `jax.checkpoint`.
+`torch.utils.checkpoint` when `cfg.remat`, as the JAX package wraps its scan
+body in `jax.checkpoint`: `remat_policy` "full" recomputes the whole block in
+the backward, "dots" (JAX's `dots_with_no_batch_dims_saveable`) saves the
+output of every matrix product without batch dimensions and recomputes the
+rest (`dots_policy`), and "none" runs no checkpoint.
 
 Block kinds: "attn" and "local", "mla" (MiniCPM3), "rglru" (recurrentgemma)
 and "rwkv6" (with its RWKV channel mix); FFNs: SwiGLU, GELU (whisper) and MoE.
@@ -35,7 +38,8 @@ import dataclasses
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from .._device import resolve_device
 from . import attention, layers, moe, recurrent, sharding
@@ -287,6 +291,34 @@ def apply_block(cfg: ArchConfig, p: Block, kind: str, x, positions, *, cache=Non
     return sharding.shard(x + y, "act"), cache, aux
 
 
+# --- selective remat ---------------------------------------------------------------------
+
+# the matrix products of the model's paths as the dispatcher sees them:
+# `torch.matmul` and `layers._DotF32` lower to `aten.mm` (two matrices) or
+# `aten.bmm` (a leading batch dimension)
+_PRODUCTS = (torch.ops.aten.mm, torch.ops.aten.bmm)
+
+
+def dots_policy(ctx, op, *args, **kwargs):
+    """The "dots" policy, JAX's `dots_with_no_batch_dims_saveable`: save
+    the output of a matrix product whose operands have no batch dimension
+    (both are matrices: `x (N, d) @ w (d, f)`, the projections, `aten.mm` or
+    its `mm.dtype` overload on the card), recompute everything else.  A
+    batched product (`aten.bmm`: the MoE experts' `ecd,edf->ecf`, attention's
+    `bhqd,bhkd` in the plain version) is recomputed, as JAX recomputes a
+    `dot_general` with batch dimensions.  The hand-written kernels launch
+    outside the dispatcher into buffers from `torch.empty_like`, which this
+    policy never saves: they are recomputed with their kernel."""
+    del ctx, kwargs
+    if getattr(op, "overloadpacket", None) in _PRODUCTS and all(t.dim() == 2 for t in args[:2]):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _dots_context():
+    return create_selective_checkpoint_contexts(dots_policy)
+
+
 # --- public entry points ----------------------------------------------------------------
 
 
@@ -338,16 +370,15 @@ def forward(cfg: ArchConfig, params: Model, batch: dict, *, caches=None,
                                device=x.device)
     remat = (mode == "train" and cfg.remat and cfg.remat_policy != "none"
              and torch.is_grad_enabled())
-    if remat and cfg.remat_policy != "full":
-        raise NotImplementedError(
-            f"remat_policy={cfg.remat_policy!r} is not ported to PyTorch yet: "
-            f"ROADMAP A13 (selective remat policies); use 'full' or 'none'")
+    # as in the reference, a policy other than "dots" (and "none") is full remat
+    context = {"context_fn": _dots_context} if cfg.remat_policy == "dots" else {}
     total_aux = 0.0
     for i, block in enumerate(params.blocks):
         cache = None if caches is None else caches[i]
         if remat:
             x, _, aux = checkpoint(apply_block, cfg, block, block.kind, x, positions,
-                                   cache=cache, enc_out=enc_out, use_reentrant=False)
+                                   cache=cache, enc_out=enc_out, use_reentrant=False,
+                                   **context)
         else:
             x, _, aux = apply_block(cfg, block, block.kind, x, positions, cache=cache,
                                     enc_out=enc_out)

@@ -59,6 +59,7 @@ Modes:
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import socket
@@ -292,12 +293,15 @@ def _mesh(n: int, rank: int, params_path: str, out_path: str, arch: str, steps: 
 
     tree = None if params_path == "-" else _load_tree(params_path)
     out = {}
-    for run in runs:
-        mode, shape = run.split("@")
+    for run in runs:  # MODE@SHAPE, or MODE@SHAPE@POLICY: the model's remat policy
+        mode, shape, *policy = run.split("@")
         tc = TrainConfig(arch=arch, steps=int(steps), batch_size=int(batch),
                          seq_len=int(seq), grad_sync=mode, **_mesh_of(shape))
-        model = (None if tree is None else
-                 params_from_jax(model_config(tc), tree, device="cpu"))
+        cfg = model_config(tc)
+        if policy:
+            assert tree is not None, "a remat policy is set on converted weights"
+            cfg = dataclasses.replace(cfg, remat_policy=policy[0])
+        model = None if tree is None else params_from_jax(cfg, tree, device="cpu")
         model, opt_state, out[run] = train(tc, progress=lambda *_: None, device="cpu",
                                            model=model)
         if tc.mesh_shape and mode == "gspmd":

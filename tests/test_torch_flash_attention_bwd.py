@@ -315,6 +315,45 @@ def test_cuda_op_grads_match_cpu(case):
         np.testing.assert_allclose(a.cpu().numpy(), b_.numpy(), **TOL)
 
 
+# MLA's training shape cut to a few heads, and a ragged one: query/key head 96,
+# value head 64 (b, h, sq, sk, causal)
+MLA_OP_CASES = [(2, 4, 512, 512, True), (1, 3, 72, 300, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", MLA_OP_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_backward_at_d96_through_the_op_matches_plain(case, dtype):
+    """MLA's backward on the card: q/k heads of 96 and V of 64, which the op
+    pads to 96, so that B2 and B3 run at D = 96 (the tensor-core variants in
+    bf16); the gradients, V's sliced back through the pad, against the
+    plain versions' on the same card at the bounds of this file."""
+    _need_cuda()
+    dtype = getattr(torch, dtype)
+    b, h, sq, sk, causal = case
+    rng = np.random.default_rng(7)
+    q, k, v, g = (torch.from_numpy(rng.standard_normal(s).astype(np.float32)).cuda().to(dtype)
+                  for s in ((b, h, sq, 96), (b, h, sk, 96), (b, h, sk, 64), (b, h, sq, 64)))
+    scale = 96 ** -0.5
+    tq, tk, tv = (t.clone().requires_grad_() for t in (q, k, v))
+    before = (kernel_bwd.flash_attention_bwd_dkv.launches_tc,
+              kernel_bwd.flash_attention_bwd_dq.launches_tc)
+    out = ops.flash_attention(tq, tk, tv, causal, None, scale)
+    got = torch.autograd.grad((out.float() * g.float()).sum(), (tq, tk, tv))
+    tc = int(dtype == torch.bfloat16)
+    assert (kernel_bwd.flash_attention_bwd_dkv.launches_tc,
+            kernel_bwd.flash_attention_bwd_dq.launches_tc) == (before[0] + tc, before[1] + tc)
+    vp = torch.nn.functional.pad(v, (0, 32))
+    o, lse = ref.attention_fwd_lse(q, k, vp, scale=scale, causal=causal, window=None)
+    go = torch.nn.functional.pad(g, (0, 32)).to(dtype)
+    want = ref.attention_bwd(q, k, vp, o, lse, go, scale=scale, causal=causal, window=None)
+    want = (want[0], want[1], want[2][..., :64])
+    for name, a, b_ in zip(("dq", "dk", "dv"), got, want, strict=True):
+        assert a.shape == b_.shape, name
+        np.testing.assert_allclose(a.float().cpu().numpy(), b_.float().cpu().numpy(),
+                                   err_msg=name, **_card_tol(dtype))
+
+
 @pytest.mark.cuda
 def test_cuda_bwd_wrappers_reject_what_the_kernels_do_not_take():
     _need_cuda()

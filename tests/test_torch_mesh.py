@@ -246,6 +246,20 @@ def test_expert_parallel_peers_run_the_same_groups(tmp_path, jax_losses):
     np.testing.assert_allclose(losses["gspmd@2x2"], want, rtol=LOSS_RTOL)
 
 
+def test_dots_remat_on_a_2d_moe_mesh_gives_the_bits_of_full(tmp_path, jax_losses):
+    """Check 3 on (2, 2) under remat "dots": what a block gathers on use, the
+    MoE's global groups and its Bruck exchange run again in the recompute as
+    under "full" (the peers' all-to-alls pair up), so the losses and final
+    parameters equal the "full" run's bit for bit, and the losses JAX's."""
+    want, params = jax_losses(CHECK3["batch_size"])
+    runs = ("gspmd@2x2", "gspmd@2x2@dots")
+    losses, finals = _mesh_runs(tmp_path, 4, params, *CHECK3.values(), *runs)
+    assert losses[runs[1]] == losses[runs[0]]
+    for key, w in finals[runs[0]].items():
+        np.testing.assert_array_equal(finals[runs[1]][key], w, err_msg=key)
+    np.testing.assert_allclose(losses[runs[1]], want, rtol=LOSS_RTOL)
+
+
 def test_dense_training_on_a_2d_mesh_equals_the_unsharded_run(tmp_path):
     """stablelm-3b smoke on (2, 2): gspmd (sharded, gathered on use) and
     bridge (replicated, gradients summed over 'data' by the Bruck

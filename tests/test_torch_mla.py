@@ -78,7 +78,7 @@ def test_flash_op_pads_value_head_to_jax_ref(case):
     np.testing.assert_allclose(_np(got), np.asarray(want), **KERNEL_TOL)
 
 
-@pytest.mark.parametrize("case", MLA_CASES[:2])
+@pytest.mark.parametrize("case", MLA_CASES)
 def test_flash_op_gradients_through_padding_match_jax(case):
     """dq, dk and dv through the padding and the slice against jax.grad of
     `ref.attention` with the narrower V."""
@@ -108,20 +108,43 @@ def test_value_head_wider_than_query_head_raises():
 
 
 def test_forward_takes_d96_and_backward_does_not_yet():
-    """B1 takes MLA's head dim 96; B2 and B3 do not, and their tuple is their own."""
-    assert 96 in kernel.HEAD_DIMS and 96 not in kernel_bwd.HEAD_DIMS
-    assert set(kernel_bwd.HEAD_DIMS) < set(kernel.HEAD_DIMS)
+    """B1, B2 and B3 all take MLA's head dim 96: the backward kernels gained
+    it with the MLA training path, and their tuple is now the forward's.
+    (The name is the one this test had while the backward refused 96.)"""
+    assert 96 in kernel.HEAD_DIMS and 96 in kernel_bwd.HEAD_DIMS
+    assert kernel_bwd.HEAD_DIMS == kernel.HEAD_DIMS
 
 
-@pytest.mark.cuda
-def test_cuda_backward_at_d96_raises_naming_the_roadmap_item():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the check runs before a launch on the card")
-    q = torch.randn(1, 2, 16, 96, device="cuda", requires_grad=True)
-    v = torch.randn(1, 2, 16, 64, device="cuda", requires_grad=True)
-    out = ops.flash_attention(q, q, v, True, None)
-    with pytest.raises(ValueError, match="ROADMAP B"):
-        out.sum().backward()
+@pytest.mark.parametrize("case", [c for c in MLA_CASES if c[4] == 96])
+def test_plain_bwd_at_d96_with_padded_value_matches_jax_vjp(case):
+    """The plain dK/dV and dQ wrappers at D = 96 on V of 64 padded to 96 (what
+    the op hands them), from the plain forward's output and logsumexp,
+    against `jax.vjp` of the reference's jnp attention on the narrow V: dq
+    and dk, and dv's first 64 columns; the padded columns of dV are
+    discarded, and dvec = rowsum(dO o O) does not see them, O's padded
+    columns being zero."""
+    d, causal = case[4], case[6]
+    q, k, v = _mla_arrays(case, seed=6)
+    g = np.random.default_rng(8).standard_normal(
+        (case[0], case[1], case[2], case[5])).astype(np.float32)
+    scale = d ** -0.5
+    _, vjp = jax.vjp(lambda q_, k_, v_: jax_ref.attention(q_, k_, v_, causal=causal,
+                                                          window=None, scale=scale),
+                     jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    want = vjp(jnp.asarray(g))
+    tq, tk = torch.from_numpy(q), torch.from_numpy(k)
+    tv = torch.nn.functional.pad(torch.from_numpy(v), (0, d - v.shape[-1]))
+    tg = torch.nn.functional.pad(torch.from_numpy(g), (0, d - g.shape[-1]))
+    kw = {"scale": scale, "causal": causal, "window": None}
+    o, lse = kernel.flash_attention_fwd_lse(tq, tk, tv, **kw)
+    assert not o[..., v.shape[-1]:].any()
+    dvec = (tg * o).sum(-1)
+    dk, dv = kernel_bwd.flash_attention_bwd_dkv(tq, tk, tv, tg, lse, dvec, **kw)
+    dq = kernel_bwd.flash_attention_bwd_dq(tq, tk, tv, tg, lse, dvec, **kw)
+    got = (dq, dk, dv[..., :v.shape[-1]])
+    for name, a, b_ in zip(("dq", "dk", "dv"), got, want, strict=True):
+        assert a.shape == b_.shape, name
+        np.testing.assert_allclose(_np(a), np.asarray(b_), err_msg=name, **GRAD_TOL)
 
 
 def _block_inputs(cfg, seq, seed):

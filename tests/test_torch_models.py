@@ -159,13 +159,11 @@ def test_sliding_window_ring_buffer_decode_matches_jax():
 
 
 @pytest.mark.parametrize("change,error,match", [
-    ({"remat_policy": "dots"}, NotImplementedError, "ROADMAP A13"),
     ({"pattern": ("conv",)}, ValueError, "conv"),
 ])
 def test_unported_kinds_raise(change, error, match):
-    """What the port still lacks raises naming its ROADMAP item (the "dots"
-    remat policy, in a training forward); a block kind that the reference
-    does not define either raises ValueError, as its `init_block` does."""
+    """A block kind that the reference does not define either raises
+    ValueError, as its `init_block` does."""
     from repro_torch.models import init_params
     from repro_torch.models.config import ArchConfig
     cfg = ArchConfig(name="x", family="dense", num_layers=2, d_model=32, num_heads=1,
@@ -178,10 +176,21 @@ def test_unported_kinds_raise(change, error, match):
 
 @pytest.mark.parametrize("arch", ["gemma3-4b", "recurrentgemma-9b", "rwkv6-3b", "stablelm-3b",
                                   "qwen3-moe-235b-a22b", "arctic-480b", "minicpm3-4b",
-                                  "whisper-base", "internvl2-26b"])
+                                  "whisper-base", "internvl2-26b", "command-r-plus-104b"])
 def test_port_configs_equal_the_reference(arch):
     """Each config module of the port is a copy of the reference's: the same
     fields, field by field, and the arch is registered in `ARCHS`."""
     from repro_torch import configs
     assert arch in configs.ARCHS
     assert dataclasses.asdict(configs.get(arch)) == dataclasses.asdict(jax_configs.get(arch))
+
+
+@pytest.mark.parametrize("arch,shape", jax_configs.cells())
+def test_port_cells_and_skips_equal_the_reference(arch, shape):
+    """`repro_torch.configs` names the reference's ten archs in its order, the
+    same 40 (arch, shape) cells, and for each the same `runnable` answer and
+    skip reason."""
+    from repro_torch import configs
+    assert configs.ARCHS == jax_configs.ARCHS
+    assert configs.cells() == jax_configs.cells()
+    assert configs.runnable(arch, shape) == jax_configs.runnable(arch, shape)
