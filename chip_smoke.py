@@ -245,6 +245,28 @@ Phases, in order; any failure raises and the script exits non-zero:
                port-partition isolation 1.0), and the plan service answering
                online_bench's storm twice (hits, misses and windows the
                committed row's; hot plans/s printed).
+ 12. example twins - examples/torch_serve_decode.py for gemma3-4b,
+               minicpm3-4b (its q/k head of 24 padded to 32 by the op) and
+               rwkv6-3b (scaled down, f32), each run's launches against
+               prefill + decode + the greedy check's full forward, the
+               greedy agreement printed, and its ids equal to those of a
+               run with --device cpu from the same weights;
+               examples/torch_train_lm.py at its 300 steps (B1 2, B2 1, B3 1
+               a step a layer; its own gate), its first 3 losses within 2e-4
+               of a --device cpu run's from the same weights;
+               examples/torch_schedule_explorer.py with ocs-sim on the card
+               (B6 launched, each call held bit for bit to the plain version
+               on its own inputs, the largest timed) and on the CPU, its
+               lines equal.  Phases 3 and 4 take the twins' shapes (f32).
+ 13. dry run - four cells of `python -m repro_torch.launch.dryrun` (one
+               a mode, a MoE variant among them) in process on a fake world
+               of 256 or 512 ranks; `torch.cuda.memory_allocated()` the same
+               before and after.
+Phase 5 also holds arctic-480b (1 layer, 32 of 128 experts, f32) card
+against CPU, its routing decisions compared (a decision may differ only at
+a near-tie under MODEL_TOL); phase 7 serves it at 2 of 35 layers (B1 2 a
+prefill at GQA 7:1, D = 128), its peak beside the weights' reckoning;
+phases 3 and 4 take its B1 shape.  Each phase prints its seconds.
 Then it prints the kernels' JSON line (one entry per kernel and path, each
 with the launches of that path's run and the numbers of the shape that path
 gives it; a served model's prefill and decode are two paths, each fabric
@@ -376,8 +398,26 @@ GEMMA_SERVE_GLOBAL = (4, 8, 4, 1536, 1536, 256, True, None)
 GEMMA_WRAP_CASE = (4, 8, 4, 1000, 1000, 256, True, 1024)
 # command-r-plus-104b served (phase 7): 96 query heads of 128 on 8 (GQA 12:1)
 COMMAND_R_CASE = (4, 96, 8, 512, 512, 128, True, None)
+# arctic-480b served (phase 7): 56 query heads of 128 on 8 (GQA 7:1)
+ARCTIC_CASE = (4, 56, 8, 512, 512, 128, True, None)
+# the serve twin's scaled-down minicpm3-4b (examples/torch_serve_decode.py):
+# 4 heads of q/k 16 + 8 = 24, which the op pads to 32, and V of 16
+TWIN_MLA_CASE = (4, 4, 4, 32, 32, 24, True, None, 16)
+# the twins' other B1 shapes (examples/torch_*.py, the scaled-down configs,
+# f32): serve_decode's gemma3-4b prefill (4 prompts of 32, 4 heads of 32, its
+# local layers' window of 32 and the global layer), its greedy check's full
+# forward over 32 + 16 tokens (gemma3-4b's and minicpm3-4b's), and
+# train_lm's stablelm-3b at 16 x 64 (4 heads of 32)
+TWIN_GEMMA_LOCAL = (4, 4, 4, 32, 32, 32, True, 32)
+TWIN_GEMMA_GLOBAL = (4, 4, 4, 32, 32, 32, True, None)
+TWIN_GEMMA_FULL_LOCAL = (4, 4, 4, 48, 48, 32, True, 32)
+TWIN_GEMMA_FULL_GLOBAL = (4, 4, 4, 48, 48, 32, True, None)
+TWIN_MLA_FULL = (4, 4, 4, 48, 48, 24, True, None, 16)
+TWIN_TRAIN_FWD = (16, 4, 4, 64, 64, 32, True, None)
+TWIN_FWD_CASES = (TWIN_MLA_CASE, TWIN_MLA_FULL, TWIN_GEMMA_LOCAL, TWIN_GEMMA_GLOBAL,
+                  TWIN_GEMMA_FULL_LOCAL, TWIN_GEMMA_FULL_GLOBAL, TWIN_TRAIN_FWD)
 SLICE15_CASES = (MLA_TRAIN_CASE, GEMMA_TRAIN_LOCAL, GEMMA_TRAIN_GLOBAL, GEMMA_SERVE_LOCAL,
-                 GEMMA_SERVE_GLOBAL, GEMMA_WRAP_CASE, COMMAND_R_CASE)
+                 GEMMA_SERVE_GLOBAL, GEMMA_WRAP_CASE, COMMAND_R_CASE, ARCTIC_CASE)
 # ragged Sq and Sk (not multiples of 16 or 64): Sq < Sk under GQA, and MQA
 # with a window
 RAGGED_CASES = [(1, 4, 2, 72, 300, 80, True, None), (2, 4, 1, 300, 300, 80, True, 100)]
@@ -419,6 +459,8 @@ STABLELM_RANK_BWD = (2, 32, 512, 512, 80, True, None)
 MLA_BWD_CASE = (8, 40, 512, 512, 96, True, None, 64)
 GEMMA_BWD_LOCAL = (2, 8, 2048, 2048, 256, True, 1024)
 GEMMA_BWD_GLOBAL = (2, 8, 2048, 2048, 256, True, None)
+# train_lm's twin: stablelm-3b scaled down (f32), 16 x 64, 4 heads of 32
+TWIN_TRAIN_BWD = (16, 4, 64, 64, 32, True, None)
 TRAIN_BWD_CASES = (TRAIN_CASE, GRIFFIN_BWD_CASE, QWEN_BWD_CASE, QWEN_RANK_BWD,
                    GRIFFIN_RANK_BWD, STABLELM_RANK_BWD, MLA_BWD_CASE, GEMMA_BWD_LOCAL,
                    GEMMA_BWD_GLOBAL)
@@ -466,6 +508,13 @@ WKV_CASES = [(2, 3, 50, 16, 16, False), (1, 2, 64, 32, 32, False),
 WKV_PREFILL = (4, 40, 512, 64, 64, True)
 WKV_DECODE = (4, 40, 1, 64, 64, True)
 WKV_EXTREME = (1, 1, 64, 16, 16, False)   # log_w = -20 (test_wkv6_extreme_decay_stable)
+# serve_decode's twin, rwkv6-3b scaled down (f32, 8 heads of K = V = 16): its
+# prefill of 4 x 32 and decode steps from the cache's state, and its greedy
+# check's full forward over 32 + 16 tokens from none
+TWIN_WKV_PREFILL = (4, 8, 32, 16, 16, True)
+TWIN_WKV_STEP = (4, 8, 1, 16, 16, True)
+TWIN_WKV_FULL = (4, 8, 48, 16, 16, False)
+TWIN_WKV_CASES = (TWIN_WKV_STEP, TWIN_WKV_PREFILL, TWIN_WKV_FULL)
 # a ragged T over several chunks (64 + 64 + 64 + 8 steps), from s0
 WKV_RAGGED = (1, 4, 200, 64, 64, True)
 # the reference's bounds (tests/test_kernels.py): B4 y and h_last; B5 y (the
@@ -508,16 +557,21 @@ DOTS_ARCHS = ("stablelm-3b", "rwkv6-3b")
 # card vs CPU model parity: arch, layers kept (full width otherwise)
 PARITY_ARCHS = (("stablelm-3b", 4), ("recurrentgemma-9b", 3), ("rwkv6-3b", 2),
                 ("qwen3-moe-235b-a22b", 1), ("minicpm3-4b", 2), ("whisper-base", 6),
-                ("internvl2-26b", 1), ("gemma3-4b", 6))
+                ("internvl2-26b", 1), ("gemma3-4b", 6), ("arctic-480b", 1))
 # other cuts of the parity check, so that the CPU side stays in seconds:
 # internvl2's 1024 patches to 64 (whisper keeps its 6 encoder layers and 1500
 # frames); gemma3's window to 100 (5 local layers and the global one), so that
 # the 128-token prefill masks by it and wraps the local ring, and the decode
 # steps read the wrapped ring
-PARITY_CUTS = {"internvl2-26b": {"frontend_seq": 64}, "gemma3-4b": {"window": 100}}
+# arctic-480b's layer is 54.4 GB in f32, and its CPU copy as much again on the
+# host: 32 of its 128 experts (d_model, the expert and dense-residual widths,
+# top-2 and the capacity factor kept)
+PARITY_CUTS = {"internvl2-26b": {"frontend_seq": 64}, "gemma3-4b": {"window": 100},
+               "arctic-480b": {"moe": dataclasses.replace(configs.get("arctic-480b").moe,
+                                                         num_experts=32)}}
 SERVE_ARCHS = ("stablelm-3b", "recurrentgemma-9b", "rwkv6-3b", "qwen3-moe-235b-a22b",
                "minicpm3-4b", "whisper-base", "internvl2-26b", "gemma3-4b",
-               "command-r-plus-104b")
+               "command-r-plus-104b", "arctic-480b")
 # served prompt lengths (tokens; 512 unless named): whisper's decoder context
 # is 448 tokens, so 64 + 32 new; internvl2 prepends its 1024 patches to 512
 SERVE_PROMPT = {"whisper-base": 64}
@@ -530,13 +584,27 @@ SERVE_LENGTHS = {"gemma3-4b": ((1536, 32), (1000, 64))}
 # ~42.3 GB.  command-r-plus-104b's 64 are ~208 GB; 12 layers and its untied
 # embed and unembed are 25.17 G parameters, ~50.3 GB.  The other served
 # models keep their full configs.
-SERVE_DEPTH = {"qwen3-moe-235b-a22b": 8, "command-r-plus-104b": 12}
+# arctic-480b's layer is 13.61 G parameters (128 experts of 3 x 7168 x 4864,
+# the dense residual, attention): 2 layers and the untied embed and unembed
+# are 27.68 G, ~55.4 GB (51.6 GiB)
+SERVE_DEPTH = {"qwen3-moe-235b-a22b": 8, "command-r-plus-104b": 12, "arctic-480b": 2}
+RECKONING_GIB = {"arctic-480b": 27.68e9 * 2 / 2**30}
 # the SDPA backends tried for the attention yardstick (torch.nn.attention.SDPBackend)
 SDPA_BACKENDS = ("FLASH_ATTENTION", "CUDNN_ATTENTION", "EFFICIENT_ATTENTION")
 
 
-def phase(name: str):
-    print(f"== {name}", flush=True)
+_PHASE = {"name": None, "t0": 0.0, "start": time.perf_counter()}
+
+
+def phase(name: str | None):
+    """Start phase `name` (None: the end), printing the seconds of the last."""
+    now = time.perf_counter()
+    if _PHASE["name"] is not None:
+        print(f"== {_PHASE['name']}: {now - _PHASE['t0']:.1f} s "
+              f"({now - _PHASE['start']:.1f} s since the start)", flush=True)
+    _PHASE.update(name=name, t0=now)
+    if name is not None:
+        print(f"== {name}", flush=True)
 
 
 def print_ptxas(log: str) -> None:
@@ -587,15 +655,17 @@ def flash_inputs(case):
 
 def flash_call(q, k, v, causal, window):
     """B1's wrapper at these inputs: (out, lse).  A value head narrower than
-    the query head is zero-padded as `ops.flash_attention` pads it, and the
-    output sliced back; the op's own output must equal it bit for bit."""
+    the query head, and a query head between the kernel's head dims, are
+    zero-padded as `ops.flash_attention` pads them, and the output sliced
+    back; the op's own output must equal it bit for bit."""
     d, dv = q.shape[-1], v.shape[-1]
-    if dv == d:
+    head = flash_ops.padded_head(d)
+    if dv == d == head:
         return flash_kernel.flash_attention_fwd_lse(q, k, v, scale=d ** -0.5,
                                                     causal=causal, window=window)
-    out, lse = flash_kernel.flash_attention_fwd_lse(
-        q, k, torch.nn.functional.pad(v, (0, d - dv)), scale=d ** -0.5, causal=causal,
-        window=window)
+    q_p, k_p, v_p = (torch.nn.functional.pad(t, (0, head - t.shape[-1])) for t in (q, k, v))
+    out, lse = flash_kernel.flash_attention_fwd_lse(q_p, k_p, v_p, scale=d ** -0.5,
+                                                    causal=causal, window=window)
     via_op = flash_ops.flash_attention(q, k, v, causal, window, d ** -0.5)
     if not torch.equal(via_op, out[..., :dv]):
         raise AssertionError("ops.flash_attention differs from the padded kernel call")
@@ -651,14 +721,15 @@ def flash_check_cases() -> list:
     cases = [(c, dt) for dt in (torch.float32, torch.bfloat16) for c in FLASH_CASES]
     cases += [(c, dt) for c in (SERVE_CASE, TRAIN_FWD_CASE, WIDE_CASE, GRIFFIN_CASE,
                                 GRIFFIN_TRAIN_CASE, QWEN_CASE, QWEN_TRAIN_CASE, *RANK_CASES,
-                                *NEW_CASES, *SLICE15_CASES, *RAGGED_CASES)
+                                *NEW_CASES, *SLICE15_CASES, *RAGGED_CASES, *TWIN_FWD_CASES)
               for dt in (torch.bfloat16, torch.float32)]
     return cases
 
 
 def check_kernels() -> dict:
-    """Kernel vs plain version on the card; returns the bf16 errors at the
-    serving and the training shape, keyed by the case."""
+    """Kernel vs plain version on the card; returns the errors in the dtype
+    each case's path runs (bf16; f32 for the twins' cases), keyed by the
+    case."""
     errs = {}
     for case, dtype in flash_check_cases():
         err, verdicts, line = check_flash(case, dtype)
@@ -667,7 +738,7 @@ def check_kernels() -> dict:
             raise AssertionError(f"flash {case} {dtype}: not the variant of its dtype")
         if not all(verdicts.values()):
             raise AssertionError(f"kernel disagrees with its plain version: {line}")
-        if dtype == torch.bfloat16:  # the main paths' dtype
+        if dtype == (torch.float32 if case in TWIN_FWD_CASES else torch.bfloat16):
             errs[case] = err
     return errs
 
@@ -784,21 +855,24 @@ def sdpa_mask(sq: int, sk: int, causal: bool, window: int | None):
     return flash_ref.attention_mask(sq, sk, causal, window).to("cuda")
 
 
-def time_flash(case) -> dict:
-    """B1 at `case`, bf16: kernel, plain, library (each SDPA backend), bound.
-    A case with a narrower value head (MLA) times the op's call, padding and
-    slice included, as the path makes it (`ms`, `device_ms`), and the kernel
-    alone on V padded beforehand (`kernel_padded_device_ms`); its bound and
-    library time are those of the unpadded function."""
+def time_flash(case, dtype=torch.bfloat16) -> dict:
+    """B1 at `case` in `dtype` (bf16: the main paths'; f32: the twins'):
+    kernel, plain, library (each SDPA backend), bound.
+    A case with a narrower value head (MLA), or a query head between the
+    kernel's head dims, times the op's call, padding and slice included, as
+    the path makes it (`ms`, `device_ms`), and the kernel alone on q, k and
+    v padded beforehand as the op pads them (`kernel_padded_device_ms`); its
+    bound and library time are those of the unpadded function."""
     b, hq, hkv, sq, sk, d, causal, window = case[:8]
-    q, k, v = (t.to(torch.bfloat16) for t in flash_inputs(case))
+    q, k, v = (t.to(dtype) for t in flash_inputs(case))
     dv = v.shape[-1]
     scale = d ** -0.5
     mask = sdpa_mask(sq, sk, causal, window)
     sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
         q, k, v, attn_mask=mask, is_causal=causal and mask is None, scale=scale,
         enable_gqa=hq != hkv)
-    if dv == d:
+    head = flash_ops.padded_head(d)
+    if dv == d == head:
         call = lambda: flash_kernel.flash_attention_fwd_lse(  # noqa: E731
             q, k, v, scale=scale, causal=causal, window=window)
     else:
@@ -806,10 +880,10 @@ def time_flash(case) -> dict:
     fns = {"ms": call, "device_ms": call,
            "plain_ms": lambda: flash_ref.attention_fwd_lse(
                q, k, v, scale=scale, causal=causal, window=window)}
-    if dv < d:
-        v_pad = torch.nn.functional.pad(v, (0, d - dv))
+    padded_in = [torch.nn.functional.pad(t, (0, head - t.shape[-1])) for t in (q, k, v)]
+    if dv < head:
         fns["kernel_padded_device_ms"] = lambda: flash_kernel.flash_attention_fwd_lse(
-            q, k, v_pad, scale=scale, causal=causal, window=window)
+            *padded_in, scale=scale, causal=causal, window=window)
     backends = {}
     sdpa_fns(fns, backends, sdpa_backends(sdpa), sdpa)
     times = time_in_turns(fns, backends, {})
@@ -820,15 +894,16 @@ def time_flash(case) -> dict:
     moved = (q.numel() + k.numel() + v.numel() + b * hq * sq * dv) * elem + b * hq * sq * 4
     live = int(flash_ref.attention_mask(sq, sk, causal, window).sum())
     flops = 2 * (d + dv) * live * b * hq
-    times["bound_ms"], times["bound_by"] = bound(moved, flops)
-    padded = (f" kernel_padded_device_ms {times['kernel_padded_device_ms']:.4f} (V padded "
-              f"to {d} beforehand: {moved + b * hkv * sk * (d - dv) * elem + b * hq * sq * (d - dv) * elem} "
-              f"bytes)" if dv < d else "")
-    print(f"flash timing {case} bf16: kernel_ms {times['ms']:.4f} "
+    times["bound_ms"], times["bound_by"] = bound(moved, flops, PEAK_FLOP_S[dtype])
+    padded_bytes = (sum(t.numel() for t in padded_in) + b * hq * sq * head) * elem \
+        + b * hq * sq * 4
+    padded = (f" kernel_padded_device_ms {times['kernel_padded_device_ms']:.4f} (q, k, v "
+              f"padded to {head} beforehand: {padded_bytes} bytes)" if dv < head else "")
+    print(f"flash timing {case} {str(dtype)[6:]}: kernel_ms {times['ms']:.4f} "
           f"device_ms {times['device_ms']:.4f}{padded} plain_ms {times['plain_ms']:.4f} "
           f"{library_text(times)} bound_ms {times['bound_ms']:.4f} "
           f"(by {times['bound_by']}: {moved} bytes, {flops} FLOP; H100 SXM peaks "
-          f"{H100_HBM_BYTES_S:.3g} B/s, {H100_BF16_FLOP_S:.3g} FLOP/s)")
+          f"{H100_HBM_BYTES_S:.3g} B/s, {PEAK_FLOP_S[dtype]:.3g} FLOP/s)")
     return times
 
 
@@ -875,6 +950,10 @@ def report_routing(arch: str, records: list, cfg) -> None:
     print(f"routing {arch} card vs cpu: {agree} of {total} (token, choice) decisions agree "
           f"over {len(cpu)} calls; {len(gaps)} tokens differ"
           + (f", top-k probability gaps (p_k - p_(k+1), CPU) {sorted(gaps)}" if gaps else ""))
+    # a decision may differ only at a near-tie of the router's top-k
+    if any(g >= MODEL_TOL for g in gaps):
+        raise AssertionError(f"{arch}: a routing decision differs at a top-k gap of "
+                             f"{max(gaps):.3e} (near-tie bound {MODEL_TOL})")
 
 
 @torch.inference_mode()
@@ -932,7 +1011,8 @@ def extra_inputs(cfg, batch: int, gen: torch.Generator) -> dict:
 
 def cut_text(cfg, arch: str) -> str:
     """The cuts of PARITY_CUTS and the encoder's depth, for the printed line."""
-    parts = [f"{k} {v}" for k, v in PARITY_CUTS.get(arch, {}).items()]
+    parts = [f"{v.num_experts} of {configs.get(arch).moe.num_experts} experts" if k == "moe"
+             else f"{k} {v}" for k, v in PARITY_CUTS.get(arch, {}).items()]
     if cfg.enc_dec:
         parts.insert(0, f"+ {cfg.num_encoder_layers} encoder layers, {cfg.encoder_seq} frames")
     return "".join(f", {p}" for p in parts)
@@ -1092,7 +1172,10 @@ def serve_path(arch: str, prompt_len: int, new_tokens: int) -> dict:
           + (f" ({batch * (cfg.frontend_seq + prompt_len) / prefill_s:.1f} positions/s)"
              if cfg.frontend_seq else "") + ", "
           f"decode {decode_tps:.1f} tok/s, peak memory {peak / 2**30:.3f} GiB "
-          f"({peak} bytes), greedy agreement with full forward {agree:.1f}%, "
+          f"({peak} bytes)"
+          + (f" beside the weights' reckoning {RECKONING_GIB[arch]:.1f} GiB"
+             if arch in RECKONING_GIB else "")
+          + f", greedy agreement with full forward {agree:.1f}%, "
           f"launches prefill {launches['prefill']}, decode {launches['decode']}")
     return launches
 
@@ -1214,11 +1297,12 @@ def attention_f64(q, k, v, causal: bool, window: int | None):
 
 def check_bwd_kernels() -> dict:
     """B2 and B3 vs their plain versions on the card; returns their errors at
-    the training shapes in bf16 (the main paths' dtype), keyed by (kernel,
-    case)."""
+    the training shapes in the dtype their paths run (bf16; f32 for the
+    train twin's), keyed by (kernel, case)."""
     errs = {}
     cases = [(c, dt) for dt in (torch.float32, torch.bfloat16)
-             for c in BWD_CASES + [*TRAIN_BWD_CASES, WIDE_BWD_CASE, *BWD_RAGGED_CASES]]
+             for c in BWD_CASES + [*TRAIN_BWD_CASES, WIDE_BWD_CASE, *BWD_RAGGED_CASES,
+                                   TWIN_TRAIN_BWD]]
     for case, dtype in cases:
         d, causal, window = case[4], case[5], case[6]
         q, k, v, do, o, lse, dvec = bwd_inputs(case, dtype)
@@ -1238,7 +1322,8 @@ def check_bwd_kernels() -> dict:
         if not all(ok for _, ok in results.values()) or dq.shape != q.shape \
                 or dk.shape != k.shape or dv.shape != v.shape:
             raise AssertionError(f"backward kernel disagrees with its plain version: {line}")
-        if case in TRAIN_BWD_CASES and dtype == torch.bfloat16:
+        if (case in TRAIN_BWD_CASES and dtype == torch.bfloat16) \
+                or (case == TWIN_TRAIN_BWD and dtype == torch.float32):
             errs[("flash_attention_bwd_dkv", case)] = max(results["dk"][0], results["dv"][0])
             errs[("flash_attention_bwd_dq", case)] = results["dq"][0]
     # GQA through the op (K/V expanded, dK/dV group-summed): card vs CPU, f32,
@@ -1292,15 +1377,16 @@ def check_bwd_kernels() -> dict:
     return errs
 
 
-def time_bwd(case) -> dict:
-    """B2 and B3 at a training shape, bf16: kernel, plain, library, bound.
+def time_bwd(case, dtype=torch.bfloat16) -> dict:
+    """B2 and B3 at a training shape in `dtype` (bf16: the main paths'; f32:
+    the train twin's): kernel, plain, library, bound.
     SDPA takes a window shorter than the keys as a boolean mask.  An MLA case
     (an eighth field: the value head) times the kernels on V and dO padded as
     the op pads them; its bound and library time are the unpadded
     function's (V, dO and dV of 64)."""
     b, h, sq, sk, d, causal, window = case[:7]
     dv = case[7] if len(case) > 7 else d
-    q, k, v, do, o, lse, dvec = bwd_inputs(case, torch.bfloat16)
+    q, k, v, do, o, lse, dvec = bwd_inputs(case, dtype)
     kw = {"scale": d ** -0.5, "causal": causal, "window": window}
     # the library yardstick: the backward of PyTorch's fused attention on the
     # same inputs (dq, dk and dv together) under each SDPA backend that runs
@@ -1351,12 +1437,12 @@ def time_bwd(case) -> dict:
     times = {}
     for name in fns:
         moved, flops = work[name]
-        bound_ms, by = bound(moved, flops)
+        bound_ms, by = bound(moved, flops, PEAK_FLOP_S[dtype])
         times[name] = {"ms": med[(name, "ms")], "device_ms": med[(name, "device_ms")],
                        "plain_ms": med[(name, "plain_ms")],
                        "bound_ms": bound_ms, "bound_by": by, **lib}
         t = times[name]
-        print(f"{name} timing {case} bf16: kernel_ms {t['ms']:.4f} device_ms "
+        print(f"{name} timing {case} {str(dtype)[6:]}: kernel_ms {t['ms']:.4f} device_ms "
               f"{t['device_ms']:.4f} plain_ms "
               f"{t['plain_ms']:.4f} SDPA backward (dq dk dv): {library_text(t)} "
               f"bound_ms {bound_ms:.4f} (by {by}: {moved} bytes, {flops} FLOP)")
@@ -1388,7 +1474,7 @@ def wkv_inputs(case, dtype):
 def check_recurrent_kernels() -> dict:
     """B4 and B5 vs their plain versions on the card, in f32 and bf16; returns
     the errors at the serving and training shapes in the dtype the model runs
-    them in."""
+    them in (f32 for the serve twin's)."""
     errs = {}
     dtypes = (torch.float32, torch.bfloat16)
     lru_cases = LRU_CASES + [LRU_DECODE, LRU_PREFILL, LRU_TRAIN, LRU_RANK, LRU_RAGGED] + LRU_ODD
@@ -1420,7 +1506,8 @@ def check_recurrent_kernels() -> dict:
         if not all(torch.equal(a, b) for a, b in zip(first, second, strict=True)):
             raise AssertionError(f"B4's ring differs between two runs on the card ({dtype})")
     print("rg_lru ring: two runs on the card are bit-identical (f32, bf16)")
-    for case, dtype in [(c, dt) for c in WKV_CASES + [WKV_DECODE, WKV_PREFILL, WKV_RAGGED]
+    for case, dtype in [(c, dt) for c in WKV_CASES + [WKV_DECODE, WKV_PREFILL, WKV_RAGGED,
+                                                      *TWIN_WKV_CASES]
                         for dt in dtypes] + [(WKV_TRAIN, PATH_DTYPE["wkv6_fwd"])]:
         r, k, v, log_w, u, s0 = wkv_inputs(case, dtype)
         y, s = wkv_call(r, k, v, log_w, u, s0)
@@ -1437,7 +1524,8 @@ def check_recurrent_kernels() -> dict:
         if not (ok_y and ok_s) or y.shape != v.shape or y.dtype != r.dtype \
                 or not torch.isfinite(y).all():
             raise AssertionError(f"B5 disagrees with its plain version: {line}")
-        if case in (WKV_PREFILL, WKV_DECODE, WKV_TRAIN) and dtype == PATH_DTYPE["wkv6_fwd"]:
+        if (case in (WKV_PREFILL, WKV_DECODE, WKV_TRAIN) and dtype == PATH_DTYPE["wkv6_fwd"]) \
+                or (case in TWIN_WKV_CASES and dtype == torch.float32):
             errs[("wkv6_fwd", case)] = max(ey, es)
     # extreme decay: every step forgets almost all (log_w = -20); f32 runs the
     # first design, bf16 the two-pass one
@@ -1522,13 +1610,15 @@ def time_recurrent() -> dict:
     (CUDA events), beside the bound.  No single PyTorch call computes either recurrence over T, so
     prefill has no library time; B4's decode step is one torch.addcmul
     (h_1 = b_1 + a_1 h0, its one (B, D) output standing for y and h_last),
-    checked against the plain version at LRU_TOL and timed both ways."""
+    checked against the plain version at LRU_TOL and timed both ways.  The
+    serve twin's B5 shapes are timed in f32, as it runs them."""
     times = {}
-    for name, case in (("rg_lru_fwd", LRU_PREFILL), ("rg_lru_fwd", LRU_DECODE),
-                       ("rg_lru_fwd", LRU_TRAIN), ("rg_lru_fwd", LRU_RANK),
-                       ("wkv6_fwd", WKV_PREFILL),
-                       ("wkv6_fwd", WKV_DECODE), ("wkv6_fwd", WKV_TRAIN)):
-        dtype = PATH_DTYPE[name]
+    for name, case, dtype in (
+            *((n, c, PATH_DTYPE[n]) for n, c in (
+                ("rg_lru_fwd", LRU_PREFILL), ("rg_lru_fwd", LRU_DECODE),
+                ("rg_lru_fwd", LRU_TRAIN), ("rg_lru_fwd", LRU_RANK), ("wkv6_fwd", WKV_PREFILL),
+                ("wkv6_fwd", WKV_DECODE), ("wkv6_fwd", WKV_TRAIN))),
+            *(("wkv6_fwd", c, torch.float32) for c in TWIN_WKV_CASES)):
         library = None
         if name == "rg_lru_fwd":
             a, x, h0 = lru_inputs(case, dtype)
@@ -3311,6 +3401,208 @@ def workload_rows() -> dict:
     return {"hot_plans_per_sec": hot.plans_per_sec}
 
 
+# --- phase 12: the example scripts' twins ---------------------------------------------
+
+EXAMPLES = Path(__file__).resolve().parent / "examples"
+TWIN_SERVE_ARCHS = ("gemma3-4b", "minicpm3-4b", "rwkv6-3b")   # its three cache families
+TWIN_NEW_TOKENS = 16       # examples/serve_decode.py's default
+TWIN_TRAIN_STEPS = 300     # examples/train_lm.py's default
+TWIN_CPU_STEPS = 3         # the train twin's steps run again on the CPU
+TWIN_LOSS_RTOL = 2e-4      # the twin's first losses against JAX's (tests/test_torch_examples.py)
+# the explorer's batched event simulation (the verify skill's surface 3)
+TWIN_EXPLORER_ARGS = ("--collective", "a2a", "--n", "96", "--delta-us", "1000",
+                      "--fabric", "ocs-sim", "--overlap", "0.75")
+
+
+def load_example(name: str):
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(name, EXAMPLES / f"{name}.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def attention_layers(cfg) -> int:
+    return sum(k in ATTENTION_KINDS for k in cfg.layer_kinds)
+
+
+def card_weights(init):
+    """`init_params` as the twins call it, but drawn on the card whatever
+    the device: a run of a twin on the CPU then starts from the weights of
+    its run on the card (the two devices' generators draw different
+    numbers from one seed)."""
+    def draw(cfg, gen, dev):
+        seed = gen.initial_seed()
+        return init(cfg, torch.Generator(device="cuda").manual_seed(seed), "cuda").to(dev)
+    return draw
+
+
+def twin_paths() -> dict:
+    """The twins of examples/*.py on the card, as a user runs them (the
+    scaled-down configs, f32), each run again with `--device cpu` from the
+    same weights (`card_weights`) and held to it: serve_decode for the three
+    cache families (B1 at gemma3-4b's and minicpm3-4b's prefills and full
+    forwards, the latter's q/k head of 24 padded to 32; B5 in rwkv6-3b's
+    prefill, decode steps and full forward), its greedy agreement printed
+    and its ids equal to the CPU's; train_lm at its 300 steps (B1, B2, B3)
+    and its own gate, its first TWIN_CPU_STEPS losses within TWIN_LOSS_RTOL
+    of the CPU's; the schedule explorer's ocs-sim (B6), whose lines equal
+    the NumPy run's and whose every B6 call is held to the plain version
+    and the largest timed.  Returns each path's launches and B6's numbers."""
+    import io
+    from unittest import mock
+
+    out = {}
+    serve = load_example("torch_serve_decode")
+    for arch in TWIN_SERVE_ARCHS:
+        cfg = configs.get(arch).scaled_down()
+        reset_launches()
+        t0 = time.perf_counter()
+        gen, agree = serve.main(["--arch", arch],
+                                say=lambda m, a=arch: print(f"twin serve {a}: {m}"))
+        launches = read_launches()
+        # prefill, the decode steps, and the full forward of the greedy check
+        pre, dec = expected_serve_launches(cfg, TWIN_NEW_TOKENS)
+        want = {k: 2 * pre[k] + dec[k] for k in pre}
+        if launches != want:
+            raise AssertionError(f"twin serve {arch}: launches {launches}, expected {want}")
+        secs = time.perf_counter() - t0
+        with mock.patch.object(serve, "init_params", card_weights(serve.init_params)):
+            gen_cpu, agree_cpu = serve.main(["--arch", arch, "--device", "cpu"],
+                                            say=lambda m: None)
+        if read_launches() != launches:
+            raise AssertionError(f"twin serve {arch}: the CPU run launched a kernel")
+        print(f"twin serve {arch} (scaled down, f32, {tuple(gen.shape)} generated): greedy "
+              f"agreement with full forward {agree * 100:.1f}%, launches {launches}, "
+              f"{secs:.1f} s; --device cpu from the same weights: ids equal "
+              f"{torch.equal(gen, gen_cpu)}, agreement {agree_cpu * 100:.1f}%")
+        if not torch.equal(gen, gen_cpu):
+            raise AssertionError(f"twin serve {arch}: the card's ids {gen.tolist()} differ "
+                                 f"from the CPU's {gen_cpu.tolist()}")
+        out[f"serve {arch}"] = launches
+    train_twin = load_example("torch_train_lm")
+    reset_launches()
+    t0 = time.perf_counter()
+    buf = io.StringIO()  # a line a step: its first and last lines are printed
+    try:
+        with contextlib.redirect_stdout(buf):
+            losses = train_twin.main([])  # its gate: losses[-1] < 0.8 ln(V), else SystemExit
+    finally:
+        lines = buf.getvalue().splitlines()
+        print("\n".join(f"twin train: {ln}" for ln in lines[:3] + ["..."] + lines[-5:]))
+    launches = read_launches()
+    secs = time.perf_counter() - t0
+    a = attention_layers(configs.get("stablelm-3b").scaled_down()) * TWIN_TRAIN_STEPS
+    want = {"flash_attention_fwd": 2 * a, "flash_attention_bwd_dkv": a,
+            "flash_attention_bwd_dq": a}     # full remat runs B1 twice a step
+    if {k: launches[k] for k in want} != want or len(losses) != TWIN_TRAIN_STEPS:
+        raise AssertionError(f"twin train: launches {launches}, expected {want}")
+    # the first steps again on the CPU, from the card run's weights (train()
+    # draws them from the seed on the run's device); so few steps fail the
+    # twin's gate, as in tests/test_torch_examples.py
+    seen = {}
+
+    def on_cpu(tc, progress, device):
+        model = card_weights(init_params)(train_mod.model_config(tc),
+                                          torch.Generator().manual_seed(tc.seed), device)
+        seen["losses"] = train_mod.train(tc, progress=progress, device=device,
+                                         model=model)[2]
+        return None, None, seen["losses"]
+
+    with mock.patch.object(train_twin, "train", on_cpu), \
+            contextlib.redirect_stdout(io.StringIO()):
+        try:
+            train_twin.main(["--steps", str(TWIN_CPU_STEPS), "--device", "cpu"])
+        except SystemExit:
+            pass
+    cpu_losses = seen["losses"]
+    diff = [abs(x - y) / abs(y) for x, y in zip(losses, cpu_losses, strict=False)]
+    print(f"twin train stablelm-3b (scaled down, f32): {len(losses)} steps in {secs:.1f} s, "
+          f"loss {losses[0]:.4f} -> {losses[-1]:.4f}, launches {launches}; --device cpu "
+          f"from the same weights, {TWIN_CPU_STEPS} steps: losses {cpu_losses} against the "
+          f"card's {losses[:TWIN_CPU_STEPS]}, relative differences {diff} (rtol "
+          f"{TWIN_LOSS_RTOL})")
+    if len(cpu_losses) != TWIN_CPU_STEPS or max(diff) > TWIN_LOSS_RTOL:
+        raise AssertionError("twin train: the card's first losses differ from the CPU's")
+    out["train stablelm-3b"] = launches
+    explorer = load_example("torch_schedule_explorer")
+    from repro_torch.core import batchsim_torch
+
+    lines, calls = {}, []
+    b6 = batchsim_torch.fabric_playback
+
+    def recorded(*args, **kw):  # B6 as batch_run calls it, its inputs kept
+        calls.append((tuple(t.clone() for t in args), kw))
+        return b6(*args, **kw)
+
+    for device in ("cuda", "cpu"):
+        before = playback_kernel.fabric_playback.launches
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf), \
+                mock.patch.object(batchsim_torch, "fabric_playback", recorded):
+            explorer.main([*TWIN_EXPLORER_ARGS, "--device", device])
+        lines[device] = buf.getvalue()
+        out[f"explorer {device}"] = {"fabric_playback":
+                                     playback_kernel.fabric_playback.launches - before}
+    print(lines["cuda"], end="")
+    if out["explorer cuda"]["fabric_playback"] == 0 or out["explorer cpu"]["fabric_playback"] \
+            or len(calls) != out["explorer cuda"]["fabric_playback"]:
+        raise AssertionError(f"twin explorer: B6 launches {out}, calls {len(calls)}")
+    if lines["cuda"] != lines["cpu"]:
+        raise AssertionError("twin explorer: the card's lines differ from NumPy's")
+    print(f"twin explorer {' '.join(TWIN_EXPLORER_ARGS)}: B6 launched "
+          f"{out['explorer cuda']['fabric_playback']} times, lines equal to the NumPy run's")
+    for i, (args, kw) in enumerate(calls):
+        check_playback_call(args, kw, f"twin explorer call {i}")
+    args, kw = max(calls, key=lambda c: c[0][2].sum().item())
+    hops = args[2].cpu().numpy()
+    out["explorer"] = {"shape": [int(hops.shape[0]), int(hops.shape[1]), kw["n"], kw["C"]],
+                       "times": time_playback(args, kw, hops, sm_clock_hz(),
+                                              "twin explorer, its most hops")}
+    return out
+
+
+# --- phase 13: the dry run on a fake world ----------------------------------------------
+
+# one cell per mode (and a MoE variant) through the CLI: no device memory moves
+DRYRUN_CELLS = (("stablelm-3b", "train_4k", "pod", "baseline"),
+                ("whisper-base", "prefill_32k", "multipod", "baseline"),
+                ("qwen3-moe-235b-a22b", "decode_32k", "pod", "moe-ep-data"),
+                ("rwkv6-3b", "long_500k", "multipod", "baseline"))
+
+
+def dryrun_cells() -> None:
+    """`python -m repro_torch.launch.dryrun` for DRYRUN_CELLS, in process,
+    under this CUDA build: each cell is OK, and `torch.cuda.memory_allocated`
+    does not move."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import dryrun
+
+    if dist.is_initialized():  # phase 8's one-rank mesh; the dry run makes its own world
+        dist.destroy_process_group()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    with tempfile.TemporaryDirectory() as out:
+        for arch, shape, mesh, variant in DRYRUN_CELLS:
+            t0 = time.perf_counter()
+            dryrun.main(["--arch", arch, "--shape", shape, "--mesh", mesh, "--variant",
+                         variant, "--out", out])
+            tag = f"{arch}__{shape}__{mesh}" + ("" if variant == "baseline" else f"__{variant}")
+            res = json.loads(Path(out, f"{tag}.json").read_text())
+            if "error" in res:
+                raise AssertionError(f"dry run {tag}: {res['error']}")
+            print(f"dry run {tag}: {time.perf_counter() - t0:.1f} s, calibrated flops "
+                  f"{res['calibrated']['flops']:.4g}, memory {res['memory']}")
+    torch.cuda.synchronize()
+    if torch.cuda.memory_allocated() != before:
+        raise AssertionError(f"the dry run moved the card's memory: {before} -> "
+                             f"{torch.cuda.memory_allocated()} bytes")
+    print(f"dry run: {len(DRYRUN_CELLS)} cells traced, card memory allocated "
+          f"{before} bytes before and after")
+
+
 def main() -> None:
     if sys.argv[1:] == ["--rank"]:  # one rank of the multi-card phase
         _rank_main()
@@ -3340,7 +3632,9 @@ def main() -> None:
                  for case in (TRAIN_FWD_CASE, SERVE_CASE, GRIFFIN_CASE, GRIFFIN_TRAIN_CASE,
                               QWEN_CASE, QWEN_TRAIN_CASE, *RANK_CASES, *NEW_CASES,
                               *SLICE15_CASES)}
+    fwd_times.update({case: time_flash(case, torch.float32) for case in TWIN_FWD_CASES})
     bwd_times = {case: time_bwd(case) for case in TRAIN_BWD_CASES}
+    bwd_times[TWIN_TRAIN_BWD] = time_bwd(TWIN_TRAIN_BWD, torch.float32)
     rec_times = time_recurrent()
     rec_times.update(time_recurrent_bwd())
     phase("5 model parity card vs cpu")
@@ -3398,6 +3692,13 @@ def main() -> None:
         gc.collect()
         torch.cuda.empty_cache()
     workload_rows()
+    phase("12 example twins")
+    twins = twin_paths()
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase("13 dry run on a fake world")
+    dryrun_cells()
+    phase(None)
 
     kernels_dir = "src/repro/kernels"
     sources = {"flash_attention_fwd": ("flash_attention_fwd.cu",
@@ -3497,6 +3798,9 @@ def main() -> None:
         ("serve command-r-plus-104b prefill", "flash_attention_fwd", COMMAND_R_CASE,
          serve_launches["command-r-plus-104b"]["prefill"], fwd_errs[COMMAND_R_CASE],
          fwd_times[COMMAND_R_CASE]),
+        ("serve arctic-480b prefill", "flash_attention_fwd", ARCTIC_CASE,
+         serve_launches["arctic-480b"]["prefill"], fwd_errs[ARCTIC_CASE],
+         fwd_times[ARCTIC_CASE]),
         *((f"serve recurrentgemma-9b {part}", "rg_lru_fwd", case, griffin[part],
            rec_errs[("rg_lru_fwd", case)], rec_times[("rg_lru_fwd", case)])
           for part, case in (("prefill", LRU_PREFILL), ("decode", LRU_DECODE))),
@@ -3528,6 +3832,26 @@ def main() -> None:
               *((name, QWEN_BWD_CASE, bwd_errs[(name, QWEN_BWD_CASE)],
                  bwd_times[QWEN_BWD_CASE][name]) for name in bwd_names))),
     ]
+    # phase 12: the twins (f32), each at its path's shapes
+    twin_fwd = {"serve gemma3-4b": (TWIN_GEMMA_LOCAL, TWIN_GEMMA_GLOBAL,
+                                    TWIN_GEMMA_FULL_LOCAL, TWIN_GEMMA_FULL_GLOBAL),
+                "serve minicpm3-4b": (TWIN_MLA_CASE, TWIN_MLA_FULL),
+                "train stablelm-3b": (TWIN_TRAIN_FWD,)}
+    for path, (case, *others) in twin_fwd.items():
+        entries.append((f"twin {path}", "flash_attention_fwd", case, twins[path],
+                        fwd_errs[case], with_other(fwd_times[case], *others, errs=fwd_errs)))
+    entries += [("twin train stablelm-3b", name, TWIN_TRAIN_BWD, twins["train stablelm-3b"],
+                 bwd_errs[(name, TWIN_TRAIN_BWD)], bwd_times[TWIN_TRAIN_BWD][name])
+                for name in bwd_names]
+    entries.append(("twin serve rwkv6-3b", "wkv6_fwd", TWIN_WKV_STEP, twins["serve rwkv6-3b"],
+                    rec_errs[("wkv6_fwd", TWIN_WKV_STEP)],
+                    dict(rec_times[("wkv6_fwd", TWIN_WKV_STEP)], other_shapes=[
+                        {"shape": list(case), "max_abs_err": rec_errs[("wkv6_fwd", case)],
+                         **rec_times[("wkv6_fwd", case)]}
+                        for case in (TWIN_WKV_PREFILL, TWIN_WKV_FULL)])))
+    entries.append((f"twin explorer {' '.join(TWIN_EXPLORER_ARGS)}", "fabric_playback",
+                    tuple(twins["explorer"]["shape"]), twins["explorer cuda"], 0.0,
+                    twins["explorer"]["times"]))
     # phase 9's mesh paths (four cards): rank 0's launches, at a rank's shapes
     mesh = multi.get("mesh", {})
     rank_paths = {
@@ -3551,7 +3875,8 @@ def main() -> None:
         if key == "griffin":
             entries += [(path, name, LRU_RANK, launches, rec_errs[(name, LRU_RANK)],
                          rec_times[(name, LRU_RANK)]) for name in ("rg_lru_fwd", "rg_lru_bwd")]
-    print(f"launches: serve {serve_launches}, train {train_launches}")
+    print(f"launches: serve {serve_launches}, train {train_launches}, twins "
+          f"{ {k: v for k, v in twins.items() if k != 'explorer'} }")
     kernels = [{
         "name": name,
         "path": path,

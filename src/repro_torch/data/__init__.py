@@ -1,3 +1,3 @@
-from .pipeline import SyntheticLM
+from .pipeline import SyntheticLM, make_batch_specs
 
-__all__ = ["SyntheticLM"]
+__all__ = ["SyntheticLM", "make_batch_specs"]

@@ -1,8 +1,9 @@
 """Deterministic, shard-aware, resumable synthetic-LM data pipeline.
 
 A copy of `repro.data.pipeline.SyntheticLM` as it is (NumPy only), so the
-port and the JAX package train on bit-identical batches.  The JAX-only
-`make_batch_specs` is not copied.
+port and the JAX package train on bit-identical batches, and of
+`make_batch_specs`, the dry run's inputs, as (shape, torch dtype) pairs in
+place of `jax.ShapeDtypeStruct`s.
 
 Design requirements at 1000+ nodes (DESIGN.md S5):
   - *counter-based*: batch(step, shard) is a pure function of (seed, step,
@@ -22,6 +23,7 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
 
 
 @dataclasses.dataclass(frozen=True)
@@ -61,3 +63,19 @@ class SyntheticLM:
                  for sh in range(num_shards)]
         return {k: np.concatenate([p[k] for p in parts], axis=0)
                 for k in parts[0]}
+
+
+def make_batch_specs(cfg, shape, dtype_tokens=torch.int32) -> dict:
+    """{name: (shape, dtype)} of one (arch, shape) cell's batch: the dry-run
+    inputs, with the reference's keys, shapes and dtypes."""
+    B, S = shape.global_batch, shape.seq_len
+    if shape.mode == "decode":
+        return {"tokens": ((B, 1), dtype_tokens)}
+    text_S = S - (cfg.frontend_seq if cfg.frontend == "patch_stub" else 0)
+    specs = {"tokens": ((B, text_S), dtype_tokens),
+             "labels": ((B, text_S), dtype_tokens)}
+    if cfg.frontend == "patch_stub":
+        specs["patches"] = ((B, cfg.frontend_seq, cfg.d_model), torch.float32)
+    if cfg.enc_dec:
+        specs["frames"] = ((B, cfg.encoder_seq, cfg.d_model), torch.float32)
+    return specs

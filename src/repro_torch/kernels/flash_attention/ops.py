@@ -12,13 +12,16 @@ A value head narrower than the query head (MLA: q/k heads of nope + rope,
 value heads of v_head_dim) is zero-padded up to the query head before the
 kernels and the output sliced back after; that is exact, since the padded
 columns of P.V are zero, and autograd carries the gradient through both.
+A query head between the kernels' head dims (`kernel.HEAD_DIMS`; the
+scaled-down MLA's 16 + 8 = 24) pads q and k alike up to the next one, the
+scale staying the unpadded head's: the padded columns add nothing to QK^T.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-from .kernel import flash_attention_fwd_lse
+from .kernel import HEAD_DIMS, flash_attention_fwd_lse
 from .kernel_bwd import flash_attention_bwd
 
 
@@ -62,7 +65,17 @@ def flash_attention(q, k, v, causal: bool = True, window: int | None = None,
     d, dv = q.shape[-1], v.shape[-1]
     if dv > d:
         raise ValueError(f"value head {dv} wider than the query head {d}")
-    if dv < d:
-        out = _FlashAttention.apply(q, k, F.pad(v, (0, d - dv)), causal, window, scale)
+    head = padded_head(d)
+    if head != d:
+        q, k = F.pad(q, (0, head - d)), F.pad(k, (0, head - d))
+    if dv < head:
+        out = _FlashAttention.apply(q, k, F.pad(v, (0, head - dv)), causal, window, scale)
         return out[..., :dv]
     return _FlashAttention.apply(q, k, v, causal, window, scale)
+
+
+def padded_head(d: int) -> int:
+    """The kernels' head dim that a query head of `d` runs at: the smallest
+    of `HEAD_DIMS` that holds it (`d` itself past the largest, which the
+    kernels refuse)."""
+    return min((h for h in HEAD_DIMS if h >= d), default=d)

@@ -238,25 +238,25 @@ def distribute(t: torch.Tensor, mesh, placements_: tuple) -> DTensor:
                               run_check=False)
 
 
-def _gather_to(mesh, name: str, ndim: int, pl: tuple) -> tuple:
+def _gather_to(name: str, ndim: int, pl: tuple) -> tuple:
     """What a read gathers a parameter to: everything whole, but the expert
-    stacks (E, ., .) keep E sharded over 'model' (expert parallelism: each
+    stacks (E, ., .) keep E sharded over the axis that shards it, 'model' by
+    default, 'data' under `moe_expert_axis="data"` (expert parallelism: each
     rank runs its own experts on every peer's slots)."""
-    names = list(axis_sizes(mesh))
-    keep = name.split(".")[-1] in _EXPERT_WEIGHTS and ndim == 3 and any(
-        names[i] == "model" and isinstance(p, Shard) and p.dim == 0
-        for i, p in enumerate(pl))
-    return tuple(p if keep and names[i] == "model" else Replicate()
-                 for i, p in enumerate(pl))
+    keep = name.split(".")[-1] in _EXPERT_WEIGHTS and ndim == 3
+    return tuple(p if keep and isinstance(p, Shard) and p.dim == 0 else Replicate()
+                 for p in pl)
 
 
-def shard_model(model: nn.Module, mesh) -> dict[str, tuple]:
+def shard_model(model: nn.Module, mesh, moe_expert_axis: str = "model",
+                fsdp: bool = True) -> dict[str, tuple]:
     """Turn every parameter of `model` (whole, the same on every rank) into a
-    DTensor parameter holding this rank's shard under the rule table, in
-    place; the whole tensors are freed.  Each parameter is gathered where
-    the model reads it (`models.sharding.gathered`) to `p.gather_to`.
-    Returns {name: placements}."""
-    specs = param_shardings(mesh, model)
+    DTensor parameter holding this rank's shard under the rule table
+    (`param_shardings`' options), in place; the whole tensors are freed.
+    Each parameter is gathered where the model reads it
+    (`models.sharding.gathered`) to `p.gather_to`.  Returns {name:
+    placements}."""
+    specs = param_shardings(mesh, model, moe_expert_axis, fsdp)
     out = {}
     for name, spec in specs.items():
         *path, leaf = name.split(".")
@@ -264,7 +264,7 @@ def shard_model(model: nn.Module, mesh) -> dict[str, tuple]:
         pl = placements(mesh, spec)
         with torch.no_grad():
             param = nn.Parameter(distribute(getattr(owner, leaf).detach(), mesh, pl))
-        param.gather_to = _gather_to(mesh, name, param.dim(), pl)
+        param.gather_to = _gather_to(name, param.dim(), pl)
         owner[leaf] = param
         out[name] = pl
     for module in model.modules():

@@ -81,7 +81,7 @@ from repro_torch.models.model import Model, init_params, loss_fn
 from repro_torch.models.sharding import TokenSplit, activation_sharding
 from repro_torch.optim import AdamWState, adamw_init, adamw_update, cosine_warmup_schedule
 
-from .mesh import axis_sizes, make_mesh
+from .mesh import axis_sizes, batch_axes, make_mesh
 from .shardings import activation_rules, local_shard, shard_model
 
 
@@ -163,10 +163,25 @@ def layout(tc: TrainConfig, world: World, mesh) -> Layout:
         return Layout(world, world, False, split)
     if tc.grad_sync == "gspmd":
         experts = mesh.get_group("model") if "model" in axis_sizes(mesh) else None
-        return Layout(world, None, True,
-                      TokenSplit(tc.batch_size // world.size, experts=experts))
+        if tc.batch_size % world.size == 0:
+            return Layout(world, None, True,
+                          TokenSplit(tc.batch_size // world.size, experts=experts))
+        # fewer rows than ranks: the rows split over the batch axes, as the
+        # reference's batch sharding, and the ranks that differ only in the
+        # other axes compute the same rows
+        rows = batch_world(mesh)
+        return Layout(rows, None, True,
+                      TokenSplit(tc.batch_size // rows.size, rows.group, experts))
     data = World(mesh["data"].size(), mesh.get_local_rank("data"), mesh.get_group("data"))
     return Layout(data, data, False, None)
+
+
+def batch_world(mesh) -> World:
+    """The ranks that hold distinct rows under the reference's batch
+    sharding: this rank's group over `batch_axes(mesh)`."""
+    axes = batch_axes(mesh)
+    sub = mesh[axes] if len(axes) == 1 else mesh[axes]._flatten()
+    return World(sub.size(), sub.get_local_rank(), sub.get_group())
 
 
 def sync_gradients(grads: list[torch.Tensor], grad_sync: str, world: World,
@@ -226,8 +241,10 @@ def make_train_step(tc: TrainConfig, lay: Layout, mesh=None):
         grads = [p.grad for p in params]
         if lay.sync is not None:
             grads, ef = sync_gradients(grads, tc.grad_sync, lay.sync, ef)
-        elif lay.rows.size > 1:  # sharded: the shards came back summed over the ranks
-            grads = [g / lay.rows.size for g in grads]
+        elif lay.sharded and dist.get_world_size() > 1:
+            # the shards came back summed over every rank of the mesh (the
+            # world), each of the rows' copies counted once
+            grads = [g / dist.get_world_size() for g in grads]
         metrics = {k: _pmean(m, lay.rows) for k, m in metrics.items()}
         _, opt_state, om = adamw_update(grads, opt_state, params, lr)
         metrics.update(om)

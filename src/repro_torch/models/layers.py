@@ -54,9 +54,13 @@ def dot(x, w):
 
 
 def normal_init(generator, shape, scale, dtype):
+    """N(0, 1) in float32 from `generator`, scaled, then cast to `dtype`.
+    Scaled in place: the same bits as `(x * scale).to(dtype)`, with one
+    float32 copy of the leaf less in flight (arctic-480b's expert stacks
+    are 17.9 GB each in float32)."""
     x = torch.randn(shape, generator=generator, device=generator.device,
                     dtype=torch.float32)
-    return (x * scale).to(dtype)
+    return x.mul_(scale).to(dtype)
 
 
 # --- norms --------------------------------------------------------------------

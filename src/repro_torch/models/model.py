@@ -253,6 +253,9 @@ def apply_block(cfg: ArchConfig, p: Block, kind: str, x, positions, *, cache=Non
     FFNs.  A block with cross attention attends to `enc_out`'s K/V where it
     is given (train, prefill: prefill also stores them in the cache) and to
     the cached ones in decode."""
+    held = cache  # a sharded cache: whole here, its shards kept at the end
+    if cache is not None and sharding.caches_sharded():
+        cache = sharding.gathered_cache(cache, fresh=x.shape[1] > 1)
     h = layers.rmsnorm(p["norm1"], x)
     mix_cache = None if cache is None else cache["mix"]
     if kind in ("attn", "local"):
@@ -288,7 +291,9 @@ def apply_block(cfg: ArchConfig, p: Block, kind: str, x, positions, *, cache=Non
         cache["mix"] = new_mix
         if kind == "rwkv6":
             cache["cmix"] = new_cmix
-    return sharding.shard(x + y, "act"), cache, aux
+        if cache is not held:
+            sharding.keep_shards(held, cache)
+    return sharding.shard(x + y, "act"), held, aux
 
 
 # --- selective remat ---------------------------------------------------------------------

@@ -62,7 +62,6 @@ import math
 
 import torch
 import torch.distributed as dist
-import torch.distributed.nn.functional as dist_nn
 import torch.nn.functional as F
 
 from repro_torch.collectives import bruck_all_to_all
@@ -114,6 +113,27 @@ def route(p, xg, m: MoEConfig):
     counts = torch.cumsum(oh, dim=-1, dtype=torch.int32)
     pos = (torch.gather(counts, 1, flat_i) - 1).reshape(n, g, k)
     return probs, top_p, top_i, pos, pos < _capacity(g, m)
+
+
+class _GatherRows(torch.autograd.Function):
+    """Every rank's rows of `group`, in rank order.  The backward sums the
+    gathered gradient over the group (an all-reduce) and keeps this rank's
+    rows: a reduce-scatter's result, on any backend and group
+    (`torch.distributed.nn`'s all-gather scatters its gradient on gloo by
+    global ranks, which a subgroup refuses)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group, ctx.n, ctx.rank = group, dist.get_world_size(group), dist.get_rank(group)
+        parts = [torch.empty_like(x) for _ in range(ctx.n)]
+        dist.all_gather(parts, x.contiguous(), group=group)
+        return torch.cat(parts)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g.chunk(ctx.n)[ctx.rank], None
 
 
 def _experts(p, xe, dtype):
@@ -198,10 +218,15 @@ def _experts_group(p, m: MoEConfig, split):
 
 
 def _peers(split, ep) -> list[int]:
-    """The ranks, in the split's group, of the expert-parallel group `ep`."""
+    """The ranks, in the split's group, of the expert-parallel group `ep`.
+    A peer outside the split's group (the rows split over fewer ranks than
+    the world, `launch.train.layout`) holds this rank's rows, which this
+    rank's own index already names."""
     ranks = dist.get_process_group_ranks(ep)
-    return ranks if split.group is None else [dist.get_group_rank(split.group, r)
-                                              for r in ranks]
+    if split.group is None:
+        return ranks
+    mine = set(dist.get_process_group_ranks(split.group))
+    return [dist.get_group_rank(split.group, r) for r in ranks if r in mine]
 
 
 def moe_ffn(cfg: ArchConfig, p, x):
@@ -224,7 +249,7 @@ def moe_ffn(cfg: ArchConfig, p, x):
         # any rows of its exchange's peers: every peer runs the same groups
         ranks = [rank] if ep is None else _peers(split, ep)
         first, last = min(ranks) * t // gs, ((max(ranks) + 1) * t - 1) // gs
-        gathered = torch.cat(dist_nn.all_gather(flat, split.group))
+        gathered = _GatherRows.apply(flat, split.group)
         y, aux_g = _grouped(p, gathered[first * gs:min((last + 1) * gs, total)], gs, m, ep)
         y = y[lo - first * gs:hi - first * gs]
         n_groups = -(-total // gs)

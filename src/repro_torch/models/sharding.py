@@ -26,6 +26,12 @@ into this rank's shard of the summed gradient.  `Block.__getitem__` and the
 model's embedding, unembedding and final-norm reads call it, inside each
 block's `torch.utils.checkpoint`, so full remat gathers again in the
 backward and only one block's weights are whole at a time.
+
+Caches alike, inside `activation_sharding(..., sharded_caches=True)` only
+(the dry run's serving layout, `launch.dryrun`): a cache leaf held as a
+DTensor shard (its head, latent or sequence dim over 'model') is gathered
+where a block reads its cache (`gathered_cache`), the block reads and writes
+the whole, and `keep_shards` copies this rank's shard of the result back.
 """
 from __future__ import annotations
 
@@ -33,7 +39,7 @@ import contextlib
 import dataclasses
 
 from torch import nn
-from torch.distributed.tensor import DTensor, Partial, Replicate
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 # process-wide, not thread-local as the reference's: the backward's remat
 # recompute reads it on the autograd engine's device thread
@@ -52,10 +58,13 @@ class TokenSplit:
 
 
 @contextlib.contextmanager
-def activation_sharding(mesh, rules: dict, split: TokenSplit | None = None):
-    """rules: logical name -> spec; split: this step's `TokenSplit`."""
+def activation_sharding(mesh, rules: dict, split: TokenSplit | None = None,
+                        sharded_caches: bool = False):
+    """rules: logical name -> spec; split: this step's `TokenSplit`;
+    sharded_caches: the caches' leaves may be DTensor shards (the dry run's
+    serving layout), which each block gathers (`gathered_cache`)."""
     prev = _CTX[0]
-    _CTX[0] = (mesh, rules, split)
+    _CTX[0] = (mesh, rules, split, sharded_caches)
     try:
         yield
     finally:
@@ -67,11 +76,16 @@ def token_split() -> TokenSplit | None:
     return None if ctx is None else ctx[2]
 
 
+def caches_sharded() -> bool:
+    ctx = _CTX[0]
+    return ctx is not None and ctx[3]
+
+
 def shard(x, name: str):
     ctx = _CTX[0]
     if ctx is None:
         return x
-    _, rules, split = ctx
+    _, rules, split, _ = ctx
     if rules.get(name) is not None and split is not None and x.shape[0] != split.rows:
         raise ValueError(f"{name}: leading dim {x.shape[0]}, but this rank holds "
                          f"{split.rows} rows of the batch")
@@ -95,3 +109,46 @@ def gathered(pdict: nn.ParameterDict):
         return pdict
     return {k: gathered(v) if isinstance(v, nn.ParameterDict) else gather(v)
             for k, v in pdict.items()}
+
+
+def _any_shard(cache: dict) -> bool:
+    return any(_any_shard(v) if isinstance(v, dict) else isinstance(v, DTensor)
+               for v in cache.values())
+
+
+def gathered_cache(cache: dict | None, fresh: bool = False):
+    """`cache` itself where no leaf is a DTensor, else a copy whose DTensor
+    leaves are whole plain tensors: gathered, or zeros of the whole shape
+    where the block is about to fill the cache (`fresh`: prefill)."""
+    if cache is None or not _any_shard(cache):
+        return cache
+
+    def whole(v):
+        if isinstance(v, dict):
+            return {k: whole(x) for k, x in v.items()}
+        if not isinstance(v, DTensor):
+            return v
+        if fresh:
+            return v.to_local().new_zeros(v.shape)
+        return v.redistribute(v.device_mesh, [Replicate()] * v.device_mesh.ndim).to_local()
+
+    return whole(cache)
+
+
+def keep_shards(held: dict, whole: dict) -> None:
+    """Write back what a block did to the whole cache `whole`: into `held`'s
+    DTensor leaves this rank's shard of each (a local cut, no
+    communication), every other entry as it is."""
+    for k, v in whole.items():
+        old = held.get(k)
+        if isinstance(v, dict):
+            keep_shards(old, v)
+        elif isinstance(old, DTensor):
+            local = v
+            for i, pl in enumerate(old.placements):
+                if isinstance(pl, Shard):
+                    mesh = old.device_mesh
+                    local = local.chunk(mesh.size(i), dim=pl.dim)[mesh.get_local_rank(i)]
+            old.to_local().copy_(local)
+        else:
+            held[k] = v

@@ -26,6 +26,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import _torch_threads  # noqa: E402,F401
 
 from _torch_dist_worker import spawn  # noqa: E402
 from repro.checkpoint import store as ref_store  # noqa: E402

@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 
 pytest.importorskip("torch")
+import _torch_threads  # noqa: E402,F401
 
 from _torch_dist_worker import spawn  # noqa: E402
 

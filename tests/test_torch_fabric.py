@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import _torch_threads  # noqa: E402,F401
 jax = pytest.importorskip("jax")
 
 from repro.analysis import certifier as ref_certifier  # noqa: E402

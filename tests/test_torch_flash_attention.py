@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import _torch_threads  # noqa: E402,F401
 
 from repro_torch.kernels.flash_attention import kernel, ops, ref  # noqa: E402
 

@@ -26,6 +26,7 @@ import pytest
 from jax.sharding import AbstractMesh
 
 torch = pytest.importorskip("torch")
+import _torch_threads  # noqa: E402,F401
 
 from _torch_dist_worker import spawn  # noqa: E402
 from _torch_parity import both_params, flatten  # noqa: E402
@@ -232,6 +233,19 @@ def test_2d_moe_training_equals_jax(tmp_path, jax_losses, shape):
         for key, w in whole.items():
             np.testing.assert_allclose(sharded[key], w, atol=PARAM_ATOL, rtol=1e-5,
                                        err_msg=key)
+
+
+def test_fewer_rows_than_ranks_split_over_the_batch_axes(tmp_path, jax_losses):
+    """Check 3 with 2 rows on (2, 2): the rows split over 'data' only (as the
+    reference's batch sharding), the two ranks of each 'model' group compute
+    the same row, their one group of 32 tokens spans the 'data' ranks, and
+    the experts still run in parallel over 'model'; the losses equal the JAX
+    package's (the dry run's multipod training layout, 256 rows on 512
+    ranks)."""
+    want, params = jax_losses(2)
+    losses, _ = _mesh_runs(tmp_path, 4, params, *{**CHECK3, "batch_size": 2}.values(),
+                           "gspmd@2x2")
+    np.testing.assert_allclose(losses["gspmd@2x2"], want, rtol=LOSS_RTOL)
 
 
 def test_expert_parallel_peers_run_the_same_groups(tmp_path, jax_losses):

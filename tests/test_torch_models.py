@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import _torch_threads  # noqa: E402,F401
 
 from _torch_parity import both_params  # noqa: E402
 
@@ -73,6 +74,18 @@ def test_embed_unembed_match_jax():
         assert got.dtype == torch.float32
         _close(got, jax_layers.unembed({k: jnp.asarray(v) for k, v in p.items()},
                                        jnp.asarray(x)), **LAYER_TOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_normal_init_gives_the_bits_of_the_expression_it_replaces(dtype):
+    """`normal_init` scales its draw in place; the values are the bits of
+    `(randn * scale).to(dtype)`, the expression it replaced."""
+    got = layers.normal_init(torch.Generator().manual_seed(7), (33, 17), 0.37, dtype)
+    x = torch.randn((33, 17), generator=torch.Generator().manual_seed(7), dtype=torch.float32)
+    want = (x * 0.37).to(dtype)
+    assert got.dtype == dtype
+    assert torch.equal(got.view(torch.int16 if dtype == torch.bfloat16 else torch.int32),
+                       want.view(torch.int16 if dtype == torch.bfloat16 else torch.int32))
 
 
 def test_dot_returns_float32_for_bf16():

@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import _torch_threads  # noqa: E402,F401
 
 from repro_torch import configs  # noqa: E402
 from repro_torch.launch import serve, train  # noqa: E402
@@ -80,3 +81,28 @@ def test_port_sources_name_no_jax_and_no_reference_package():
     assert pattern.match("        from repro.checkpoint import store")
     assert pattern.match("import jax.numpy as jnp") and pattern.match("from jax import lax")
     assert not pattern.match("from repro_torch.core import batchsim")
+
+
+TWINS = ("torch_quickstart", "torch_schedule_explorer", "torch_serve_decode",
+         "torch_train_lm")
+
+
+@pytest.mark.parametrize("twin", TWINS)
+def test_example_twins_import_no_jax_and_no_reference_package(twin):
+    """Each twin of an example script, imported in a fresh process, brings in
+    neither JAX nor a `repro` module, and no line of it names one."""
+    path = SRC.parent / "examples" / f"{twin}.py"
+    code = (
+        "import importlib.util, sys\n"
+        f"spec = importlib.util.spec_from_file_location('twin', {str(path)!r})\n"
+        "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+        "bad = sorted(n for n in sys.modules if n == 'jax' or n.startswith('jax.')\n"
+        "             or n == 'repro' or n.startswith('repro.'))\n"
+        "assert not bad, bad\n"
+        "assert 'repro_torch' in sys.modules\n")
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    proc = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
+                          text=True, timeout=120, check=False)
+    assert proc.returncode == 0, proc.stderr
+    pattern = re.compile(r"^\s*(from\s+(repro|jax)[.\s]|import\s+(repro|jax)\b)")
+    assert not [line for line in path.read_text().splitlines() if pattern.match(line)]

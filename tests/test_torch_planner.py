@@ -15,6 +15,7 @@ from pathlib import Path
 import pytest
 
 pytest.importorskip("torch")
+import _torch_threads  # noqa: E402,F401
 
 from repro.collectives import gradient_sync_plan as jax_gradient_sync_plan  # noqa: E402
 from repro.core import cost_model as ref_cost_model  # noqa: E402

@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import _torch_threads  # noqa: E402,F401
 
 from repro_torch.core import PAPER_DEFAULT, batchsim, schedules  # noqa: E402
 from repro_torch.kernels.playback import kernel as playback_kernel  # noqa: E402

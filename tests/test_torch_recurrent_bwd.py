@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import _torch_threads  # noqa: E402,F401
 
 try:  # the card's machine has no JAX: there only the `cuda` cases run (-m cuda)
     import jax

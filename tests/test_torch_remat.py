@@ -26,6 +26,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import _torch_threads  # noqa: E402,F401
 
 from jax._src.ad_checkpoint import saved_residuals  # noqa: E402
 from torch.utils._python_dispatch import TorchDispatchMode  # noqa: E402

@@ -7,6 +7,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import _torch_threads  # noqa: E402,F401
 
 from _torch_parity import both_params  # noqa: E402
 

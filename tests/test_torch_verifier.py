@@ -17,6 +17,7 @@ import warnings
 import pytest
 
 pytest.importorskip("torch")
+import _torch_threads  # noqa: E402,F401
 
 from repro import analysis as ref_analysis  # noqa: E402
 from repro.analysis import mutations as ref_mutations  # noqa: E402

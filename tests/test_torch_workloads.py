@@ -20,6 +20,7 @@ import warnings
 import pytest
 
 pytest.importorskip("torch")
+import _torch_threads  # noqa: E402,F401
 
 import chip_smoke  # noqa: E402
 from repro import workloads as ref  # noqa: E402
