@@ -376,13 +376,29 @@ INTERNVL_CASE = (4, 48, 8, 1536, 1536, 128, True, None)
 GRIFFIN_TRAIN_CASE = (8, 16, 1, 512, 512, 256, True, 2048)
 # qwen3-moe-235b-a22b trained (phase 8): GQA 16:1 at D = 128, 8 x 512
 QWEN_TRAIN_CASE = (8, 64, 4, 512, 512, 128, True, None)
-# the multi-card paths of phase 9 give each rank 2 of the 8 rows: qwen3-moe
-# on (2, 2), recurrentgemma-9b on (4,), stablelm-3b's pipeline microbatches
-# and its elastic restart
-QWEN_RANK_CASE = (2, 64, 4, 512, 512, 128, True, None)
-GRIFFIN_RANK_CASE = (2, 16, 1, 512, 512, 256, True, 2048)
+# the multi-card paths of phase 9, a rank's rows and heads under tensor
+# parallelism over 'model' (the rows over 'data', the heads over 'model'):
+# qwen3-moe on (2, 2), 4 rows, 32 of 64 query heads on 2 of 4 KV heads;
+# recurrentgemma-9b on (2, 2), 8 of 16 heads on the one (replicated) KV
+# head; stablelm-3b's pipeline microbatches (2 rows, whole) and its elastic
+# restart resumed on (2, 2) (16 of 32 heads); command-r-plus-104b served on
+# (1, 4) (24 of 96 heads on 2 of 8) and trained on (2, 2) and on (1, 4)
+QWEN_RANK_CASE = (4, 32, 2, 512, 512, 128, True, None)
+GRIFFIN_RANK_CASE = (4, 8, 1, 512, 512, 256, True, 2048)
 STABLELM_RANK_CASE = (2, 32, 32, 512, 512, 80, True, None)
-RANK_CASES = (QWEN_RANK_CASE, GRIFFIN_RANK_CASE, STABLELM_RANK_CASE)
+STABLELM_TP_CASE = (4, 16, 16, 512, 512, 80, True, None)
+COMMAND_R_TP_CASE = (4, 24, 2, 512, 512, 128, True, None)
+COMMAND_R_TRAIN_22 = (4, 48, 4, 512, 512, 128, True, None)
+COMMAND_R_TRAIN_14 = (8, 24, 2, 512, 512, 128, True, None)
+RANK_CASES = (QWEN_RANK_CASE, GRIFFIN_RANK_CASE, STABLELM_RANK_CASE, STABLELM_TP_CASE,
+              COMMAND_R_TP_CASE, COMMAND_R_TRAIN_22, COMMAND_R_TRAIN_14)
+# the tensor-parallel parity paths of phase 9 (f32): command-r-plus-104b's 2
+# layers serving 4 prompts of 256 on (1, 4); stablelm-3b's 2 layers at 2 x
+# 128 on (2, 2) (1 row, 16 heads a rank) and on (1, 4) (2 rows, 8 heads)
+TP_SERVE_F32_CASE = (4, 24, 2, 256, 256, 128, True, None)
+TP_TRAIN_F32_22 = (1, 16, 16, 128, 128, 80, True, None)
+TP_TRAIN_F32_14 = (2, 8, 8, 128, 128, 80, True, None)
+TP_F32_FWD_CASES = (TP_SERVE_F32_CASE, TP_TRAIN_F32_22, TP_TRAIN_F32_14)
 NEW_CASES = (WHISPER_ENC_CASE, WHISPER_CROSS_CASE, WHISPER_CROSS_DECODE, WHISPER_SELF_CASE,
              MLA_CASE, INTERNVL_CASE)
 # minicpm3-4b trained at 8 x 512 (phase 8): MLA's 40 heads, q/k of 96, V of 64
@@ -416,6 +432,8 @@ TWIN_MLA_FULL = (4, 4, 4, 48, 48, 24, True, None, 16)
 TWIN_TRAIN_FWD = (16, 4, 4, 64, 64, 32, True, None)
 TWIN_FWD_CASES = (TWIN_MLA_CASE, TWIN_MLA_FULL, TWIN_GEMMA_LOCAL, TWIN_GEMMA_GLOBAL,
                   TWIN_GEMMA_FULL_LOCAL, TWIN_GEMMA_FULL_GLOBAL, TWIN_TRAIN_FWD)
+# the shapes whose paths run B1 in f32: the twins' and the parity paths'
+F32_FWD_CASES = TWIN_FWD_CASES + TP_F32_FWD_CASES
 SLICE15_CASES = (MLA_TRAIN_CASE, GEMMA_TRAIN_LOCAL, GEMMA_TRAIN_GLOBAL, GEMMA_SERVE_LOCAL,
                  GEMMA_SERVE_GLOBAL, GEMMA_WRAP_CASE, COMMAND_R_CASE, ARCTIC_CASE)
 # ragged Sq and Sk (not multiples of 16 or 64): Sq < Sk under GQA, and MQA
@@ -451,9 +469,11 @@ TRAIN_CASE = (8, 32, 512, 512, 80, True, None)
 # recurrentgemma-9b's training shape, its one K/V head expanded to 16
 GRIFFIN_BWD_CASE = (8, 16, 512, 512, 256, True, 2048)
 QWEN_BWD_CASE = (8, 64, 512, 512, 128, True, None)          # GQA expanded by the op
-QWEN_RANK_BWD = (2, 64, 512, 512, 128, True, None)
-GRIFFIN_RANK_BWD = (2, 16, 512, 512, 256, True, 2048)
-STABLELM_RANK_BWD = (2, 32, 512, 512, 80, True, None)
+QWEN_RANK_BWD = (4, 32, 512, 512, 128, True, None)       # a rank's under TP (phase 9)
+GRIFFIN_RANK_BWD = (4, 8, 512, 512, 256, True, 2048)
+STABLELM_TP_BWD = (4, 16, 512, 512, 80, True, None)
+COMMAND_R_BWD_22 = (4, 48, 512, 512, 128, True, None)
+COMMAND_R_BWD_14 = (8, 24, 512, 512, 128, True, None)
 # minicpm3-4b's: the eighth field is the value head (64), which the op pads
 # to 96, so V and dO are zero past it; gemma3-4b's at 2 x 2048, K/V expanded
 MLA_BWD_CASE = (8, 40, 512, 512, 96, True, None, 64)
@@ -462,8 +482,11 @@ GEMMA_BWD_GLOBAL = (2, 8, 2048, 2048, 256, True, None)
 # train_lm's twin: stablelm-3b scaled down (f32), 16 x 64, 4 heads of 32
 TWIN_TRAIN_BWD = (16, 4, 64, 64, 32, True, None)
 TRAIN_BWD_CASES = (TRAIN_CASE, GRIFFIN_BWD_CASE, QWEN_BWD_CASE, QWEN_RANK_BWD,
-                   GRIFFIN_RANK_BWD, STABLELM_RANK_BWD, MLA_BWD_CASE, GEMMA_BWD_LOCAL,
-                   GEMMA_BWD_GLOBAL)
+                   GRIFFIN_RANK_BWD, STABLELM_TP_BWD, MLA_BWD_CASE, GEMMA_BWD_LOCAL,
+                   GEMMA_BWD_GLOBAL, COMMAND_R_BWD_22, COMMAND_R_BWD_14)
+# the f32 training paths' B2 / B3 shapes: the train twin's, the TP parity's
+TP_TRAIN_F32_BWD = ((1, 16, 128, 128, 80, True, None), (2, 8, 128, 128, 80, True, None))
+F32_BWD_CASES = (TWIN_TRAIN_BWD, *TP_TRAIN_F32_BWD)
 WIDE_BWD_CASE = (1, 8, 300, 300, 256, True, 100)
 GQA_CASE = (1, 8, 2, 160, 160, 32, True, 64)      # through the op: b, hq, hkv, s, s, d, ...
 GQA_SEEDS = range(5)
@@ -529,8 +552,10 @@ PATH_DTYPE = {"rg_lru_fwd": torch.float32, "wkv6_fwd": torch.bfloat16,
 # (width 4096, f32) and rwkv6-3b's WKV-6 (40 heads of 64, bf16), for B4 and
 # B5 and their backward B4' and B5'
 LRU_TRAIN = (8, 512, 4096, False)
-LRU_RANK = (2, 512, 4096, False)   # recurrentgemma-9b on (4,): a rank's 2 rows
+LRU_RANK = (4, 512, 2048, False)   # recurrentgemma-9b on (2, 2): 4 rows, 4096 / 2 channels
 WKV_TRAIN = (8, 40, 512, 64, 64, False)
+WKV_RANK = (8, 10, 512, 64, 64, False)   # rwkv6-3b on (1, 4): 8 rows, 40 / 4 heads
+WKV_TRAIN_CASES = (WKV_TRAIN, WKV_RANK)
 LRU_EXTREME = (2, 64, 48, True)   # a = e^-20: each step forgets almost all
 # B4' and B5' against their plain versions: f32 as the CPU tests hold the
 # plain backward to JAX's gradients (1e-5, 1e-4); bf16 2e-2 + 2e-2|want|
@@ -721,7 +746,7 @@ def flash_check_cases() -> list:
     cases = [(c, dt) for dt in (torch.float32, torch.bfloat16) for c in FLASH_CASES]
     cases += [(c, dt) for c in (SERVE_CASE, TRAIN_FWD_CASE, WIDE_CASE, GRIFFIN_CASE,
                                 GRIFFIN_TRAIN_CASE, QWEN_CASE, QWEN_TRAIN_CASE, *RANK_CASES,
-                                *NEW_CASES, *SLICE15_CASES, *RAGGED_CASES, *TWIN_FWD_CASES)
+                                *NEW_CASES, *SLICE15_CASES, *RAGGED_CASES, *F32_FWD_CASES)
               for dt in (torch.bfloat16, torch.float32)]
     return cases
 
@@ -738,7 +763,7 @@ def check_kernels() -> dict:
             raise AssertionError(f"flash {case} {dtype}: not the variant of its dtype")
         if not all(verdicts.values()):
             raise AssertionError(f"kernel disagrees with its plain version: {line}")
-        if dtype == (torch.float32 if case in TWIN_FWD_CASES else torch.bfloat16):
+        if dtype == (torch.float32 if case in F32_FWD_CASES else torch.bfloat16):
             errs[case] = err
     return errs
 
@@ -787,8 +812,12 @@ def sdpa_backends(fn) -> list[str]:
             ok.append(name)
         except RuntimeError as exc:  # this backend has no kernel for the shape
             print(f"  SDPA backend {name} does not run here: {str(exc).splitlines()[0][:120]}")
-    if not ok:
-        raise AssertionError("no SDPA backend runs at this shape")
+    if not ok:  # no fused kernel (f32 with GQA): SDPA's composite of matmuls
+        with sdpa_kernel(SDPBackend.MATH):
+            fn()
+        torch.cuda.synchronize()
+        print("  SDPA backends: no fused kernel runs here; MATH (its composite) does")
+        ok.append("MATH")
     return ok
 
 
@@ -1067,13 +1096,14 @@ def serve_entry_points(cfg, model, prompts, extra: dict, new_tokens: int, max_se
     return {i: out[i].tolist() for i in range(batch)}
 
 
-def serve_path(arch: str, prompt_len: int, new_tokens: int) -> dict:
+def serve_path(arch: str, prompt_len: int, new_tokens: int) -> tuple[dict, dict]:
     """`arch` at its full published config (its depth cut to SERVE_DEPTH
     where that names it) answers 4 requests of `prompt_len`-token prompts
     (whisper: after encoding 1500 frames; internvl2: after its 1024 patches)
     and `new_tokens` new tokens each, through `serve_requests`, or through
     the model entry points where the model needs frames or patches.  Returns
-    the launch counts of the run, split into prefill and decode."""
+    the launch counts of the run, split into prefill and decode, and the ids
+    served, {request: ids}."""
     cfg = configs.get(arch)
     if arch in SERVE_DEPTH:
         cfg = dataclasses.replace(cfg, num_layers=SERVE_DEPTH[arch])
@@ -1177,7 +1207,7 @@ def serve_path(arch: str, prompt_len: int, new_tokens: int) -> dict:
              if arch in RECKONING_GIB else "")
           + f", greedy agreement with full forward {agree:.1f}%, "
           f"launches prefill {launches['prefill']}, decode {launches['decode']}")
-    return launches
+    return launches, out
 
 
 def profiled(fn, top: int = 8) -> dict:
@@ -1302,7 +1332,7 @@ def check_bwd_kernels() -> dict:
     errs = {}
     cases = [(c, dt) for dt in (torch.float32, torch.bfloat16)
              for c in BWD_CASES + [*TRAIN_BWD_CASES, WIDE_BWD_CASE, *BWD_RAGGED_CASES,
-                                   TWIN_TRAIN_BWD]]
+                                   *F32_BWD_CASES]]
     for case, dtype in cases:
         d, causal, window = case[4], case[5], case[6]
         q, k, v, do, o, lse, dvec = bwd_inputs(case, dtype)
@@ -1323,7 +1353,7 @@ def check_bwd_kernels() -> dict:
                 or dk.shape != k.shape or dv.shape != v.shape:
             raise AssertionError(f"backward kernel disagrees with its plain version: {line}")
         if (case in TRAIN_BWD_CASES and dtype == torch.bfloat16) \
-                or (case == TWIN_TRAIN_BWD and dtype == torch.float32):
+                or (case in F32_BWD_CASES and dtype == torch.float32):
             errs[("flash_attention_bwd_dkv", case)] = max(results["dk"][0], results["dv"][0])
             errs[("flash_attention_bwd_dq", case)] = results["dq"][0]
     # GQA through the op (K/V expanded, dK/dV group-summed): card vs CPU, f32,
@@ -1508,7 +1538,7 @@ def check_recurrent_kernels() -> dict:
     print("rg_lru ring: two runs on the card are bit-identical (f32, bf16)")
     for case, dtype in [(c, dt) for c in WKV_CASES + [WKV_DECODE, WKV_PREFILL, WKV_RAGGED,
                                                       *TWIN_WKV_CASES]
-                        for dt in dtypes] + [(WKV_TRAIN, PATH_DTYPE["wkv6_fwd"])]:
+                        for dt in dtypes] + [(c, PATH_DTYPE["wkv6_fwd"]) for c in WKV_TRAIN_CASES]:
         r, k, v, log_w, u, s0 = wkv_inputs(case, dtype)
         y, s = wkv_call(r, k, v, log_w, u, s0)
         torch.cuda.synchronize()
@@ -1524,7 +1554,8 @@ def check_recurrent_kernels() -> dict:
         if not (ok_y and ok_s) or y.shape != v.shape or y.dtype != r.dtype \
                 or not torch.isfinite(y).all():
             raise AssertionError(f"B5 disagrees with its plain version: {line}")
-        if (case in (WKV_PREFILL, WKV_DECODE, WKV_TRAIN) and dtype == PATH_DTYPE["wkv6_fwd"]) \
+        if (case in (WKV_PREFILL, WKV_DECODE, *WKV_TRAIN_CASES)
+                and dtype == PATH_DTYPE["wkv6_fwd"]) \
                 or (case in TWIN_WKV_CASES and dtype == torch.float32):
             errs[("wkv6_fwd", case)] = max(ey, es)
     # extreme decay: every step forgets almost all (log_w = -20); f32 runs the
@@ -1617,7 +1648,7 @@ def time_recurrent() -> dict:
             *((n, c, PATH_DTYPE[n]) for n, c in (
                 ("rg_lru_fwd", LRU_PREFILL), ("rg_lru_fwd", LRU_DECODE),
                 ("rg_lru_fwd", LRU_TRAIN), ("rg_lru_fwd", LRU_RANK), ("wkv6_fwd", WKV_PREFILL),
-                ("wkv6_fwd", WKV_DECODE), ("wkv6_fwd", WKV_TRAIN))),
+                ("wkv6_fwd", WKV_DECODE), ("wkv6_fwd", WKV_TRAIN), ("wkv6_fwd", WKV_RANK))),
             *(("wkv6_fwd", c, torch.float32) for c in TWIN_WKV_CASES)):
         library = None
         if name == "rg_lru_fwd":
@@ -1757,7 +1788,7 @@ def check_recurrent_bwd_kernels() -> dict:
         if case in (LRU_TRAIN, LRU_RANK):
             errs[("rg_lru_bwd", case)] = max(e for e, _ in results)
     wkv_cases = [(c, dt, None) for c in WKV_CASES + [WKV_RAGGED] for dt in dtypes] \
-        + [(WKV_TRAIN, PATH_DTYPE["wkv6_bwd"], None)] \
+        + [(c, PATH_DTYPE["wkv6_bwd"], None) for c in WKV_TRAIN_CASES] \
         + [(WKV_EXTREME, dt, -20.0) for dt in dtypes]
     names = ("dr", "dk", "dv", "dlog_w", "du", "ds0")
     for case, dtype, log_w in wkv_cases:
@@ -1779,7 +1810,7 @@ def check_recurrent_bwd_kernels() -> dict:
         if not all(ok for _, ok in results) or not runs \
                 or not all(torch.isfinite(g).all() for g in got):
             raise AssertionError(f"B5' disagrees with its plain version: {line}")
-        if case == WKV_TRAIN:
+        if case in WKV_TRAIN_CASES:
             errs[("wkv6_bwd", case)] = max(e for e, _ in results)
     return errs
 
@@ -1848,23 +1879,24 @@ def time_recurrent_bwd() -> dict:
     times = {}
     for case in (LRU_TRAIN, LRU_RANK):
         times[("rg_lru_bwd", case)] = time_lru_bwd(case)
-    r, k, v, lw, u, s0, gy, gs = wkv_bwd_inputs(WKV_TRAIN, PATH_DTYPE["wkv6_bwd"])
-    _, _, ws = wkv_kernel.wkv6_fwd(r, k, v, lw, u, s0)
-    fns = {"ms": lambda: wkv_kernel.wkv6_bwd(r, k, v, lw, u, s0, gy, gs, ws),
-           "plain_ms": lambda: wkv_ref.wkv6_scan_bwd(r, k, v, lw, u, s0, gy, gs)}
-    fns["device_ms"] = fns["ms"]
-    t = time_in_turns(fns, {}, {"plain_ms": 1})
-    moved, flops = wkv_bwd_work(r, v, s0, ws)
-    t["bound_ms"], t["bound_by"] = bound(moved, flops, PEAK_FLOP_S[r.dtype])
-    t["library_ms"] = t["library_device_ms"] = None
-    times[("wkv6_bwd", WKV_TRAIN)] = t
-    print(f"wkv6_bwd timing {WKV_TRAIN} {str(r.dtype)[6:]}: kernel_ms {t['ms']:.4f} device_ms "
-          f"{t['device_ms']:.4f} plain_ms {t['plain_ms']:.4f} library_ms none (no PyTorch "
-          f"call computes the gradient) bound_ms {t['bound_ms']:.4f} (by {t['bound_by']}: "
-          f"{moved} bytes, {flops} FLOP, peak {PEAK_FLOP_S[r.dtype]:.3g} FLOP/s); this "
-          f"design's {wkv_bwd_tc_flops(r)} FLOP on TF32 mma.sync take "
-          f"{wkv_bwd_tc_flops(r) / H100_TF32_FLOP_S * 1e3:.4f} ms at the TF32 peak "
-          f"({H100_TF32_FLOP_S:.3g} FLOP/s)")
+    for case in WKV_TRAIN_CASES:
+        r, k, v, lw, u, s0, gy, gs = wkv_bwd_inputs(case, PATH_DTYPE["wkv6_bwd"])
+        _, _, ws = wkv_kernel.wkv6_fwd(r, k, v, lw, u, s0)
+        fns = {"ms": lambda: wkv_kernel.wkv6_bwd(r, k, v, lw, u, s0, gy, gs, ws),
+               "plain_ms": lambda: wkv_ref.wkv6_scan_bwd(r, k, v, lw, u, s0, gy, gs)}
+        fns["device_ms"] = fns["ms"]
+        t = time_in_turns(fns, {}, {"plain_ms": 1})
+        moved, flops = wkv_bwd_work(r, v, s0, ws)
+        t["bound_ms"], t["bound_by"] = bound(moved, flops, PEAK_FLOP_S[r.dtype])
+        t["library_ms"] = t["library_device_ms"] = None
+        times[("wkv6_bwd", case)] = t
+        print(f"wkv6_bwd timing {case} {str(r.dtype)[6:]}: kernel_ms {t['ms']:.4f} device_ms "
+              f"{t['device_ms']:.4f} plain_ms {t['plain_ms']:.4f} library_ms none (no PyTorch "
+              f"call computes the gradient) bound_ms {t['bound_ms']:.4f} (by {t['bound_by']}: "
+              f"{moved} bytes, {flops} FLOP, peak {PEAK_FLOP_S[r.dtype]:.3g} FLOP/s); this "
+              f"design's {wkv_bwd_tc_flops(r)} FLOP on TF32 mma.sync take "
+              f"{wkv_bwd_tc_flops(r) / H100_TF32_FLOP_S * 1e3:.4f} ms at the TF32 peak "
+              f"({H100_TF32_FLOP_S:.3g} FLOP/s)")
     return times
 
 
@@ -2106,7 +2138,6 @@ MOE_ARCH = "qwen3-moe-235b-a22b"
 MESH_STEPS = 2            # steps of every mesh path
 EP_A2A_PER_LAYER = 6      # dispatch and return, in the forward, its remat and the backward,
                           # for each group of a rank (groups run one after another)
-GRIFFIN_LOSS_RTOL = 1e-5  # recurrentgemma-9b whole: the first loss against one card's forward
 PIPE_STAGES, PIPE_MICRO = 4, 4
 PIPE_TOL = 1e-5           # tests/_distributed_worker.py check 4
 ELASTIC_RTOL = 2e-3       # tests/_distributed_worker.py check 5
@@ -2220,7 +2251,9 @@ def rank_memory(dev) -> list[int]:
 def mesh_moe(n: int, dev, say, layers: int) -> dict:
     """Check 3 on the cards: qwen3-moe at full width cut to `layers` layers on
     a (2, 2) ("data", "model") mesh, MESH_STEPS gspmd steps; each rank holds
-    its shards and runs half the experts on both model ranks' slots."""
+    its shards, splits the attention's heads with its 'model' peer (tensor
+    parallelism), cuts the shared rows' tokens between them and runs half
+    the experts on both peers' slots."""
     tc = mesh_tc(MOE_ARCH, (2, 2), ("data", "model"))
     cfg = dataclasses.replace(full_config(tc), num_layers=layers)
     model = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED), dev)
@@ -2280,14 +2313,30 @@ def time_ep_exchange(dev, say) -> dict:
     return {"bytes": x.numel() * 2, "ms": ms}
 
 
-def griffin_whole(n: int, dev, say) -> dict:
-    """recurrentgemma-9b whole (38 layers) on a (4,) ('data',) mesh, MESH_STEPS
-    gspmd steps; its first loss against one card's forward `loss_fn` of the
-    same weights and global batch (rank 0, before the run)."""
+# a TP run's first loss against one card's forward (the whole models), and two
+# TP layouts' first losses (command-r-plus-104b), 2.7 and 4.7 times their
+# readings on the H100 (PERF.md section 6); rwkv6-3b's is the 2e-4 of the mesh tests
+# (tests/test_torch_mesh.py), met at 1.985e-4: its bf16 forward is the most
+# sensitive to rounding (PERF.md section 7)
+TP_LOSS_RTOL = {"recurrentgemma-9b": 3e-5, "rwkv6-3b": 2e-4, "command-r-plus-104b": 3e-5}
+TP_AXES = ("data", "model")
+TP_SERVE_ARCH = "command-r-plus-104b"
+TP_PARITY_LAYERS, TP_PARITY_PROMPT, TP_PARITY_STEPS = 2, 256, 4
+TP_TRAIN_PARITY_LAYERS = 2
+TP_CR_TRAIN_LAYERS = 4
+
+
+def tp_whole(arch: str, shape: tuple, n: int, dev, say) -> dict:
+    """`arch` whole at full width trained MESH_STEPS gspmd steps (bf16, full
+    remat, 8 x 512) on a `shape` ("data", "model") mesh, the projections
+    split over 'model'; its first loss against one card's forward `loss_fn`
+    of the same weights and global batch (rank 0, before the run) at
+    TP_LOSS_RTOL, the launches a step checked against its layers.  Rank 0
+    also prints the f32 forward of the same draw beside one card's bf16
+    forward: the bf16 rounding error of the model itself."""
     import torch.distributed as dist
 
-    arch = "recurrentgemma-9b"
-    tc = mesh_tc(arch, (n,), ("data",))
+    tc = mesh_tc(arch, shape, TP_AXES)
     cfg = full_config(tc)
     rank = dist.get_rank()
     reference = None
@@ -2302,8 +2351,17 @@ def griffin_whole(n: int, dev, say) -> dict:
         del model, loss
         gc.collect()
         torch.cuda.empty_cache()
+        cfg32 = dataclasses.replace(cfg, dtype="float32")  # the same draw, not rounded
+        model = init_params(cfg32, torch.Generator(device=dev).manual_seed(SEED), dev)
+        with torch.no_grad():
+            loss, _ = loss_fn(cfg32, model, {k: torch.from_numpy(v).to(dev)
+                                             for k, v in batch.items()})
+        f32 = float(loss)
+        del model, loss
+        gc.collect()
+        torch.cuda.empty_cache()
     dist.barrier()
-    run = mesh_train(tc, None, f"train {arch} whole on ({n},)", dev)
+    run = mesh_train(tc, None, f"train {arch} whole on {shape}", dev)
     params = sum(p.numel() for p in run["model"].parameters())
     del run["model"], run["opt"]
     gc.collect()
@@ -2313,20 +2371,346 @@ def griffin_whole(n: int, dev, say) -> dict:
         "peaks": peaks, "params": params}
     if rank == 0:
         diff = abs(run["losses"][0] - reference) / abs(reference)
-        say(f"mesh train {arch} whole ({cfg.num_layers} layers, {params} parameters) on ({n},) "
-            f"(data), bf16, remat full, gspmd, global batch 8 x 512: losses {run['losses']}, "
-            f"steps {run['step_s']} s, launches a step {run['per_step']}; first loss against "
-            f"one card's forward loss_fn {reference}: relative difference {diff:.3e} (rtol "
-            f"{GRIFFIN_LOSS_RTOL}); peak memory a card "
-            f"{[round(x / 2**30, 3) for x in peaks]} GiB ({peaks} bytes) against the "
-            f"reckoning {params} x 12 B / {n} = {params * 12 / n / 2**30:.3f} GiB of state + "
-            f"the tied embedding gathered {cfg.vocab_size * cfg.d_model * 2 / 2**30:.3f} GiB + "
-            f"the f32 logits of a rank's 1024 tokens "
-            f"{1024 * cfg.vocab_size * 4 / 2**30:.3f} GiB + activations")
-        if diff > GRIFFIN_LOSS_RTOL:
-            raise AssertionError(f"{arch} whole: first loss {run['losses'][0]} against one "
-                                 f"card's {reference}")
-        out["reference_loss"] = reference
+        say(f"mesh train {arch} whole ({cfg.num_layers} layers, {params} parameters) on {shape} "
+            f"(data, model; tensor parallel), bf16, remat full, gspmd, global batch 8 x 512: "
+            f"losses {run['losses']}, steps {run['step_s']} s, launches a step "
+            f"{run['per_step']}; first loss against one card's forward loss_fn {reference}: "
+            f"relative difference {diff:.3e} (rtol {TP_LOSS_RTOL[arch]}); one card's bf16 "
+            f"forward against the f32 forward of the same draw {f32}: relative "
+            f"{abs(reference - f32) / abs(f32):.3e}; peak memory a card "
+            f"{[round(x / 2**30, 3) for x in peaks]} GiB ({peaks} bytes) against "
+            f"{params} x 12 B / {n} = {params * 12 / n / 2**30:.3f} GiB of state")
+        if diff > TP_LOSS_RTOL[arch]:
+            raise AssertionError(f"{arch} on {shape}: first loss {run['losses'][0]} against "
+                                 f"one card's {reference}")
+        out["reference_loss"], out["f32_loss"] = reference, f32
+    return out
+
+
+def tp_prompts(cfg, prompt_len: int, batch: int = 4) -> torch.Tensor:
+    """serve_path's prompts: the same seed on every rank."""
+    return torch.randint(0, cfg.vocab_size, (batch, prompt_len),
+                         generator=torch.Generator().manual_seed(SEED + 2), dtype=torch.int32)
+
+
+def tp_greedy(cfg, model, prompts, steps: int, max_seq: int, dev):
+    """Prefill and `steps` - 1 greedy decode steps: (the logits of each, (B,
+    V) f32 on the host; the ids (B, steps))."""
+    logits, caches = prefill(cfg, model, {"tokens": prompts.to(dev)}, max_seq)
+    out = [logits.float().cpu()]
+    for _ in range(steps - 1):
+        logits, caches = decode_step(cfg, model, torch.argmax(logits, -1)[:, None], caches)
+        out.append(logits.float().cpu())
+    return out, torch.stack([x.argmax(-1) for x in out], 1)
+
+
+def tp_serve_parity(n: int, dev, say) -> dict:
+    """Tensor-parallel serving against one card: command-r-plus-104b at full
+    width cut to TP_PARITY_LAYERS in f32, 4 prompts of TP_PARITY_PROMPT,
+    prefill and TP_PARITY_STEPS - 1 decode steps; rank 0 alone first
+    (unsharded), then the n ranks on (1, n) from the sharded init of the same
+    seed: the logits at MODEL_TOL and the same ids.  Then the bf16 model at
+    phase 7's depth (SERVE_DEPTH) on (1, n) through `serve_requests`, its ids
+    beside phase 7's one-card ids (CHIP_SMOKE_SERVED): the agreement, and in
+    each request the first position where they part and, from the TP model's
+    forward over the prompt and one card's ids, the logit of the TP run's
+    token there less that of one card's (printed, not gated)."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.shardings import activation_rules, init_sharded
+    from repro_torch.models.sharding import activation_sharding
+
+    rank, arch = dist.get_rank(), TP_SERVE_ARCH
+    cfg = dataclasses.replace(configs.get(arch), num_layers=TP_PARITY_LAYERS, dtype="float32")
+    prompts = tp_prompts(cfg, TP_PARITY_PROMPT)
+    max_seq = TP_PARITY_PROMPT + TP_PARITY_STEPS + 1
+    want = None
+    if rank == 0:
+        model = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED), dev)
+        with torch.inference_mode():
+            want = tp_greedy(cfg, model, prompts, TP_PARITY_STEPS, max_seq, dev)
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+    dist.barrier()
+    mesh = make_mesh((1, n), TP_AXES, dev)
+    model = init_sharded(cfg, torch.Generator(device=dev).manual_seed(SEED), dev, mesh,
+                         fsdp=False)
+    reset_launches()
+    with torch.inference_mode(), activation_sharding(mesh, activation_rules(mesh)):
+        got = tp_greedy(cfg, model, prompts, TP_PARITY_STEPS, max_seq, dev)
+    launches = read_launches()
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, got[1].tolist())
+    out = {"launches": launches}
+    if rank == 0:
+        errs = [max_err(g, w, MODEL_TOL, MODEL_TOL) for g, w in zip(got[0], want[0], strict=True)]
+        same_ids = torch.equal(got[1], want[1]) and all(x == every[0] for x in every)
+        say(f"mesh serve parity {arch} ({TP_PARITY_LAYERS} layers, f32, 4 x "
+            f"({TP_PARITY_PROMPT} + {TP_PARITY_STEPS})) on (1, {n}) against one card: logits "
+            f"max|err| prefill and decode steps {[round(e, 8) for e, _ in errs]} (tol "
+            f"{MODEL_TOL} + {MODEL_TOL}|want|), ids equal to one card's and on every rank "
+            f"{same_ids}; a rank's launches {launches}")
+        if not all(ok for _, ok in errs) or not same_ids:
+            raise AssertionError(f"{arch}: tensor-parallel serving differs from one card")
+        out["errs"] = [e for e, _ in errs]
+
+    # the bf16 model at phase 7's depth, beside phase 7's ids
+    depth = SERVE_DEPTH[arch]
+    cfg = dataclasses.replace(configs.get(arch), num_layers=depth)
+    model = init_sharded(cfg, torch.Generator(device=dev).manual_seed(SEED), dev, mesh,
+                         fsdp=False)
+    prompts = tp_prompts(cfg, 512)
+    reqs = [Request(rid=i, prompt=prompts[i].numpy(), max_new_tokens=32) for i in range(4)]
+    one_card = json.loads(Path(os.environ["CHIP_SMOKE_SERVED"]).read_text())[arch]
+    with activation_sharding(mesh, activation_rules(mesh)):
+        ids = serve_requests(cfg, model, reqs, max_seq=512 + 32 + 1,
+                             progress=lambda *_: None, device=dev)
+        seq = torch.cat([prompts, torch.tensor([one_card[str(i)] for i in range(4)],
+                                               dtype=prompts.dtype)], 1)
+        with torch.inference_mode():  # token j of a request is read at position 511 + j
+            logits = forward(cfg, model, {"tokens": seq.to(dev)}, mode="train").logits
+    first, margins = [], []
+    for i in range(4):
+        j = next((j for j, (a, b) in enumerate(zip(ids[i], one_card[str(i)], strict=True))
+                  if a != b), None)
+        first.append(j)
+        if j is not None:
+            row = logits[i, 511 + j].float()
+            margins.append(round(float(row[ids[i][j]] - row[one_card[str(i)][j]]), 4))
+    del model, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    if rank == 0:
+        agree = sum(a == b for i in range(4) for a, b in zip(ids[i], one_card[str(i)],
+                                                            strict=True)) / (4 * 32)
+        say(f"mesh serve {arch} ({depth} layers, bf16, 4 x (512 + 32)) on (1, {n}) beside "
+            f"phase 7's one card: ids agree at {agree * 100:.1f} % of positions (not gated); "
+            f"the first position where they part in each request (of 32; None: none) {first}; "
+            f"there, the TP model's logit of its own token less that of one card's token, on "
+            f"one card's context: {margins}")
+        out |= {"agreement": agree, "first_divergence": first, "margins": margins}
+    return out
+
+
+def tp_serve_whole(n: int, dev, say) -> dict:
+    """command-r-plus-104b whole (64 layers, bf16) served on (1, n): the
+    sharded init (fsdp=False, the reference's serve-tp-params), 4 requests of
+    512-token prompts and 32 new tokens through `serve_requests` inside
+    `activation_sharding`; every rank the same ids, finite logits, B1 once a
+    layer a prefill (tensor-core) at the local heads, each card's peak;
+    prefill and decode tok/s and one decode step under the profiler."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.shardings import activation_rules, init_sharded
+    from repro_torch.models.sharding import activation_sharding
+
+    arch, rank = TP_SERVE_ARCH, dist.get_rank()
+    cfg = configs.get(arch)
+    mesh = make_mesh((1, n), TP_AXES, dev)
+    rules = activation_rules(mesh)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    model = init_sharded(cfg, torch.Generator(device=dev).manual_seed(SEED), dev, mesh,
+                         fsdp=False)
+    torch.cuda.synchronize(dev)
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated(dev)
+    held = sum(p.to_local().numel() * p.to_local().element_size() for p in model.parameters())
+    prompt_len, new_tokens, batch = 512, 32, 4
+    max_seq = prompt_len + new_tokens + 1
+    prompts = tp_prompts(cfg, prompt_len, batch)
+    reqs = [Request(rid=i, prompt=prompts[i].numpy(), max_new_tokens=new_tokens)
+            for i in range(batch)]
+    messages, at_prefill = [], {}
+
+    def progress(msg):
+        if not messages:
+            at_prefill.update(read_launches())
+        messages.append(msg)
+
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    dist.barrier()
+    reset_launches()
+    with activation_sharding(mesh, rules):
+        out = serve_requests(cfg, model, reqs, max_seq=max_seq, progress=progress, device=dev)
+    total = read_launches()
+    check_tensor_core_launches(f"serve {arch} on (1, {n}) rank {rank}")
+    serve_peak = torch.cuda.max_memory_allocated(dev)
+    launches = {"prefill": at_prefill, "decode": {k: total[k] - at_prefill[k] for k in total}}
+    want_prefill, want_decode = expected_serve_launches(cfg, new_tokens)
+    if launches["prefill"] != want_prefill or launches["decode"] != want_decode:
+        raise AssertionError(f"{arch} on (1, {n}): launches {launches}, expected prefill "
+                             f"{want_prefill}, decode {want_decode}")
+    ids = [out[i] for i in range(batch)]
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, ids)
+    if not all(x == ids for x in every):
+        raise AssertionError(f"{arch} on (1, {n}): the ranks returned different ids")
+    with torch.inference_mode(), activation_sharding(mesh, rules):
+        logits, caches = prefill(cfg, model, {"tokens": prompts.to(dev)}, max_seq)
+        finite = bool(torch.isfinite(logits).all())
+        kv = tuple(caches[0]["mix"]["k"].shape)
+        step = torch.tensor([[t[0]] for t in ids], device=dev)
+        decode_step(cfg, model, step, caches)
+        prof = profiled(lambda: decode_step(cfg, model, step, caches))
+    if not finite:
+        raise AssertionError(f"{arch} on (1, {n}): non-finite logits")
+    del model, caches, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    init_peaks, serve_peaks = rank_memory_of(init_peak), rank_memory_of(serve_peak)
+    prefill_s = float(re.search(r"prefill: .* in ([0-9.]+)s", messages[0]).group(1))
+    decode_tps = float(re.search(r"\(([0-9.]+) tok/s\)", messages[1]).group(1))
+    say(f"mesh serve {arch} whole ({cfg.num_layers} layers, {cfg.param_count()} parameters, "
+        f"bf16) on (1, {n}) (tensor parallel, fsdp=False), {batch} x ({prompt_len} + "
+        f"{new_tokens}): sharded init {init_s:.1f} s; prefill {prefill_s:.3f} s = "
+        f"{batch * prompt_len / prefill_s:.1f} tok/s, decode {decode_tps:.1f} tok/s; every rank "
+        f"the same ids; logits finite; a rank's KV cache {kv} a layer; launches a rank "
+        f"prefill {launches['prefill']}, decode {launches['decode']}; parameters held a card "
+        f"{held} bytes; peak memory a card, init {[round(x / 2**30, 3) for x in init_peaks]} "
+        f"GiB ({init_peaks} bytes), serving {[round(x / 2**30, 3) for x in serve_peaks]} GiB "
+        f"({serve_peaks} bytes); decode step (batch {batch}) under the profiler, rank 0: "
+        f"{profile_text(prof)}")
+    return {"launches": launches["prefill"], "decode_launches": launches["decode"],
+            "ids": ids, "prefill_s": prefill_s, "decode_tps": decode_tps, "held": held,
+            "init_peaks": init_peaks, "serve_peaks": serve_peaks, "profile": prof}
+
+
+def rank_memory_of(value: int) -> list[int]:
+    import torch.distributed as dist
+
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, value)
+    return every
+
+
+def tp_train_parity(n: int, dev, say) -> dict:
+    """Tensor-parallel training against one card: stablelm-3b at full width
+    cut to TP_TRAIN_PARITY_LAYERS, f32, phase 6's batch (2 x 128), on (2, 2)
+    and on (1, n), from the sharded init of the seed; the loss and every
+    gradient leaf gathered whole against rank 0's unsharded run of the same
+    weights and batch at phase 6's bound (1e-4 + 1e-4 |want|), and every
+    gradient the rule table replicates over 'model' the same bits on each
+    'model' peer."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import Replicate
+
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.shardings import activation_rules, init_sharded
+    from repro_torch.models.sharding import activation_sharding
+
+    arch, rank = "stablelm-3b", dist.get_rank()
+    cfg = dataclasses.replace(configs.get(arch), num_layers=TP_TRAIN_PARITY_LAYERS,
+                              dtype="float32")
+    batch = {k: torch.from_numpy(v) for k, v in
+             SyntheticLM(cfg.vocab_size, 128, seed=SEED).global_batch(0, 2, 1).items()}
+    want = None
+    if rank == 0:
+        model = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED), dev)
+        loss, _ = loss_fn(cfg, model, {k: v.to(dev) for k, v in batch.items()})
+        loss.backward()
+        want = (loss.item(), [p.grad.cpu() for p in model.parameters()])
+        del model, loss
+        gc.collect()
+        torch.cuda.empty_cache()
+    dist.barrier()
+    out = {}
+    for shape in ((2, 2), (1, n)):
+        mesh = make_mesh(shape, TP_AXES, dev)
+        model = init_sharded(cfg, torch.Generator(device=dev).manual_seed(SEED), dev, mesh)
+        tc = train_mod.TrainConfig(arch=arch, batch_size=2, grad_sync="gspmd",
+                                   mesh_shape=shape, mesh_axes=TP_AXES)
+        lay = train_mod.layout(tc, train_mod.current_world(), mesh)
+        per = 2 // lay.rows.size
+        rows = {k: v[lay.rows.rank * per:(lay.rows.rank + 1) * per].to(dev)
+                for k, v in batch.items()}
+        reset_launches()
+        with activation_sharding(mesh, activation_rules(mesh), lay.split):
+            loss, _ = loss_fn(cfg, model, rows)
+            loss.backward()
+        launches = read_launches()
+        total = loss.detach().clone()
+        dist.all_reduce(total, group=lay.rows.group)
+        got_loss = total.item() / lay.rows.size
+        model_group, model_dim = mesh.get_group("model"), 1
+        unequal = []
+        for name, p in model.named_parameters():
+            if isinstance(p.placements[model_dim], Replicate):
+                g = p.grad.to_local().contiguous()
+                peers = [torch.empty_like(g) for _ in range(dist.get_world_size(model_group))]
+                dist.all_gather(peers, g, group=model_group)
+                if not all(torch.equal(peers[0], x) for x in peers):
+                    unequal.append(name)
+        grads = [(p.grad.full_tensor() / lay.rows.size).cpu() for p in model.parameters()]
+        del model, loss
+        gc.collect()
+        torch.cuda.empty_cache()
+        if rank == 0:
+            errs = [max_err(g, w, TRAIN_GRAD_RTOL, TRAIN_GRAD_RTOL)
+                    for g, w in zip(grads, want[1], strict=True)]
+            worst = max(e for e, _ in errs)
+            loss_diff = abs(got_loss - want[0]) / abs(want[0])
+            say(f"mesh train parity {arch} ({TP_TRAIN_PARITY_LAYERS} layers, f32, 2 x 128) on "
+                f"{shape} against one card: loss {got_loss:.7f} against {want[0]:.7f} "
+                f"(relative {loss_diff:.3e}, rtol {TRAIN_LOSS_RTOL}); gradients of "
+                f"{len(grads)} leaves, worst max|err| {worst:.3e} (tol {TRAIN_GRAD_RTOL} + "
+                f"{TRAIN_GRAD_RTOL}|want|); gradients replicated over 'model' that differ "
+                f"between peers {unequal}; a rank's launches {launches}")
+            if loss_diff > TRAIN_LOSS_RTOL or not all(ok for _, ok in errs) or unequal:
+                raise AssertionError(f"{arch} on {shape}: tensor-parallel training differs "
+                                     f"from one card")
+            out["x".join(map(str, shape))] = {"loss_diff": loss_diff, "worst": worst,
+                                               "launches": launches}
+        elif unequal:
+            raise AssertionError(f"rank {rank}: replicated gradients differ: {unequal}")
+    return out
+
+
+def tp_command_r_train(n: int, dev, say) -> dict:
+    """command-r-plus-104b at full width cut to TP_CR_TRAIN_LAYERS trained
+    MESH_STEPS gspmd steps (bf16, full remat, 8 x 512) on (2, 2) and on
+    (1, n): more parameters and moments than one card holds (12 B a
+    parameter).  Its losses finite, the two layouts' first losses within
+    TP_LOSS_RTOL[arch], each card's peak and the step times."""
+    import torch.distributed as dist
+
+    arch, rank = TP_SERVE_ARCH, dist.get_rank()
+    out = {}
+    for shape in ((2, 2), (1, n)):
+        tc = mesh_tc(arch, shape, TP_AXES)
+        cfg = dataclasses.replace(full_config(tc), num_layers=TP_CR_TRAIN_LAYERS)
+        model = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED), dev)
+        params = sum(p.numel() for p in model.parameters())
+        run = mesh_train(tc, model, f"train {arch} {TP_CR_TRAIN_LAYERS} layers on {shape}", dev)
+        del model, run["model"], run["opt"]
+        gc.collect()
+        torch.cuda.empty_cache()
+        peaks = rank_memory(dev)
+        out["x".join(map(str, shape))] = {
+            k: run[k] for k in ("losses", "launches", "per_step", "step_s")} | {
+            "peaks": peaks, "params": params}
+        say(f"mesh train {arch} full width cut to {TP_CR_TRAIN_LAYERS} of 64 layers on {shape} "
+            f"(tensor parallel), {params} parameters ({params * 12 / 1e9:.1f} GB of parameters "
+            f"and moments, {params * 12 / n / 1e9:.1f} GB a card), bf16, remat full, gspmd, 8 x "
+            f"512: losses {run['losses']}, steps {run['step_s']} s, launches a step "
+            f"{run['per_step']}; peak memory a card {[round(x / 2**30, 3) for x in peaks]} GiB "
+            f"({peaks} bytes)")
+    a, b = out["2x2"]["losses"][0], out[f"1x{n}"]["losses"][0]
+    diff = abs(a - b) / abs(b)
+    if rank == 0:
+        say(f"mesh train {arch}: first loss on (2, 2) {a} against (1, {n}) {b}, relative "
+            f"{diff:.3e} (rtol {TP_LOSS_RTOL[arch]})")
+    if diff > TP_LOSS_RTOL[arch]:
+        raise AssertionError(f"{arch}: the two layouts' first losses differ: {a}, {b}")
     return out
 
 
@@ -2472,11 +2856,28 @@ def elastic_path(n: int, dev, say) -> dict:
 
 
 def mesh_paths(n: int, dev, say) -> dict:
-    """Phase 9's mesh paths (four cards): check 3 at 1 and 4 layers and the EP
-    exchange, recurrentgemma-9b whole, check 4 and check 5."""
-    out = {"moe_1": mesh_moe(n, dev, say, 1), "moe_4": mesh_moe(n, dev, say, 4),
-           "ep_exchange": time_ep_exchange(dev, say), "griffin": griffin_whole(n, dev, say),
-           "pipeline": pipeline_paths(n, dev, say), "elastic": elastic_path(n, dev, say)}
+    """Phase 9's mesh paths (four cards), tensor parallel over 'model' where
+    the mesh has it: the TP parity of serving, command-r-plus-104b served
+    whole on (1, 4) and trained at 4 layers, the TP parity of training,
+    check 3 at 1 and 4 layers and the EP exchange, recurrentgemma-9b whole
+    on (2, 2), rwkv6-3b whole on (1, 4), check 4, check 5."""
+    paths = {"tp_serve_parity": lambda: tp_serve_parity(n, dev, say),
+             "tp_serve": lambda: tp_serve_whole(n, dev, say),
+             "command_r_train": lambda: tp_command_r_train(n, dev, say),
+             "tp_train_parity": lambda: tp_train_parity(n, dev, say),
+             "moe_1": lambda: mesh_moe(n, dev, say, 1), "moe_4": lambda: mesh_moe(n, dev, say, 4),
+             "ep_exchange": lambda: time_ep_exchange(dev, say),
+             "griffin": lambda: tp_whole("recurrentgemma-9b", (2, 2), n, dev, say),
+             "rwkv": lambda: tp_whole("rwkv6-3b", (1, n), n, dev, say),
+             "pipeline": lambda: pipeline_paths(n, dev, say),
+             "elastic": lambda: elastic_path(n, dev, say)}
+    out = {}
+    for name, fn in paths.items():
+        t0 = time.perf_counter()
+        out[name] = fn()
+        say(f"mesh path {name}: {time.perf_counter() - t0:.1f} s")
+        gc.collect()
+        torch.cuda.empty_cache()
     return out
 
 
@@ -2520,7 +2921,7 @@ def multi_card(n: int, main_losses: list[float], moe_losses: list[float]) -> dic
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                             text=True, start_new_session=True)
     try:
-        out = proc.communicate(timeout=900)[0]
+        out = proc.communicate(timeout=1800)[0]
     finally:
         if proc.poll() is None:  # stop torchrun and every rank it started
             os.killpg(proc.pid, signal.SIGKILL)
@@ -2551,6 +2952,23 @@ def multi_card(n: int, main_losses: list[float], moe_losses: list[float]) -> dic
         if max(diff) > LOSS_RTOL:
             raise AssertionError(f"{MOE_ARCH} on (2, 2) differs from one card: {diff}")
     return res
+
+
+def multi_card_phase(count: int, served_ids: dict, main_losses: list[float],
+                     moe_losses: list[float]) -> dict:
+    """Phase 9 on `count` cards: `multi_card` on up to four, given phase 7's
+    ids (`served_ids`, written to a file named by CHIP_SMOKE_SERVED for the
+    ranks) and phase 8's losses; nothing on one card."""
+    if count < 2:
+        print(f"multi-card phase: not run ({count} device)")
+        return {}
+    gc.collect()
+    torch.cuda.empty_cache()  # rank 0 shares this card
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_served_") as d:
+        served = Path(d) / "ids.json"
+        served.write_text(json.dumps(served_ids))
+        os.environ["CHIP_SMOKE_SERVED"] = str(served)
+        return multi_card(min(4, count), main_losses, moe_losses)
 
 
 def host_ms(fn, iters: int) -> float:
@@ -3632,9 +4050,9 @@ def main() -> None:
                  for case in (TRAIN_FWD_CASE, SERVE_CASE, GRIFFIN_CASE, GRIFFIN_TRAIN_CASE,
                               QWEN_CASE, QWEN_TRAIN_CASE, *RANK_CASES, *NEW_CASES,
                               *SLICE15_CASES)}
-    fwd_times.update({case: time_flash(case, torch.float32) for case in TWIN_FWD_CASES})
+    fwd_times.update({case: time_flash(case, torch.float32) for case in F32_FWD_CASES})
     bwd_times = {case: time_bwd(case) for case in TRAIN_BWD_CASES}
-    bwd_times[TWIN_TRAIN_BWD] = time_bwd(TWIN_TRAIN_BWD, torch.float32)
+    bwd_times.update({case: time_bwd(case, torch.float32) for case in F32_BWD_CASES})
     rec_times = time_recurrent()
     rec_times.update(time_recurrent_bwd())
     phase("5 model parity card vs cpu")
@@ -3646,12 +4064,12 @@ def main() -> None:
         check_train_parity(arch, num_layers)
         gc.collect()
     phase("7 serve")
-    serve_launches = {}
+    serve_launches, served_ids = {}, {}
     for arch in SERVE_ARCHS:  # one model at a time: each is freed before the next
         for prompt_len, new_tokens in SERVE_LENGTHS.get(arch, ((SERVE_PROMPT.get(arch, 512),
                                                                  32),)):
             key = arch if arch not in SERVE_LENGTHS else f"{arch} {prompt_len}+{new_tokens}"
-            serve_launches[key] = serve_path(arch, prompt_len, new_tokens)
+            serve_launches[key], served_ids[key] = serve_path(arch, prompt_len, new_tokens)
             gc.collect()
             torch.cuda.empty_cache()
     phase("8 train (main path)")
@@ -3671,14 +4089,8 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     phase("9 multi-card")
-    multi = {}
-    if count >= 2:
-        gc.collect()
-        torch.cuda.empty_cache()  # rank 0 shares this card
-        multi = multi_card(min(4, count), train_losses["stablelm-3b"],
-                           moe_runs["unsharded"]["losses"])
-    else:
-        print(f"multi-card phase: not run ({count} device)")
+    multi = multi_card_phase(count, served_ids, train_losses["stablelm-3b"],
+                             moe_runs["unsharded"]["losses"])
     phase("10 fabric playback")
     clock_hz = sm_clock_hz()
     check_playback()
@@ -3858,23 +4270,52 @@ def main() -> None:
         "moe_1": (f"mesh train {MOE_ARCH} 1 layer (2, 2), rank 0", QWEN_RANK_CASE, QWEN_RANK_BWD),
         "moe_4": (f"mesh train {MOE_ARCH} 4 layers (2, 2), rank 0", QWEN_RANK_CASE,
                   QWEN_RANK_BWD),
-        "griffin": ("mesh train recurrentgemma-9b whole (4,), rank 0", GRIFFIN_RANK_CASE,
+        "griffin": ("mesh train recurrentgemma-9b whole (2, 2), rank 0", GRIFFIN_RANK_CASE,
                     GRIFFIN_RANK_BWD),
-        "elastic": ("mesh train stablelm-3b resumed on (2, 2), rank 0", STABLELM_RANK_CASE,
-                    STABLELM_RANK_BWD),
-        "pipeline": ("pipeline stablelm-3b, stage 0", STABLELM_RANK_CASE, None)}
+        "rwkv": ("mesh train rwkv6-3b whole (1, 4), rank 0", None, None),
+        "elastic": ("mesh train stablelm-3b resumed on (2, 2), rank 0", STABLELM_TP_CASE,
+                    STABLELM_TP_BWD),
+        "pipeline": ("pipeline stablelm-3b, stage 0", STABLELM_RANK_CASE, None),
+        "tp_serve": ("mesh serve command-r-plus-104b whole (1, 4) prefill, rank 0",
+                     COMMAND_R_TP_CASE, None),
+        "tp_serve_parity": ("mesh serve parity command-r-plus-104b 2 layers f32 (1, 4), rank 0",
+                            TP_SERVE_F32_CASE, None)}
     for key, (path, fwd_case, bwd_case) in rank_paths.items():
         if key not in mesh:
             continue
         launches = mesh[key]["launches"]
-        entries.append((path, "flash_attention_fwd", fwd_case, launches, fwd_errs[fwd_case],
-                        fwd_times[fwd_case]))
+        if fwd_case is not None:
+            entries.append((path, "flash_attention_fwd", fwd_case, launches,
+                            fwd_errs[fwd_case], fwd_times[fwd_case]))
         if bwd_case is not None:
             entries += [(path, name, bwd_case, launches, bwd_errs[(name, bwd_case)],
                          bwd_times[bwd_case][name]) for name in bwd_names]
         if key == "griffin":
             entries += [(path, name, LRU_RANK, launches, rec_errs[(name, LRU_RANK)],
                          rec_times[(name, LRU_RANK)]) for name in ("rg_lru_fwd", "rg_lru_bwd")]
+        if key == "rwkv":
+            entries += [(path, name, WKV_RANK, launches, rec_errs[(name, WKV_RANK)],
+                         rec_times[(name, WKV_RANK)]) for name in ("wkv6_fwd", "wkv6_bwd")]
+    for shape, fwd_case, bwd_case in (("2x2", COMMAND_R_TRAIN_22, COMMAND_R_BWD_22),
+                                      ("1x4", COMMAND_R_TRAIN_14, COMMAND_R_BWD_14)):
+        if shape not in mesh.get("command_r_train", {}):
+            continue
+        path = f"mesh train command-r-plus-104b 4 layers ({shape.replace('x', ', ')}), rank 0"
+        launches = mesh["command_r_train"][shape]["launches"]
+        entries.append((path, "flash_attention_fwd", fwd_case, launches, fwd_errs[fwd_case],
+                        fwd_times[fwd_case]))
+        entries += [(path, name, bwd_case, launches, bwd_errs[(name, bwd_case)],
+                     bwd_times[bwd_case][name]) for name in bwd_names]
+    for shape, fwd_case, bwd_case in (("2x2", TP_TRAIN_F32_22, TP_TRAIN_F32_BWD[0]),
+                                      ("1x4", TP_TRAIN_F32_14, TP_TRAIN_F32_BWD[1])):
+        if shape not in mesh.get("tp_train_parity", {}):
+            continue
+        path = f"mesh train parity stablelm-3b 2 layers f32 ({shape.replace('x', ', ')}), rank 0"
+        launches = mesh["tp_train_parity"][shape]["launches"]
+        entries.append((path, "flash_attention_fwd", fwd_case, launches, fwd_errs[fwd_case],
+                        fwd_times[fwd_case]))
+        entries += [(path, name, bwd_case, launches, bwd_errs[(name, bwd_case)],
+                     bwd_times[bwd_case][name]) for name in bwd_names]
     print(f"launches: serve {serve_launches}, train {train_launches}, twins "
           f"{ {k: v for k, v in twins.items() if k != 'explorer'} }")
     kernels = [{

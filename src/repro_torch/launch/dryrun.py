@@ -15,15 +15,21 @@ on 512 fake XLA host devices.  The port traces one rank's step instead:
 
 The steps (`run_step`) are the port's own: train is
 `launch.train.make_train_step` (forward, remat recompute, backward, AdamW)
-in `train()`'s gspmd layout; prefill is what `models.prefill` runs (the
-forward in "prefill" mode, into the cell's caches) and decode
-`models.decode_step` against full caches of the cell's `seq_len`.  Serving
-on a mesh does not exist in the port, so a serving cell traces one rank's
-local computation: the batch rows split over `batch_axes(mesh)` (whole on
-every rank where they do not divide), parameters gathered on use, and each
-cache leaf at the local shape that `cache_shardings` gives it, its dims
-over 'model' (or the odd 'data' of `slot_pos`) held as a DTensor shard that
-the block gathers where it reads the cache (`models.sharding`, inside
+in `train()`'s gspmd layout (rows over the batch axes, the 'model' peers
+splitting the projections: tensor parallelism); prefill is what
+`models.prefill` runs (the forward in "prefill" mode, into the cell's
+caches) and decode `models.decode_step` against full caches of the cell's
+`seq_len`.  A serving cell traces one rank's step as `serve_requests` runs
+it on a mesh: the batch rows split over `batch_axes(mesh)` (whole on every
+rank where they do not divide), the projections split over 'model', and
+the caches held as `cache_shardings` lays them out: a leaf whose 'model'
+shard is what the block computes (the local KV heads where they divide) is
+that plain local tensor; a leaf sharded otherwise (the MLA latent's
+sequence, `kv-seq-sharded`, the odd 'data' of `slot_pos`) is a DTensor
+shard that the block gathers where it reads the cache, and a leaf the block
+computes a part of but the rule keeps whole or shards otherwise (RG-LRU
+states, KV heads that do not divide) is cut to the block's part and its
+update gathered back over 'model' (`models.sharding`, inside
 `activation_sharding(..., sharded_caches=True)`).
 
 The variants are the reference's:
@@ -34,9 +40,8 @@ The variants are the reference's:
                     of the sequence and gathers the shards over 'model' where
                     attention reads the cache (GSPMD would instead insert a
                     partial-softmax combine; the port's choice differs);
-  logits-sharded  : the unembedding keeps its 'model' shard, so the decode
-                    logits stay (B_local, V / 16) (an untied head only: a tied
-                    table is read whole by the embedding lookup too);
+  logits-sharded  : the vocab-parallel logits are not gathered, so the
+                    decode logits stay (B_local, V / 16) (where V divides);
   seq-parallel    : traced as the baseline: the port keeps the sequence
                     whole (`models.sharding` reads only whether a rule is
                     set), and the cell's JSON says so (`seq_parallel_note`);
@@ -84,18 +89,20 @@ import traceback
 
 import torch
 import torch.distributed as dist
-from torch.distributed.tensor import DTensor, Replicate
+from torch.distributed.tensor import DTensor
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.flop_counter import FlopCounterMode
 
 from repro_torch import configs
 from repro_torch.data import make_batch_specs
-from repro_torch.models import SHAPES, decode_step, forward, init_caches, init_params
+from repro_torch.models import SHAPES, forward, init_caches, init_params
+from repro_torch.models.model import cache_cuts
 from repro_torch.models.sharding import TokenSplit, activation_sharding
 from repro_torch.optim import adamw_init
 
 from .mesh import axis_sizes, batch_axes, make_production_mesh
-from .shardings import activation_rules, cache_shardings, distribute, placements, shard_model
+from .shardings import (activation_rules, cache_shardings, distribute, local_shard, placements,
+                        shard_model)
 from .train import TrainConfig, current_world, layout, make_train_step
 
 COLLECTIVE_OPS = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
@@ -237,28 +244,43 @@ def _serving_rows(mesh, batch: int):
     return batch // n, sub.get_group()
 
 
-def _shard_caches(caches: list[dict], mesh, global_batch: int, kv_seq_shard: bool):
-    """Each cache leaf (its rows already this rank's) as `cache_shardings`
-    lays out the reference's stacked leaf (1, B, ...): the batch entry is the
-    rows, any other sharded dim becomes a DTensor shard.  `slot_pos` (S,) has
-    no batch dim; the rule's heuristic shards its S over the batch axes."""
+def _shard_caches(caches: list[dict], cfg, mesh, global_batch: int, kv_seq_shard: bool):
+    """Each cache leaf (whole, its rows already this rank's) as
+    `cache_shardings` lays out the reference's stacked leaf (1, B, ...): the
+    batch entry is the rows; a leaf whose only other sharded dim is the one
+    the block cuts over 'model', evenly (`models.model.cache_cuts`), is this
+    rank's part, a plain tensor; any other sharded leaf a DTensor shard.
+    `slot_pos` (S,) has no batch dim; the rule's heuristic shards its S over
+    the batch axes."""
+    tp = axis_sizes(mesh).get("model", 1)
+    names = list(axis_sizes(mesh))
 
-    def one(key, t):
+    def one(key, t, cut):
         if not isinstance(t, torch.Tensor):
             return t
-        shape = ((1, *t.shape) if key == "slot_pos"
+        shape = ((1, *t.shape) if key.endswith("slot_pos")
                  else (1, global_batch, *t.shape[1:]))
         spec = cache_shardings(mesh, {key: shape}, kv_seq_shard=kv_seq_shard)[key][1:]
-        if key != "slot_pos":
+        if not key.endswith("slot_pos"):
             spec = (None, *spec[1:])
         if all(ax is None for ax in spec):
             return t
-        return distribute(t, mesh, placements(mesh, spec))
+        pl = placements(mesh, spec)
+        even = cut is not None and cut[1] == [
+            list(range(r * t.shape[cut[0]] // tp, (r + 1) * t.shape[cut[0]] // tp))
+            for r in range(tp)]
+        if even and [ax for ax in spec if ax is not None] == ["model"] \
+                and pl[names.index("model")].dim == cut[0]:
+            return local_shard(t, mesh, pl)     # the block's own part
+        return distribute(t, mesh, pl)
 
-    def walk(c):
-        return {k: walk(v) if isinstance(v, dict) else one(k, v) for k, v in c.items()}
+    def walk(c, cuts, prefix=""):
+        return {k: walk(v, cuts, f"{prefix}{k}.") if isinstance(v, dict)
+                else one(f"{prefix}{k}", v, cuts.get(f"{prefix}{k}"))
+                for k, v in c.items()}
 
-    return [walk(c) for c in caches]
+    return [walk(c, cache_cuts(cfg, kind, tp, cfg.enc_dec))
+            for c, kind in zip(caches, cfg.layer_kinds, strict=True)]
 
 
 def _fill(caches: list[dict], seq_len: int) -> None:
@@ -302,7 +324,8 @@ def _split(shape, mesh, tweaks: set):
         lay = dataclasses.replace(lay, split=dataclasses.replace(lay.split, experts=experts))
         return lay, lay.split
     rows, group = _serving_rows(mesh, shape.global_batch)
-    return None, TokenSplit(rows, group, experts)
+    model = mesh.get_group("model")
+    return None, TokenSplit(rows, group, experts, model if dist.get_world_size(model) > 1 else None)
 
 
 def build_rank(cfg, shape, mesh, tweaks: set, lay, split: TokenSplit) -> Rank:
@@ -311,18 +334,13 @@ def build_rank(cfg, shape, mesh, tweaks: set, lay, split: TokenSplit) -> Rank:
     model = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
     shard_model(model, mesh, moe_expert_axis="data" if "moe-ep-data" in tweaks else "model",
                 fsdp="serve-tp-params" not in tweaks)
-    if "logits-sharded" in tweaks and model.unembed is not None:
-        w = model.unembed["w"]
-        names = list(axis_sizes(mesh))
-        w.gather_to = tuple(pl if names[i] == "model" else Replicate()
-                            for i, pl in enumerate(w.placements))
     if shape.mode == "train":
         tc = TrainConfig(batch_size=shape.global_batch, grad_sync="gspmd")
         step = make_train_step(tc, lay, mesh)
         rank = Rank(model, "train", {}, split, adamw_init(list(model.parameters())),
                     step_fn=step, mesh=mesh)
     else:
-        caches = _shard_caches(init_caches(cfg, split.rows, shape.seq_len, "cpu"), mesh,
+        caches = _shard_caches(init_caches(cfg, split.rows, shape.seq_len, "cpu"), cfg, mesh,
                                shape.global_batch, "kv-seq-sharded" in tweaks)
         if shape.mode == "decode":
             _fill(caches, shape.seq_len)
@@ -338,10 +356,10 @@ def run_step(rank: Rank, cfg, shape, tweaks: set):
         return rank.step_fn(rank.model, rank.opt_state, rank.batch)
     with torch.no_grad(), activation_sharding(rank.mesh, activation_rules(rank.mesh),
                                               rank.split, sharded_caches=True):
-        if rank.mode == "prefill":  # `models.prefill`, into the sharded caches
-            out = forward(cfg, rank.model, rank.batch, caches=rank.caches, mode="prefill")
-            return out.logits[:, -1, :], out.caches
-        return decode_step(cfg, rank.model, rank.batch["tokens"], rank.caches)
+        # `models.prefill`, into the sharded caches; `models.decode_step`
+        out = forward(cfg, rank.model, rank.batch, caches=rank.caches, mode=rank.mode,
+                      logits_whole="logits-sharded" not in tweaks)
+        return out.logits[:, -1, :], out.caches
 
 
 def trace_step(cfg, shape, mesh, variant: str = "baseline") -> dict:

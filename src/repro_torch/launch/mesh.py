@@ -4,7 +4,7 @@ A mesh is a `torch.distributed.device_mesh.DeviceMesh` over the ranks of the
 default process group, with named axes:
   pod   : cross-pod data parallelism (and optional pipeline stages)
   data  : in-pod data parallelism + FSDP (params/optimizer sharded here)
-  model : expert parallelism (and, in the reference, tensor parallelism)
+  model : tensor parallelism + expert parallelism
 Functions, not module-level constants, as in the reference: importing this
 module touches no device and no process group.
 

@@ -42,7 +42,16 @@ def serve_requests(cfg, model, requests: list[Request], max_seq: int,
 
     Runs on `device` (default `cuda`), where `model` must already live, under
     `torch.inference_mode()`: the parameters are trainable, and serving
-    builds no autograd graph."""
+    builds no autograd graph.
+
+    On a mesh (tensor parallelism over its 'model' axis), as the reference's
+    dry run builds its prefill and decode steps: every rank shards the model
+    (`launch.shardings.shard_model(model, mesh, fsdp=False)`, or
+    `launch.shardings.init_sharded(..., mesh, fsdp=False)`) and calls this with
+    the same requests inside `models.sharding.activation_sharding(mesh,
+    launch.shardings.activation_rules(mesh))`; each rank computes its heads
+    and channels, its caches hold them, and every rank returns the same
+    tokens."""
     dev = resolve_device(device)
     if model.device.type != dev.type:
         raise ValueError(f"model on {model.device}, serving on {dev}")

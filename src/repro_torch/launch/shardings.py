@@ -24,9 +24,14 @@ back.  The rules take a `DeviceMesh` or any object with `axis_names` and a
 The port's blocks are one module per layer, not scan-stacked (`interop`), so
 a block leaf takes the reference's stacked spec with its leading None
 dropped.  `shard_model` (port-only) is the sharded layout of the training
-path: each parameter becomes a DTensor holding this rank's shard, and
-`models.sharding` gathers it where a block reads it (on use, inside the
-block's remat), its gradient coming back as this rank's shard of the sum.
+and serving paths: each parameter becomes a DTensor holding this rank's
+shard (storage: the rule table's), and `models.sharding` gathers it where a
+block reads it (on use, inside the block's remat) to its compute layout:
+the tensor-parallel leaves keep their 'model' shard (`tp_role`: the
+reference's column- and row-parallel projections and vocab shards, where the
+block's heads, channels or vocab divide by the 'model' size), every other
+axis is gathered (FSDP), and the expert stacks keep E sharded; the gradient
+comes back as this rank's shard of the sum.
 """
 from __future__ import annotations
 
@@ -34,7 +39,9 @@ import math
 
 import torch
 from torch import nn
-from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+from repro_torch.models.tensor_parallel import divides
 
 from .mesh import axis_sizes, batch_axes
 
@@ -96,6 +103,18 @@ def _param_keys(name: str) -> tuple[list[str], bool]:
     return (["decoder", *keys[1:]] if keys[0] == "blocks" else keys), in_block
 
 
+def leaf_spec(mesh, name: str, shape: tuple, moe_expert_axis: str = "model",
+              fsdp: bool = True) -> tuple:
+    """The spec of the `Model` parameter `name` of (whole) `shape`."""
+    keys, in_block = _param_keys(name)
+    shape = tuple(shape)
+    spec = (_leaf_spec(mesh, keys, (1, *shape), moe_expert_axis)[1:] if in_block
+            else _leaf_spec(mesh, keys, shape, moe_expert_axis))
+    if not fsdp:
+        spec = tuple(None if ax == "data" else ax for ax in spec)
+    return spec
+
+
 def param_shardings(mesh, model: nn.Module, moe_expert_axis: str = "model",
                     fsdp: bool = True) -> dict[str, tuple]:
     """{parameter name: spec} of a `Model`, in `named_parameters` order.
@@ -103,16 +122,8 @@ def param_shardings(mesh, model: nn.Module, moe_expert_axis: str = "model",
     fsdp=False drops the 'data' axis from every weight spec (TP-only):
     the serving layout — no optimizer state to shard, and per-step weight
     all-gathers disappear (weights are resident once loaded)."""
-    out = {}
-    for name, p in model.named_parameters():
-        keys, in_block = _param_keys(name)
-        shape = tuple(p.shape)
-        spec = (_leaf_spec(mesh, keys, (1, *shape), moe_expert_axis)[1:] if in_block
-                else _leaf_spec(mesh, keys, shape, moe_expert_axis))
-        if not fsdp:
-            spec = tuple(None if ax == "data" else ax for ax in spec)
-        out[name] = spec
-    return out
+    return {name: leaf_spec(mesh, name, p.shape, moe_expert_axis, fsdp)
+            for name, p in model.named_parameters()}
 
 
 def _entry(axes: tuple):
@@ -238,35 +249,170 @@ def distribute(t: torch.Tensor, mesh, placements_: tuple) -> DTensor:
                               run_check=False)
 
 
-def _gather_to(name: str, ndim: int, pl: tuple) -> tuple:
-    """What a read gathers a parameter to: everything whole, but the expert
-    stacks (E, ., .) keep E sharded over the axis that shards it, 'model' by
-    default, 'data' under `moe_expert_axis="data"` (expert parallelism: each
-    rank runs its own experts on every peer's slots)."""
-    keep = name.split(".")[-1] in _EXPERT_WEIGHTS and ndim == 3
-    return tuple(p if keep and isinstance(p, Shard) and p.dim == 0 else Replicate()
-                 for p in pl)
+# --- the compute layout: what a read gathers to ------------------------------------------
+
+
+def _mlp_role(name: str, d_ff: int, tp: int):
+    if not divides(d_ff, tp):
+        return "whole"
+    return {"w_gate": ("shard", 1), "w_up": ("shard", 1), "w_in": ("shard", 1),
+            "w_down": ("shard", 0), "w_out": ("shard", 0), "b_in": "part"}.get(name, "whole")
+
+
+def _mix_role(name: str, kind: str, cfg, tp: int):
+    """The tensor-parallel role of a mixer leaf (`models.tensor_parallel`):
+    ("shard", dim) kept over 'model'; "whole" read in a replicated
+    computation; "part" gathered whole and read in a per-rank one."""
+    if kind in ("attn", "local"):
+        if not divides(cfg.num_heads, tp):
+            return "whole"
+        if name in ("wk", "wv"):
+            return ("shard", 1) if divides(cfg.num_kv_heads, tp) else "part"
+        return {"wq": ("shard", 1), "wo": ("shard", 0)}[name]
+    if kind == "mla":
+        if not divides(cfg.num_heads, tp):
+            return "whole"
+        return {"w_uq": ("shard", 1), "w_uk": ("shard", 1), "w_uv": ("shard", 1),
+                "wo": ("shard", 0)}.get(name, "whole")      # w_dq, w_dkv feed every head
+    if kind == "rglru":
+        if not divides(cfg.rglru_width or cfg.d_model, tp):
+            return "whole"
+        return {"w_gate": ("shard", 1), "w_in": ("shard", 1), "w_a": ("shard", 1),
+                "w_x": ("shard", 1), "w_out": ("shard", 0)}.get(name, "part")
+    if kind == "rwkv6":
+        if not divides(cfg.d_model // cfg.rwkv_head_dim, tp):
+            return "whole"
+        # w_v is stored row-parallel (the rule table's `_ROW_PARALLEL`) but feeds the heads
+        return {"w_r": ("shard", 1), "w_k": ("shard", 1), "w_v": ("shard", 1),
+                "w_g": ("shard", 1), "w_o": ("shard", 0)}.get(name, "part")
+    raise ValueError(kind)
+
+
+def tp_role(name: str, cfg, kinds, tp: int, moe_expert_axis: str = "model"):
+    """The tensor-parallel role of the `Model` parameter `name` on a 'model'
+    axis of tp ranks, from the arch config (`kinds`: each decoder layer's
+    block kind): divisibility decides it, as the reference's guard does."""
+    keys = name.split(".")
+    if keys[0] in ("embed", "unembed"):   # vocab-parallel
+        return ("shard", 0 if keys[-1] == "table" else 1) \
+            if divides(cfg.vocab_size, tp) else "whole"
+    if keys[0] not in ("blocks", "encoder") or keys[2].startswith("norm"):
+        return "whole"                     # final norm, patch projection, norms
+    leaf = keys[-1]
+    if keys[2] in ("mix", "cross"):
+        kind = "attn" if keys[0] == "encoder" or keys[2] == "cross" else kinds[int(keys[1])]
+        return _mix_role(leaf, kind, cfg, tp)
+    if keys[0] == "blocks" and kinds[int(keys[1])] == "rwkv6":   # the RWKV channel mix
+        if not divides(cfg.d_ff, tp):
+            return "whole"
+        return {"w_k": ("shard", 1), "w_v": ("shard", 0)}.get(leaf, "whole")
+    if cfg.ffn == "moe" and keys[0] == "blocks":
+        if keys[3] == "dense":             # Arctic's dense residual
+            return _mlp_role(leaf, cfg.moe.dense_residual_d_ff, tp)
+        if leaf == "router":               # read on the tokens cut over 'model'
+            cut = moe_expert_axis == "model" and divides(cfg.moe.num_experts, tp)
+            return "part" if cut else "whole"
+        return "expert"
+    return _mlp_role(leaf, cfg.d_ff, tp)
+
+
+def compute_layout(mesh, pl: tuple, role) -> tuple[tuple, tuple]:
+    """(gather_to, grad_to) of a parameter stored with placements `pl`: the
+    batch axes gathered, the gradient partial over them (their ranks hold
+    distinct rows); over 'model' the role's shard kept, or the leaf
+    gathered with its gradient whole ("whole") or partial ("part").  An
+    expert stack keeps E (dim 0) sharded over whichever axis shards it."""
+    gather_to, grad_to = [], []
+    for ax, p in zip(axis_sizes(mesh), pl, strict=True):
+        if role == "expert" and isinstance(p, Shard) and p.dim == 0:
+            gather_to.append(p)
+            grad_to.append(p)
+        elif ax != "model":
+            gather_to.append(Replicate())
+            grad_to.append(Partial())
+        elif isinstance(role, tuple):
+            gather_to.append(Shard(role[1]))
+            grad_to.append(Shard(role[1]))
+        else:
+            gather_to.append(Replicate())
+            grad_to.append(Partial() if role == "part" else Replicate())
+    return tuple(gather_to), tuple(grad_to)
+
+
+def _install(model: nn.Module, name: str, local: torch.Tensor, mesh, pl: tuple,
+             role) -> None:
+    """Make `local` (this rank's shard under `pl`) the parameter `name` of
+    `model`, a DTensor with its compute layout."""
+    *path, leaf = name.split(".")
+    owner = model.get_submodule(".".join(path))
+    param = nn.Parameter(DTensor.from_local(local, mesh, pl, run_check=False))
+    param.gather_to, param.grad_to = compute_layout(mesh, pl, role)
+    param.tp_split = isinstance(role, tuple)
+    owner[leaf] = param
+
+
+def _mark_sharded(model: nn.Module) -> None:
+    for module in model.modules():
+        module.sharded = True
+
+
+def _install_all(model: nn.Module, mesh, pls: dict[str, tuple], moe_expert_axis: str,
+                 whole: bool) -> None:
+    """Make every parameter of `model` a DTensor holding this rank's shard
+    under its placements in `pls`, with its compute layout; `whole`: the
+    parameters are whole and are cut here, else they are the shards."""
+    tp = axis_sizes(mesh).get("model", 1)
+    kinds = [b.kind for b in model.blocks]
+    for name, pl in pls.items():
+        local = model.get_parameter(name).detach()
+        if whole:
+            with torch.no_grad():
+                local = local_shard(local, mesh, pl)
+        _install(model, name, local, mesh, pl,
+                 tp_role(name, model.cfg, kinds, tp, moe_expert_axis))
+    _mark_sharded(model)
 
 
 def shard_model(model: nn.Module, mesh, moe_expert_axis: str = "model",
                 fsdp: bool = True) -> dict[str, tuple]:
-    """Turn every parameter of `model` (whole, the same on every rank) into a
-    DTensor parameter holding this rank's shard under the rule table
-    (`param_shardings`' options), in place; the whole tensors are freed.
-    Each parameter is gathered where the model reads it
-    (`models.sharding.gathered`) to `p.gather_to`.  Returns {name:
+    """Turn every parameter of `model` (a `models.Model`, whole, the same on
+    every rank) into a DTensor parameter holding this rank's shard under the
+    rule table (`param_shardings`' options), in place; the whole tensors are
+    freed.  Each parameter is gathered where the model reads it
+    (`models.sharding.gathered`) to its compute layout (`tp_role`,
+    `compute_layout`): `p.gather_to`, its gradient's `p.grad_to`, and
+    `p.tp_split` where it keeps a 'model' shard.  Returns {name:
     placements}."""
-    specs = param_shardings(mesh, model, moe_expert_axis, fsdp)
-    out = {}
-    for name, spec in specs.items():
-        *path, leaf = name.split(".")
-        owner = model.get_submodule(".".join(path))
-        pl = placements(mesh, spec)
-        with torch.no_grad():
-            param = nn.Parameter(distribute(getattr(owner, leaf).detach(), mesh, pl))
-        param.gather_to = _gather_to(name, param.dim(), pl)
-        owner[leaf] = param
-        out[name] = pl
-    for module in model.modules():
-        module.sharded = True
-    return out
+    pls = {name: placements(mesh, spec)
+           for name, spec in param_shardings(mesh, model, moe_expert_axis, fsdp).items()}
+    _install_all(model, mesh, pls, moe_expert_axis, whole=True)
+    return pls
+
+
+def init_sharded(cfg, generator: torch.Generator, device, mesh, fsdp: bool = True):
+    """`models.init_params` drawn straight into the layout `shard_model(...,
+    fsdp=fsdp)` gives the unsharded model: every leaf is drawn whole in the
+    same order, this rank keeps its shard and the whole is freed as soon as
+    its group (the embedding, a block) is cut, so the weights are bit for bit
+    those of the unsharded model at the same seed while a rank holds one
+    whole group at a time."""
+    from repro_torch.models import init_params
+
+    pls: dict[str, tuple] = {}
+
+    def keep(prefix: str, group: dict) -> dict:
+        out = {}
+        for k in list(group):
+            name, whole = f"{prefix}.{k}", group.pop(k)
+            if isinstance(whole, dict):
+                out[k] = keep(name, whole)
+                continue
+            pls[name] = placements(mesh, leaf_spec(mesh, name, whole.shape, fsdp=fsdp))
+            out[k] = local_shard(whole, mesh, pls[name])
+            del whole
+        return out
+
+    model = init_params(cfg, generator, device, keep)
+    _install_all(model, mesh, {name: pls[name] for name, _ in model.named_parameters()},
+                 "model", whole=False)
+    return model

@@ -28,11 +28,14 @@ With `mesh_shape` / `mesh_axes` (a `DeviceMesh` over the whole world,
 `launch.mesh`):
   gspmd  : the parameters and AdamW moments live only as their shards under
            the rule table (`launch.shardings.shard_model`), gathered where
-           the model reads them; every rank takes distinct rows (the model
-           group of each data shard splits that shard's rows), the gradient
-           of each shard comes back summed over the ranks and is divided by
-           the world size; a 'model' axis runs the MoE's experts in parallel
-           over it (`models.moe`).
+           the model reads them to their compute layout; the rows lie over
+           the batch axes, as the reference's `batch_shardings` lays them,
+           and the 'model' peers of a data shard compute the same rows with
+           the dense projections split between them (tensor parallelism,
+           `models.tensor_parallel`) and the MoE's experts run in parallel
+           over it (`models.moe`); the gradient of each shard comes back
+           summed over the ranks that hold distinct rows and is divided by
+           their number.
   bridge, bridge-compressed : as the reference's `shard_map`: parameters
            replicated, the batch split over 'data' (the ranks of one data
            shard compute the same rows), gradients summed over the 'data'
@@ -162,16 +165,14 @@ def layout(tc: TrainConfig, world: World, mesh) -> Layout:
                  if tc.grad_sync == "gspmd" and world.size > 1 else None)
         return Layout(world, world, False, split)
     if tc.grad_sync == "gspmd":
-        experts = mesh.get_group("model") if "model" in axis_sizes(mesh) else None
-        if tc.batch_size % world.size == 0:
-            return Layout(world, None, True,
-                          TokenSplit(tc.batch_size // world.size, experts=experts))
-        # fewer rows than ranks: the rows split over the batch axes, as the
-        # reference's batch sharding, and the ranks that differ only in the
-        # other axes compute the same rows
+        # the rows split over the batch axes, as the reference's batch
+        # sharding; the 'model' peers of a data shard compute the same rows
+        # and split the projections (and the MoE its tokens) between them
+        model = mesh.get_group("model") if "model" in axis_sizes(mesh) else None
+        tp = model if model is not None and dist.get_world_size(model) > 1 else None
         rows = batch_world(mesh)
         return Layout(rows, None, True,
-                      TokenSplit(tc.batch_size // rows.size, rows.group, experts))
+                      TokenSplit(tc.batch_size // rows.size, rows.group, model, tp))
     data = World(mesh["data"].size(), mesh.get_local_rank("data"), mesh.get_group("data"))
     return Layout(data, data, False, None)
 
@@ -180,6 +181,8 @@ def batch_world(mesh) -> World:
     """The ranks that hold distinct rows under the reference's batch
     sharding: this rank's group over `batch_axes(mesh)`."""
     axes = batch_axes(mesh)
+    if not axes:
+        raise ValueError(f"a gspmd mesh needs a 'data' or 'pod' axis, not {mesh.mesh_dim_names}")
     sub = mesh[axes] if len(axes) == 1 else mesh[axes]._flatten()
     return World(sub.size(), sub.get_local_rank(), sub.get_group())
 
@@ -241,10 +244,10 @@ def make_train_step(tc: TrainConfig, lay: Layout, mesh=None):
         grads = [p.grad for p in params]
         if lay.sync is not None:
             grads, ef = sync_gradients(grads, tc.grad_sync, lay.sync, ef)
-        elif lay.sharded and dist.get_world_size() > 1:
-            # the shards came back summed over every rank of the mesh (the
-            # world), each of the rows' copies counted once
-            grads = [g / dist.get_world_size() for g in grads]
+        elif lay.sharded and lay.rows.size > 1:
+            # the shards came back summed over the ranks that hold distinct
+            # rows (a 'model' peer's part of a leaf counted once)
+            grads = [g / lay.rows.size for g in grads]
         metrics = {k: _pmean(m, lay.rows) for k, m in metrics.items()}
         _, opt_state, om = adamw_update(grads, opt_state, params, lr)
         metrics.update(om)

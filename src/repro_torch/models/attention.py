@@ -25,6 +25,14 @@ touches only rank-r tensors.
 Cross attention (whisper's decoder) attends to the encoder's K/V without a
 mask: the prompt against every frame in prefill, one query in each decode
 step, both through the flash kernel.
+
+Tensor parallelism (`tensor_parallel`): where the query heads divide by the
+'model' size each rank computes hq / tp of them (its columns of wq), and wo
+row-parallel; the KV heads split alike where they divide, else each rank
+keeps the KV heads its query heads read (`tensor_parallel.kv_heads`, from wk
+and wv gathered whole).  The caches hold those local heads.  MLA splits its
+heads (w_uq, w_uk, w_uv, wo), its down projections and the latent cache stay
+whole.  Heads that do not divide: the block computes them all, replicated.
 """
 from __future__ import annotations
 
@@ -32,6 +40,7 @@ import torch
 
 from ..kernels.flash_attention.ops import flash_attention
 from . import layers
+from . import tensor_parallel as tp
 from .config import ArchConfig
 
 
@@ -65,9 +74,10 @@ def init_attention(cfg: ArchConfig, generator, dtype):
 
 
 def init_attn_cache(cfg: ArchConfig, batch: int, max_seq: int, kind: str, dtype,
-                    device):
+                    device, kv_heads: int | None = None):
+    """`kv_heads`: the KV heads this rank holds (default all of them)."""
     s_cache = min(max_seq, cfg.window) if kind == "local" else max_seq
-    hkv, hd = cfg.num_kv_heads, cfg.head_dim
+    hkv, hd = kv_heads or cfg.num_kv_heads, cfg.head_dim
     return {
         "k": torch.zeros((batch, hkv, s_cache, hd), dtype=dtype, device=device),
         "v": torch.zeros((batch, hkv, s_cache, hd), dtype=dtype, device=device),
@@ -81,16 +91,36 @@ def _split_heads(x, n, hd):
     return x.reshape(b, s, n, hd).transpose(1, 2)
 
 
+def _kv_weights(cfg: ArchConfig, p):
+    """wk, wv as this rank reads them: whole, its shard, or, where the query
+    heads split and the KV heads do not, the columns of the KV heads its
+    query heads read (`tensor_parallel.kv_heads`)."""
+    wk, wv = p["wk"], p["wv"]
+    if not tp.is_split(p, "wq") or tp.is_split(p, "wk"):
+        return wk, wv
+    hd = cfg.head_dim
+    heads = tp.kv_heads(cfg.num_heads, cfg.num_kv_heads, tp.size(), tp.rank())
+    if heads == list(range(heads[0], heads[-1] + 1)):
+        cols = slice(heads[0] * hd, (heads[-1] + 1) * hd)
+        return wk[:, cols], wv[:, cols]
+    cols = torch.tensor([h * hd + i for h in heads for i in range(hd)], device=wk.device)
+    return wk[:, cols], wv[:, cols]
+
+
 def attention_block(cfg: ArchConfig, p, x, positions, *, kind: str, cache=None,
                     bidirectional: bool = False):
     """x: (B, S, d).  Returns (y, cache) — the cache updated in place.
     `bidirectional` (whisper's encoder) drops the causal mask."""
     b, s, d = x.shape
-    hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    hd = cfg.head_dim
     window = cfg.window if kind == "local" else None
-    q = _split_heads(layers.dot(x, p["wq"]).to(x.dtype), hq, hd)
-    k = _split_heads(layers.dot(x, p["wk"]).to(x.dtype), hkv, hd)
-    v = _split_heads(layers.dot(x, p["wv"]).to(x.dtype), hkv, hd).contiguous()
+    split = tp.is_split(p, "wq")
+    xi = tp.copy(x) if split else x
+    wk, wv = _kv_weights(cfg, p)
+    hq, hkv = p["wq"].shape[1] // hd, wk.shape[1] // hd     # this rank's heads
+    q = _split_heads(layers.dot(xi, p["wq"]).to(x.dtype), hq, hd)
+    k = _split_heads(layers.dot(xi, wk).to(x.dtype), hkv, hd)
+    v = _split_heads(layers.dot(xi, wv).to(x.dtype), hkv, hd).contiguous()
     q = layers.apply_rope(q, positions, cfg.rope_theta)
     k = layers.apply_rope(k, positions, cfg.rope_theta)
 
@@ -125,7 +155,7 @@ def attention_block(cfg: ArchConfig, p, x, positions, *, kind: str, cache=None,
             cache["pos"] = s
 
     y = out.transpose(1, 2).reshape(b, s, hq * hd)
-    return layers.dot(y, p["wo"]).to(x.dtype), cache
+    return layers.row_parallel(y, p["wo"], split).to(x.dtype), cache
 
 
 # --- MLA (multi-head latent attention) ---------------------------------------------
@@ -165,17 +195,20 @@ def mla_block(cfg: ArchConfig, p, x, positions, *, cache=None):
     """x: (B, S, d).  Returns (y, cache) — the latent cache written in place."""
     m = cfg.mla
     b, s, _ = x.shape
-    h = cfg.num_heads
     nope, rope_d, vd = m.qk_nope_head_dim, m.qk_rope_head_dim, m.v_head_dim
+    h = p["w_uq"].shape[1] // (nope + rope_d)                     # this rank's heads
+    split = tp.is_split(p, "w_uq")
     scale = (nope + rope_d) ** -0.5
 
     cq = layers.dot(x, p["w_dq"]).to(x.dtype)                      # (B,S,rq)
+    dkv = layers.dot(x, p["w_dkv"]).to(x.dtype)                    # (B,S,rkv+rope)
+    if split:  # the down projections' outputs feed every rank's heads
+        cq, dkv = tp.copy(cq), tp.copy(dkv)
     q = layers.dot(cq, p["w_uq"]).to(x.dtype)
     q = q.reshape(b, s, h, nope + rope_d).transpose(1, 2)
     q_nope, q_rope = q[..., :nope], q[..., nope:]
     q_rope = layers.apply_rope(q_rope, positions, cfg.rope_theta)
 
-    dkv = layers.dot(x, p["w_dkv"]).to(x.dtype)                    # (B,S,rkv+rope)
     c_kv, k_rope = dkv[..., :m.kv_lora_rank], dkv[..., m.kv_lora_rank:]
     k_rope = layers.apply_rope(k_rope[:, None], positions, cfg.rope_theta)[:, 0]
 
@@ -210,7 +243,7 @@ def mla_block(cfg: ArchConfig, p, x, positions, *, cache=None):
         cache["pos"] = pos + 1
 
     y = out.transpose(1, 2).reshape(b, s, h * vd)
-    return layers.dot(y, p["wo"]).to(x.dtype), cache
+    return layers.row_parallel(y, p["wo"], split).to(x.dtype), cache
 
 
 # --- cross attention (whisper decoder) ------------------------------------------------
@@ -221,20 +254,27 @@ def init_cross_attention(cfg: ArchConfig, generator, dtype):
 
 
 def cross_attention_block(cfg: ArchConfig, p, x, enc_kv):
-    """x: (B, S, d); enc_kv: (k, v) each (B, Hkv, S_enc, hd), contiguous.
-    Every query attends every frame (no mask)."""
+    """x: (B, S, d); enc_kv: (k, v) each (B, Hkv, S_enc, hd), contiguous
+    (this rank's KV heads, `encode_cross_kv`).  Every query attends every
+    frame (no mask)."""
     b, s, _ = x.shape
-    hq, hd = cfg.num_heads, cfg.head_dim
-    q = _split_heads(layers.dot(x, p["wq"]).to(x.dtype), hq, hd).contiguous()
+    hd = cfg.head_dim
+    split = tp.is_split(p, "wq")
+    hq = p["wq"].shape[1] // hd
+    q = _split_heads(layers.dot(tp.copy(x) if split else x, p["wq"]).to(x.dtype),
+                     hq, hd).contiguous()
     k, v = enc_kv
     out = flash_attention(q, k, v, False, None)
     y = out.transpose(1, 2).reshape(b, s, hq * hd)
-    return layers.dot(y, p["wo"]).to(x.dtype)
+    return layers.row_parallel(y, p["wo"], split).to(x.dtype)
 
 
 def encode_cross_kv(cfg: ArchConfig, p, enc_out):
-    """The encoder output's K/V for one decoder layer, (B, Hkv, S_enc, hd) each."""
-    hkv, hd = cfg.num_kv_heads, cfg.head_dim
-    k = _split_heads(layers.dot(enc_out, p["wk"]).to(enc_out.dtype), hkv, hd)
-    v = _split_heads(layers.dot(enc_out, p["wv"]).to(enc_out.dtype), hkv, hd)
+    """The encoder output's K/V for one decoder layer, (B, Hkv, S_enc, hd)
+    each: the KV heads this rank's query heads read."""
+    hd = cfg.head_dim
+    wk, wv = _kv_weights(cfg, p)
+    e = tp.copy(enc_out) if tp.is_split(p, "wq") else enc_out
+    k = _split_heads(layers.dot(e, wk).to(enc_out.dtype), wk.shape[1] // hd, hd)
+    v = _split_heads(layers.dot(e, wv).to(enc_out.dtype), wv.shape[1] // hd, hd)
     return k.contiguous(), v.contiguous()

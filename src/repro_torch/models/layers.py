@@ -5,11 +5,19 @@ returns float32 whatever the operand dtype, each caller casts back to the
 activation dtype, and `unembed` does not, so logits are float32 even for a
 bf16 model.  Initialisers draw from an explicit `torch.Generator` with the
 JAX initialisers' scales; the draws are the port's own, not JAX's bits.
+
+Under tensor parallelism (`tensor_parallel`; a parameter group read with its
+'model' shards kept) the FFNs run column-parallel then row-parallel, the row
+product's float32 partial sums all-reduced before the cast (as XLA reduces
+a `preferred_element_type=f32` product before the model's `astype`), and
+the embedding and unembedding run vocab-parallel.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from . import tensor_parallel as tp
 
 
 class _DotF32(torch.autograd.Function):
@@ -103,11 +111,20 @@ def init_swiglu(generator, d, d_ff, dtype):
     }
 
 
+def row_parallel(h, w, split: bool):
+    """h @ w in float32: where `split`, this rank's rows of w, the partial
+    products summed over 'model'."""
+    y = dot(h, w)
+    return tp.reduce(y) if split else y
+
+
 def swiglu(p, x):
-    g = dot(x, p["w_gate"])
-    u = dot(x, p["w_up"])
+    split = tp.is_split(p, "w_gate")
+    xi = tp.copy(x) if split else x
+    g = dot(xi, p["w_gate"])
+    u = dot(xi, p["w_up"])
     h = (F.silu(g) * u).to(x.dtype)
-    return dot(h, p["w_down"]).to(x.dtype)
+    return row_parallel(h, p["w_down"], split).to(x.dtype)
 
 
 def init_gelu_mlp(generator, d, d_ff, dtype):
@@ -120,11 +137,22 @@ def init_gelu_mlp(generator, d, d_ff, dtype):
     }
 
 
+def local_cols(t, n: int, dim: int = -1):
+    """This 'model' rank's n entries of `t` along `dim` (a leaf gathered
+    whole and read in a per-rank computation)."""
+    return t.narrow(dim, tp.rank() * n, n)
+
+
 def gelu_mlp(p, x):
     """`jax.nn.gelu` defaults to the tanh approximation; `F.gelu` to the
-    exact erf form, so the approximation is named here."""
-    h = F.gelu(dot(x, p["w_in"]) + p["b_in"].float(), approximate="tanh")
-    return (dot(h.to(x.dtype), p["w_out"]) + p["b_out"].float()).to(x.dtype)
+    exact erf form, so the approximation is named here.  Under tensor
+    parallelism b_in is cut to the rank's channels and b_out added once,
+    after the reduce."""
+    split = tp.is_split(p, "w_in")
+    xi = tp.copy(x) if split else x
+    b_in = local_cols(p["b_in"], p["w_in"].shape[1]) if split else p["b_in"]
+    h = F.gelu(dot(xi, p["w_in"]) + b_in.float(), approximate="tanh")
+    return (row_parallel(h.to(x.dtype), p["w_out"], split) + p["b_out"].float()).to(x.dtype)
 
 
 # --- embeddings / head -----------------------------------------------------------
@@ -135,12 +163,29 @@ def init_embedding(generator, vocab, d, dtype):
 
 
 def embed(p, tokens):
-    return p["table"][tokens]
+    """The table's rows; vocab-parallel (the table's 'model' shard kept):
+    each rank looks up the tokens in its rows, zeros elsewhere, and the
+    rows are summed over 'model' (exact: one rank gives each token's row)."""
+    table = p["table"]
+    if not tp.is_split(p, "table"):
+        return table[tokens]
+    n = table.shape[0]
+    local = tokens - tp.rank() * n
+    mine = (local >= 0) & (local < n)
+    rows = table[local.clamp(0, n - 1)]
+    return tp.reduce(torch.where(mine[..., None], rows, torch.zeros_like(rows)))
 
 
-def unembed(p, x):
-    """Logits (float32); when tied, p is the embedding table."""
-    return dot(x, p["table"].T) if "table" in p else dot(x, p["w"])
+def unembed(p, x, gather: bool = True):
+    """Logits (float32); when tied, p is the embedding table.  Vocab-parallel,
+    each rank computes its vocab's logits and, where `gather`, they are
+    gathered over 'model' along the vocab (whole on every rank)."""
+    key = "table" if "table" in p else "w"
+    if not tp.is_split(p, key):
+        return dot(x, p["table"].T) if key == "table" else dot(x, p["w"])
+    w = p["table"].T if key == "table" else p["w"]
+    logits = dot(tp.copy(x), w)
+    return tp.gather(logits, -1) if gather else logits
 
 
 def init_unembed(generator, d, vocab, dtype):

@@ -43,6 +43,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from .._device import resolve_device
 from . import attention, layers, moe, recurrent, sharding
+from . import tensor_parallel as tp
 from .config import ArchConfig
 
 _KINDS = ("attn", "local", "mla", "rglru", "rwkv6")
@@ -187,24 +188,36 @@ def init_block(cfg: ArchConfig, generator, kind: str, dtype,
     return p
 
 
+def _whole(prefix: str, group: dict) -> dict:
+    return group
+
+
 def init_params(cfg: ArchConfig, generator: torch.Generator,
-                device: str | torch.device | None = None) -> Model:
+                device: str | torch.device | None = None, keep=_whole) -> Model:
     """Random parameters with the JAX initialisers' scales, drawn from
-    `generator`, which must live on `device` (default: `cuda`)."""
+    `generator`, which must live on `device` (default: `cuda`).
+
+    `keep(prefix, group)` is given each parameter group as it is drawn (the
+    embedding, a block; `prefix` is its name in the model) and returns what
+    the model holds of it: by default the group itself.
+    `launch.shardings.init_sharded` keeps this rank's shards and frees the
+    whole leaves there."""
     dev = resolve_device(device)
     if generator.device.type != dev.type:
         raise ValueError(f"generator on {generator.device}, parameters on {dev}")
     check_supported(cfg)
     dtype = getattr(torch, cfg.dtype)
-    embed = layers.init_embedding(generator, cfg.vocab_size, cfg.d_model, dtype)
-    unembed = (None if cfg.tied_embeddings else
-               layers.init_unembed(generator, cfg.d_model, cfg.vocab_size, dtype))
-    final_norm = layers.init_rmsnorm(cfg.d_model, dtype, generator.device)
-    blocks = [init_block(cfg, generator, kind, dtype, with_cross=cfg.enc_dec)
-              for kind in cfg.layer_kinds]
-    encoder = ([init_block(cfg, generator, "attn", dtype)
-                for _ in range(cfg.num_encoder_layers)] if cfg.enc_dec else [])
-    patch_proj = (layers.init_linear(generator, cfg.d_model, cfg.d_model, dtype)
+    embed = keep("embed", layers.init_embedding(generator, cfg.vocab_size, cfg.d_model, dtype))
+    unembed = (None if cfg.tied_embeddings else keep(
+        "unembed", layers.init_unembed(generator, cfg.d_model, cfg.vocab_size, dtype)))
+    final_norm = keep("final_norm", layers.init_rmsnorm(cfg.d_model, dtype, generator.device))
+    blocks = [keep(f"blocks.{i}", init_block(cfg, generator, kind, dtype,
+                                             with_cross=cfg.enc_dec))
+              for i, kind in enumerate(cfg.layer_kinds)]
+    encoder = ([keep(f"encoder.{i}", init_block(cfg, generator, "attn", dtype))
+                for i in range(cfg.num_encoder_layers)] if cfg.enc_dec else [])
+    patch_proj = (keep("patch_proj", layers.init_linear(generator, cfg.d_model, cfg.d_model,
+                                                       dtype))
                   if cfg.frontend == "patch_stub" else None)
     return Model(cfg, embed, unembed, final_norm, blocks, encoder, patch_proj)
 
@@ -212,33 +225,73 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
 # --- caches -------------------------------------------------------------------------
 
 
+def cache_cuts(cfg: ArchConfig, kind: str, tp_size: int, with_cross: bool = False) -> dict:
+    """{cache leaf ("mix.k"): (dim, [the indices along dim of the whole leaf
+    that 'model' rank r holds, for each r])} of a block's cache on tp_size
+    'model' ranks: the local KV heads, RG-LRU channels and RWKV-6 heads
+    (`tensor_parallel`); the leaves it does not name stay whole."""
+    def even(n):
+        return [list(range(r * n // tp_size, (r + 1) * n // tp_size)) for r in range(tp_size)]
+
+    def kv():
+        hq, hkv = cfg.num_heads, cfg.num_kv_heads
+        if tp.divides(hkv, tp_size):
+            return even(hkv)
+        return [tp.kv_heads(hq, hkv, tp_size, r) for r in range(tp_size)]
+
+    attn_split = tp.divides(cfg.num_heads, tp_size)
+    cuts = {}
+    if kind in ("attn", "local") and attn_split:
+        cuts = {"mix.k": (1, kv()), "mix.v": (1, kv())}
+    elif kind == "rglru" and tp.divides(cfg.rglru_width or cfg.d_model, tp_size):
+        w = even(cfg.rglru_width or cfg.d_model)
+        cuts = {"mix.h": (1, w), "mix.conv_tail": (2, w)}
+    elif kind == "rwkv6" and tp.divides(cfg.d_model // cfg.rwkv_head_dim, tp_size):
+        cuts = {"mix.wkv": (1, even(cfg.d_model // cfg.rwkv_head_dim))}
+    if with_cross and attn_split:
+        cuts |= {"cross_k": (1, kv()), "cross_v": (1, kv())}
+    return cuts
+
+
 def init_block_cache(cfg: ArchConfig, kind: str, batch: int, max_seq: int,
-                     dtype, device, with_cross: bool = False, enc_seq: int = 0) -> dict:
+                     dtype, device, with_cross: bool = False, enc_seq: int = 0,
+                     tp_size: int = 1) -> dict:
+    """A block's cache as this rank holds it on tp_size 'model' ranks
+    (`cache_cuts`)."""
+    cuts = cache_cuts(cfg, kind, tp_size, with_cross)
+
+    def local(key):
+        return len(cuts[key][1][0]) if key in cuts else None
+
     if kind in ("attn", "local"):
-        c = {"mix": attention.init_attn_cache(cfg, batch, max_seq, kind, dtype, device)}
+        c = {"mix": attention.init_attn_cache(cfg, batch, max_seq, kind, dtype, device,
+                                              kv_heads=local("mix.k"))}
     elif kind == "mla":
         c = {"mix": attention.init_mla_cache(cfg, batch, max_seq, dtype, device)}
     elif kind == "rglru":
-        c = {"mix": recurrent.init_rglru_state(cfg, batch, dtype, device)}
+        c = {"mix": recurrent.init_rglru_state(cfg, batch, dtype, device, width=local("mix.h"))}
     elif kind == "rwkv6":
-        c = {"mix": recurrent.init_rwkv6_state(cfg, batch, dtype, device),
+        c = {"mix": recurrent.init_rwkv6_state(cfg, batch, dtype, device,
+                                               heads=local("mix.wkv")),
              "cmix": torch.zeros((batch, cfg.d_model), dtype=dtype, device=device)}
     else:
         raise ValueError(kind)
     if with_cross:
-        shape = (batch, cfg.num_kv_heads, enc_seq, cfg.head_dim)
+        shape = (batch, local("cross_k") or cfg.num_kv_heads, enc_seq, cfg.head_dim)
         c["cross_k"] = torch.zeros(shape, dtype=dtype, device=device)
         c["cross_v"] = torch.zeros(shape, dtype=dtype, device=device)
     return c
 
 
 def init_caches(cfg: ArchConfig, batch: int, max_seq: int,
-                device: str | torch.device | None = None) -> list[dict]:
-    """One cache per decoder layer, in layer order."""
+                device: str | torch.device | None = None, tp_size: int = 1) -> list[dict]:
+    """One cache per decoder layer, in layer order, as a rank of tp_size
+    'model' ranks holds it (the local heads or channels under tensor
+    parallelism)."""
     dev = resolve_device(device)
     dtype = getattr(torch, cfg.dtype)
     return [init_block_cache(cfg, kind, batch, max_seq, dtype, dev,
-                             with_cross=cfg.enc_dec, enc_seq=cfg.encoder_seq)
+                             with_cross=cfg.enc_dec, enc_seq=cfg.encoder_seq, tp_size=tp_size)
             for kind in cfg.layer_kinds]
 
 
@@ -253,9 +306,12 @@ def apply_block(cfg: ArchConfig, p: Block, kind: str, x, positions, *, cache=Non
     FFNs.  A block with cross attention attends to `enc_out`'s K/V where it
     is given (train, prefill: prefill also stores them in the cache) and to
     the cached ones in decode."""
-    held = cache  # a sharded cache: whole here, its shards kept at the end
+    held = cache  # a sharded cache: this rank's part here, its shards kept at the end
+    cut = {}
     if cache is not None and sharding.caches_sharded():
         cache = sharding.gathered_cache(cache, fresh=x.shape[1] > 1)
+        cache, cut = sharding.cut_cache(cache, cache_cuts(cfg, kind, tp.size(), "cross" in p),
+                                        tp.rank())
     h = layers.rmsnorm(p["norm1"], x)
     mix_cache = None if cache is None else cache["mix"]
     if kind in ("attn", "local"):
@@ -291,6 +347,8 @@ def apply_block(cfg: ArchConfig, p: Block, kind: str, x, positions, *, cache=Non
         cache["mix"] = new_mix
         if kind == "rwkv6":
             cache["cmix"] = new_cmix
+        if cut:
+            cache = sharding.uncut_cache(cache, cut, tp.group())
         if cache is not held:
             sharding.keep_shards(held, cache)
     return sharding.shard(x + y, "act"), held, aux
@@ -359,9 +417,11 @@ def _encode(cfg: ArchConfig, params: Model, frames):
 
 
 def forward(cfg: ArchConfig, params: Model, batch: dict, *, caches=None,
-            mode: str = "train") -> ModelOutput:
+            mode: str = "train", logits_whole: bool = True) -> ModelOutput:
     """batch: tokens (B, S) [+ patches (B, P, d) | frames (B, S_enc, d)] on the
-    model's device.  Logits are float32."""
+    model's device.  Logits are float32; a vocab-parallel unembedding's are
+    gathered over 'model' unless `logits_whole` is False (the dry run's
+    logits-sharded variant: this rank's vocab only)."""
     enc_out = None
     if cfg.enc_dec and mode != "decode":
         if "frames" not in batch:
@@ -390,7 +450,7 @@ def forward(cfg: ArchConfig, params: Model, batch: dict, *, caches=None,
         total_aux = total_aux + aux
     x = layers.rmsnorm(params["final_norm"], x)
     head = params["embed"] if cfg.tied_embeddings else params["unembed"]
-    logits = sharding.shard(layers.unembed(head, x), "logits")
+    logits = sharding.shard(layers.unembed(head, x, gather=logits_whole), "logits")
     return ModelOutput(logits=logits, caches=caches,
                        aux_loss=torch.as_tensor(total_aux, dtype=torch.float32,
                                                 device=x.device))
@@ -412,7 +472,9 @@ def prefill(cfg: ArchConfig, params: Model, batch: dict, max_seq: int):
     """Run the prompt (and, for whisper, encode the frames once, filling the
     cross K/V caches), build caches.  Returns (last-token logits, caches)."""
     b = batch["tokens"].shape[0]
-    caches = init_caches(cfg, b, max_seq, params.device)
+    # a sharded model's blocks split over the installed mesh's 'model' axis
+    caches = init_caches(cfg, b, max_seq, params.device,
+                         tp.size() if getattr(params, "sharded", False) else 1)
     out = forward(cfg, params, batch, caches=caches, mode="prefill")
     return out.logits[:, -1, :], out.caches
 

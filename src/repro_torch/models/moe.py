@@ -55,6 +55,19 @@ E/tp experts over the slots of every peer, exchanges the results back and
 combines: the All-to-All that the reference's GSPMD lowers its dispatch
 to.  With tp = 1 the exchange returns its input and the arithmetic is the
 unsharded path's.
+
+Tensor parallelism.  The 'model' peers of a data shard hold the same rows
+(`models.tensor_parallel`).  At its entry the MoE cuts the flattened tokens
+over 'model' (rank (data j, model m) then holds the tokens that rank
+j tp + m would hold with the rows split over every rank, in the global
+token order), runs the groups, the exchange and the aux weights on that
+cut as above, and gathers its output over 'model' at the exit (backward:
+this rank's slice; the gradient there is the same on every peer).  The aux
+loss is averaged over the peers, so every peer reports the whole batch's
+and its gradient is counted once.  Where the tokens do not divide by tp,
+every peer runs them all (serving only: the expert stacks' gradients would
+be counted tp times).  Arctic's dense residual reads the whole rows, as a
+tensor-parallel SwiGLU.
 """
 from __future__ import annotations
 
@@ -67,6 +80,7 @@ import torch.nn.functional as F
 from repro_torch.collectives import bruck_all_to_all
 
 from . import layers, sharding
+from . import tensor_parallel as tp
 from .config import ArchConfig, MoEConfig
 
 
@@ -205,28 +219,34 @@ def _grouped(p, flat, gs: int, m: MoEConfig, experts_group):
 
 
 def _experts_group(p, m: MoEConfig, split):
-    """The expert-parallel group where `p`'s stacks are this rank's E/tp
-    experts of the split's 'model' group, else None."""
-    if split is None or split.experts is None:
+    """The expert-parallel group where `p`'s stacks are this rank's E/n
+    experts of the split's expert group (serving on a mesh, with no split:
+    the 'model' group), else None."""
+    group = tp.group() if split is None else split.experts
+    e_local = p["w_gate"].shape[0]
+    n = 1 if group is None else dist.get_world_size(group)
+    if group is not None and e_local * n == m.num_experts:
+        return group
+    if e_local == m.num_experts:  # unsharded, or the rule's guard left E whole
         return None
-    e_local, tp = p["w_gate"].shape[0], dist.get_world_size(split.experts)
-    if e_local * tp == m.num_experts:
-        return split.experts
-    if e_local == m.num_experts:  # the rule's guard left E whole
-        return None
-    raise ValueError(f"{e_local} experts a rank over {tp} ranks, of {m.num_experts}")
+    raise ValueError(f"{e_local} experts a rank over {n} ranks, of {m.num_experts}")
 
 
-def _peers(split, ep) -> list[int]:
-    """The ranks, in the split's group, of the expert-parallel group `ep`.
-    A peer outside the split's group (the rows split over fewer ranks than
-    the world, `launch.train.layout`) holds this rank's rows, which this
-    rank's own index already names."""
+def _same_ranks(a, b) -> bool:
+    return a is not None and b is not None and \
+        dist.get_process_group_ranks(a) == dist.get_process_group_ranks(b)
+
+
+def _peers(group, ep) -> list[int]:
+    """The ranks, in `group` (the token holders; None: the world), of the
+    expert-parallel group `ep`.  A peer outside `group` (the rows split over
+    fewer ranks than the world) holds this rank's tokens, which this rank's
+    own index already names."""
     ranks = dist.get_process_group_ranks(ep)
-    if split.group is None:
+    if group is None:
         return ranks
-    mine = set(dist.get_process_group_ranks(split.group))
-    return [dist.get_group_rank(split.group, r) for r in ranks if r in mine]
+    mine = set(dist.get_process_group_ranks(group))
+    return [dist.get_group_rank(group, r) for r in ranks if r in mine]
 
 
 def moe_ffn(cfg: ArchConfig, p, x):
@@ -235,21 +255,59 @@ def moe_ffn(cfg: ArchConfig, p, x):
     b, s, d = x.shape
     flat = x.reshape(b * s, d)
     split = sharding.token_split()
-    n = 1 if split is None else dist.get_world_size(split.group)
     ep = _experts_group(p, m, split)
+    tpg = tp.group()
+    cut = _same_ranks(ep, tpg) and flat.shape[0] % tp.size() == 0
+    if _same_ranks(ep, tpg) and not cut and torch.is_grad_enabled():
+        raise ValueError(f"{flat.shape[0]} tokens a rank do not divide over the "
+                         f"{tp.size()} 'model' peers that run the experts")
+    if cut:
+        flat = tp.cut(flat, 0)
+        y, aux = _moe_tokens(p, flat, m, _holders(split, tpg), ep)
+        y = tp.gather(y, 0)
+        aux = tp.reduce(aux) / tp.size()
+    else:
+        y, aux = _moe_tokens(p, flat, m, None if split is None else split.group,
+                             ep, alone=split is None)
+    y = y.reshape(b, s, d)
+    if "dense" in p:  # Arctic dense residual
+        y = y + layers.swiglu(p["dense"], x)
+    return y, aux
+
+
+def _holders(split, tpg):
+    """The group whose ranks hold the cut tokens in the global token order:
+    the whole world where the rows lie over the batch axes (rank j tp + m
+    holds cut m of data shard j's rows), the 'model' group where every rank
+    holds every row (serving with no split, or rows that did not divide)."""
+    if split is not None:
+        rows = dist.get_world_size(split.group)
+        if rows * dist.get_world_size(tpg) == dist.get_world_size():
+            return None
+        if rows != 1:
+            raise ValueError(f"rows over {rows} ranks and 'model' over "
+                             f"{dist.get_world_size(tpg)} do not make the world")
+    return tpg
+
+
+def _moe_tokens(p, flat, m: MoEConfig, group, ep, alone: bool = False):
+    """The MoE on this rank's tokens `flat` (t, d), rank i of `group`
+    (None: the world; `alone`: this rank only) holding tokens [i t,
+    (i + 1) t) of the global order.  Returns (y (t, d), aux)."""
+    n = 1 if alone else dist.get_world_size(group)
     t = flat.shape[0]
     gs = min(m.group_size, n * t)
     if t % gs == 0 or n == 1:  # this rank's groups are its own
         y, aux = _grouped(p, flat, gs, m, ep)
         aux = torch.mean(aux)
     else:  # a group spans ranks: cut the global groups from every rank's tokens
-        total, rank = n * t, dist.get_rank(split.group)
+        total, rank = n * t, dist.get_rank(group)
         lo, hi = rank * t, (rank + 1) * t
         # the groups that hold this rank's rows, or, under expert parallelism,
         # any rows of its exchange's peers: every peer runs the same groups
-        ranks = [rank] if ep is None else _peers(split, ep)
+        ranks = [rank] if ep is None else _peers(group, ep)
         first, last = min(ranks) * t // gs, ((max(ranks) + 1) * t - 1) // gs
-        gathered = _GatherRows.apply(flat, split.group)
+        gathered = _GatherRows.apply(flat, group)
         y, aux_g = _grouped(p, gathered[first * gs:min((last + 1) * gs, total)], gs, m, ep)
         y = y[lo - first * gs:hi - first * gs]
         n_groups = -(-total // gs)
@@ -257,7 +315,4 @@ def moe_ffn(cfg: ArchConfig, p, x):
                    / ((min(total, (g + 1) * gs) - g * gs) * n_groups)
                    for g in range(first, last + 1)]
         aux = sum(a * w for a, w in zip(aux_g, weights, strict=True))
-    y = y.reshape(b, s, d)
-    if "dense" in p:  # Arctic dense residual
-        y = y + layers.swiglu(p["dense"], x)
     return y, aux

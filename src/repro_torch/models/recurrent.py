@@ -28,6 +28,15 @@ RWKV-6 block (Finch, arXiv:2404.05892), time-mix + channel-mix pair:
 
 A new state's last-token and conv-tail tensors are copies, not views of the
 block's input, so that a cache does not hold the whole prompt's activations.
+
+Tensor parallelism (`tensor_parallel`): where the RG-LRU width divides by
+the 'model' size each rank runs W / tp channels (its columns of w_gate,
+w_in, w_a and w_x, the last two reading v gathered over 'model', and its
+conv and Lambda entries) and w_out row-parallel; RWKV-6 runs heads / tp
+heads (w_r, w_k, w_v, w_g and its cut of the decay LoRA's output, the
+bonus and the group norm) and w_o row-parallel; the channel mix splits
+d_ff (w_k, w_v) and computes r whole.  The states hold the local channels
+or heads; the last-token states stay whole.
 """
 from __future__ import annotations
 
@@ -37,6 +46,7 @@ import torch.nn.functional as F
 from ..kernels.rg_lru.ops import rg_lru
 from ..kernels.wkv6.ops import wkv6
 from . import layers
+from . import tensor_parallel as tp
 from .config import ArchConfig
 
 _C_RGLRU = 8.0
@@ -68,8 +78,9 @@ def init_rglru(cfg: ArchConfig, generator, dtype):
     }
 
 
-def init_rglru_state(cfg: ArchConfig, batch: int, dtype, device):
-    w = cfg.rglru_width or cfg.d_model
+def init_rglru_state(cfg: ArchConfig, batch: int, dtype, device, width: int | None = None):
+    """`width`: the channels this rank holds (default all of them)."""
+    w = width or cfg.rglru_width or cfg.d_model
     return {
         "h": torch.zeros((batch, w), dtype=torch.float32, device=device),
         "conv_tail": torch.zeros((batch, cfg.conv_kernel - 1, w), dtype=dtype,
@@ -90,23 +101,30 @@ def _causal_conv(p, v, tail):
 def rglru_block(cfg: ArchConfig, p, x, *, state=None):
     """x: (B, S, d).  Returns (y, new state)."""
     b, s, d = x.shape
-    u = layers.dot(x, p["w_gate"]).to(x.dtype)
-    v = layers.dot(x, p["w_in"]).to(x.dtype)
+    split = tp.is_split(p, "w_in")
+    xi = tp.copy(x) if split else x
+    u = layers.dot(xi, p["w_gate"]).to(x.dtype)
+    v = layers.dot(xi, p["w_in"]).to(x.dtype)
+    w = v.shape[-1]                                   # this rank's channels
+    conv, lam = p["conv"], p["lambda"]
+    if split:
+        conv, lam = layers.local_cols(conv, w), layers.local_cols(lam, w)
     tail = state["conv_tail"] if state is not None else \
-        torch.zeros((b, cfg.conv_kernel - 1, v.shape[-1]), dtype=v.dtype, device=x.device)
-    v, new_tail = _causal_conv(p, v, tail)
+        torch.zeros((b, cfg.conv_kernel - 1, w), dtype=v.dtype, device=x.device)
+    v, new_tail = _causal_conv({"conv": conv}, v, tail)
 
-    r = torch.sigmoid(layers.dot(v, p["w_a"]))
-    i = torch.sigmoid(layers.dot(v, p["w_x"]))
-    log_a = -_C_RGLRU * F.softplus(p["lambda"])[None, None, :] * r
+    vw = tp.copy(tp.gather(v, -1)) if split else v    # w_a, w_x read every channel
+    r = torch.sigmoid(layers.dot(vw, p["w_a"]))
+    i = torch.sigmoid(layers.dot(vw, p["w_x"]))
+    log_a = -_C_RGLRU * F.softplus(lam)[None, None, :] * r
     a = torch.exp(log_a)
     gated = i * v.float()
     binp = torch.sqrt(torch.clamp_min(1.0 - a * a, 1e-12)) * gated
 
     h0 = state["h"] if state is not None else None
     y, h_last = rg_lru(a, binp, h0)
-    out = layers.dot(F.gelu(u.float(), approximate="tanh").to(x.dtype) * y.to(x.dtype),
-                     p["w_out"]).to(x.dtype)
+    out = layers.row_parallel(F.gelu(u.float(), approximate="tanh").to(x.dtype) * y.to(x.dtype),
+                              p["w_out"], split).to(x.dtype)
     return out, {"h": h_last, "conv_tail": new_tail}
 
 
@@ -136,12 +154,14 @@ def init_rwkv6(cfg: ArchConfig, generator, dtype):
     }
 
 
-def init_rwkv6_state(cfg: ArchConfig, batch: int, dtype, device):
+def init_rwkv6_state(cfg: ArchConfig, batch: int, dtype, device, heads: int | None = None):
+    """`heads`: the heads this rank holds (default all of them)."""
     d = cfg.d_model
     hd = cfg.rwkv_head_dim
     return {
         "last": torch.zeros((batch, d), dtype=dtype, device=device),
-        "wkv": torch.zeros((batch, d // hd, hd, hd), dtype=torch.float32, device=device),
+        "wkv": torch.zeros((batch, heads or d // hd, hd, hd), dtype=torch.float32,
+                           device=device),
     }
 
 
@@ -150,43 +170,49 @@ def _token_shift(x, last):
     return torch.cat([last[:, None, :], x[:, :-1, :]], dim=1)
 
 
-def _group_norm(p, y):
+def _group_norm(scale, bias, y):
     """y: (B, H, T, hd) per-head layernorm."""
     mu = y.mean(-1, keepdim=True)
     var = ((y - mu) ** 2).mean(-1, keepdim=True)
     yn = (y - mu) * torch.rsqrt(var + 1e-5)
-    return yn * p["ln_scale"][None, :, None, :] + p["ln_bias"][None, :, None, :]
+    return yn * scale[None, :, None, :] + bias[None, :, None, :]
 
 
 def rwkv6_block(cfg: ArchConfig, p, x, *, state=None):
     """x: (B, S, d).  Returns (y, new state)."""
     b, s, d = x.shape
     hd = cfg.rwkv_head_dim
-    heads = d // hd
+    split = tp.is_split(p, "w_r")
+    dl = p["w_r"].shape[1]                            # this rank's channels
+    heads = dl // hd
     last = state["last"] if state is not None else \
         torch.zeros((b, d), dtype=x.dtype, device=x.device)
     xs = _token_shift(x, last)
+    xi, xsi = (tp.copy(x), tp.copy(xs)) if split else (x, xs)
 
     def mix(i):
-        return (x + (xs - x) * p["mu"][i][None, None, :]).to(x.dtype)
+        return (xi + (xsi - xi) * p["mu"][i][None, None, :]).to(x.dtype)
+
+    def mine(t, dim=-1):  # this rank's heads (or channels) of a leaf read whole
+        return layers.local_cols(t, t.shape[dim] * dl // d, dim) if split else t
 
     r = layers.dot(mix(0), p["w_r"]).to(x.dtype)
     k = layers.dot(mix(1), p["w_k"]).to(x.dtype)
     v = layers.dot(mix(2), p["w_v"]).to(x.dtype)
     g = layers.dot(mix(3), p["w_g"])
     dec = layers.dot(torch.tanh(layers.dot(mix(4), p["decay_A"])).to(x.dtype),
-                     p["decay_B"])
-    log_w = -torch.exp(p["decay_base"][None, None, :] + dec)   # (B,S,d) <= 0
+                     mine(p["decay_B"]))
+    log_w = -torch.exp(mine(p["decay_base"])[None, None, :] + dec)   # (B,S,d) <= 0
 
-    def split(t):
+    def heads_of(t):
         return t.reshape(b, s, heads, hd).transpose(1, 2).contiguous()
-    rh, kh, vh, lwh = split(r), split(k), split(v), split(log_w.to(x.dtype))
+    rh, kh, vh, lwh = heads_of(r), heads_of(k), heads_of(v), heads_of(log_w.to(x.dtype))
 
     s0 = state["wkv"] if state is not None else None
-    y, s_last = wkv6(rh, kh, vh, lwh, p["bonus_u"], s0)
-    y = _group_norm(p, y.float())
-    y = y.transpose(1, 2).reshape(b, s, d)
-    out = layers.dot((F.silu(g) * y).to(x.dtype), p["w_o"]).to(x.dtype)
+    y, s_last = wkv6(rh, kh, vh, lwh, mine(p["bonus_u"], 0), s0)
+    y = _group_norm(mine(p["ln_scale"], 0), mine(p["ln_bias"], 0), y.float())
+    y = y.transpose(1, 2).reshape(b, s, dl)
+    out = layers.row_parallel((F.silu(g) * y).to(x.dtype), p["w_o"], split).to(x.dtype)
     return out, {"last": x[:, -1, :].clone(), "wkv": s_last}
 
 
@@ -212,7 +238,9 @@ def rwkv_cmix(cfg: ArchConfig, p, x, *, state=None):
 
     def mix(i):
         return (x + (xs - x) * p["mu"][i][None, None, :]).to(x.dtype)
-    k = torch.square(F.relu(layers.dot(mix(0), p["w_k"]))).to(x.dtype)
+    split = tp.is_split(p, "w_k")      # d_ff over 'model'; r whole on every rank
+    xk = tp.copy(mix(0)) if split else mix(0)
+    k = torch.square(F.relu(layers.dot(xk, p["w_k"]))).to(x.dtype)
     r = torch.sigmoid(layers.dot(mix(1), p["w_r"]))
-    out = (r * layers.dot(k, p["w_v"])).to(x.dtype)
+    out = (r * layers.row_parallel(k, p["w_v"], split)).to(x.dtype)
     return out, x[:, -1, :].clone()

@@ -50,6 +50,36 @@ Modes:
                     sharded on both axes, on one, replicated; gradients large
                     enough to clip), 2 steps, against adamw_update on the
                     whole tensors; rank 0 writes both to OUT.npz.
+  tp DIR OUT SHAPE NAME ...
+                    tensor parallelism on a SHAPE (`1x2`, `2x2`, `1x4`)
+                    ("data", "model") mesh, for each case NAME: the port
+                    config DIR/NAME.json, the JAX-layout weights
+                    DIR/NAME.npz and the batch DIR/NAME.batch.npz.  The
+                    forward logits of the whole batch; the loss and every
+                    gradient (whole) in `train()`'s layout; whether every
+                    gradient replicated over 'model' is bit-equal across the
+                    'model' peers; served ids (`serve_requests`, or prefill
+                    and greedy decode steps where the batch has frames or
+                    patches) from the serving layout (fsdp=False), with the
+                    cache shapes after prefill and every rank's ids; and on
+                    (2, 2) 2 `train()` steps, after which every parameter
+                    replicated over 'model' must be bit-equal across the
+                    peers; the sharded init against `shard_model` of the
+                    whole one.  Rank 0 writes OUT.NAME.npz and OUT.NAME.json.
+  tp64 DIR OUT SHAPE NAME
+                    the loss and every gradient of case NAME (as `tp`) in
+                    float64: every `.float()` of the model taken as
+                    `.double()`, the WKV-6 op differentiated through its
+                    plain scan, the weights and the config's dtype float64;
+                    on the SHAPE mesh in `train()`'s layout and, on rank 0,
+                    on the whole batch without a mesh.  Rank 0 writes
+                    OUT.NAME.npz (`tp/` and `one/` gradients) and
+                    OUT.NAME.json (both losses).
+  tp_restart DIR OUT
+                    stablelm-3b smoke under tensor parallelism: 2 gspmd steps
+                    on (1, 2) saving into DIR, steps 3-4 resumed on (2, 1),
+                    and 4 straight steps on (1, 2); rank 0 writes the loss
+                    lists to the JSON file OUT.
   pipeline IN OUT N_MICRO
                     run_pipeline of the reference's tanh stages on a (world,)
                     ("pod",) mesh, stage weights and input from the .npz file
@@ -343,6 +373,225 @@ def _elastic(n: int, rank: int, ckpt_dir: str, out_path: str, jax_dir: str = "")
     torch.distributed.barrier()
 
 
+def _tp_inputs(data_dir: str, name: str):
+    """Case NAME of the `tp` modes: (its port config, `_serve` fields, weights
+    tree, batch of tensors)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models.config import ArchConfig, MLAConfig, MoEConfig
+
+    fields = json.loads(Path(data_dir, f"{name}.json").read_text())
+    extra = fields.pop("_serve")
+    for key, cls in (("moe", MoEConfig), ("mla", MLAConfig)):
+        if fields[key] is not None:
+            fields[key] = cls(**fields[key])
+    cfg = ArchConfig(**{k: tuple(v) if isinstance(v, list) else v for k, v in fields.items()})
+    tree = _load_tree(str(Path(data_dir, f"{name}.npz")))
+    batch = {k: torch.from_numpy(v)
+             for k, v in np.load(Path(data_dir, f"{name}.batch.npz")).items()}
+    return cfg, extra, tree, batch
+
+
+def _tp_config(shape, batch):
+    from repro_torch.launch.train import TrainConfig
+
+    return TrainConfig(batch_size=batch["tokens"].shape[0], grad_sync="gspmd",
+                       mesh_shape=shape, mesh_axes=("data", "model"))
+
+
+def _tp_grads(mesh, tc, cfg, model, batch):
+    """The loss facts (loss, nll, aux) and every gradient, whole, of the
+    sharded `model` in `train()`'s layout (gspmd, `tc`) on `mesh`: (facts,
+    gradients in `model.parameters()` order, the layout)."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.shardings import activation_rules
+    from repro_torch.launch.train import current_world, layout
+    from repro_torch.models.model import loss_fn
+    from repro_torch.models.sharding import activation_sharding
+
+    b = batch["tokens"].shape[0]
+    lay = layout(tc, current_world(), mesh)
+    per = b // lay.rows.size
+    rows = {k: v[lay.rows.rank * per:(lay.rows.rank + 1) * per] for k, v in batch.items()}
+    with activation_sharding(mesh, activation_rules(mesh), lay.split):
+        loss, metrics = loss_fn(cfg, model, rows)
+        loss.backward()
+    facts = {}
+    for key, value in (("loss", loss), ("nll", metrics["nll"]), ("aux", metrics["aux"])):
+        value = value.detach().clone()
+        dist.all_reduce(value, group=lay.rows.group)
+        facts[key] = value.item() / lay.rows.size
+    return facts, [p.grad.full_tensor() / lay.rows.size for p in model.parameters()], lay
+
+
+def _tp_case(mesh, shape, name: str, data_dir: str):
+    """One case of the `tp` mode on every rank: (arrays, facts) for rank 0."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import Replicate
+
+    from repro_torch.interop import params_from_jax, tree_from_tensors
+    from repro_torch.launch.serve import Request, serve_requests
+    from repro_torch.launch.shardings import activation_rules, shard_model
+    from repro_torch.launch.train import train
+    from repro_torch.models import decode_step, forward, prefill
+    from repro_torch.models.sharding import activation_sharding
+
+    cfg, extra, tree, batch = _tp_inputs(data_dir, name)
+    rules = activation_rules(mesh)
+    model_group = mesh.get_group("model")
+    arrays = {}
+
+    model = params_from_jax(cfg, tree, device="cpu")
+    shard_model(model, mesh)
+    with torch.no_grad(), activation_sharding(mesh, rules):
+        arrays["logits"] = forward(cfg, model, batch, mode="train").logits.numpy()
+    tc = _tp_config(shape, batch)
+    facts, grads, lay = _tp_grads(mesh, tc, cfg, model, batch)
+    params = list(model.parameters())
+    b = batch["tokens"].shape[0]
+    model_dim = list(mesh.mesh_dim_names).index("model")
+
+    def equal_over_model(tensors):
+        unequal = []
+        for (pname, p), t in zip(model.named_parameters(), tensors, strict=True):
+            if not isinstance(p.placements[model_dim], Replicate):
+                continue
+            t = t.to_local() if hasattr(t, "to_local") else t
+            peers = [torch.empty_like(t) for _ in range(dist.get_world_size(model_group))]
+            dist.all_gather(peers, t.contiguous(), group=model_group)
+            if not all(torch.equal(peers[0], x) for x in peers):
+                unequal.append(pname)
+        return unequal
+
+    facts["grads_unequal"] = equal_over_model([p.grad for p in params])
+    arrays |= {f"grad/{k}": v.numpy() for k, v in
+               _flat(tree_from_tensors(model, grads)).items()}
+
+    serving = params_from_jax(cfg, tree, device="cpu")
+    shard_model(serving, mesh, fsdp=False)
+    prompts = batch["tokens"]
+    inputs = {k: v for k, v in batch.items() if k != "labels"}
+    max_seq = prompts.shape[1] + extra["new_tokens"]
+    with torch.no_grad(), activation_sharding(mesh, rules):
+        logits, caches = prefill(cfg, serving, inputs, max_seq=max_seq)
+        facts["cache_shapes"] = [{k: (list(v.shape) if isinstance(v, torch.Tensor) else v)
+                                  for k, v in _flat(c).items()} for c in caches]
+        steps = [logits]
+        for _ in range(extra["new_tokens"] - 1):
+            logits, caches = decode_step(cfg, serving, torch.argmax(logits, -1)[:, None], caches)
+            steps.append(logits)
+        arrays["served_logits"] = torch.stack(steps, 1).numpy()
+        ids = torch.argmax(torch.stack(steps, 1), -1).tolist()
+        if extra["served"] == "requests":  # the serving entry point gives the same ids
+            reqs = [Request(rid=i, prompt=prompts[i].numpy(), max_new_tokens=extra["new_tokens"])
+                    for i in range(b)]
+            out = serve_requests(cfg, serving, reqs, max_seq, progress=lambda *_: None,
+                                 device="cpu")
+            facts["served_ids"] = [out[i] for i in range(b)]
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, ids)
+    facts["ids"], facts["ids_every_rank"] = ids, every
+
+    from repro_torch.launch.shardings import init_sharded
+    from repro_torch.models import init_params
+
+    drawn = init_sharded(cfg, torch.Generator().manual_seed(3), "cpu", mesh)
+    whole = init_params(cfg, torch.Generator().manual_seed(3), "cpu")
+    shard_model(whole, mesh)
+    facts["sharded_init_equal"] = all(
+        p.placements == q.placements and p.gather_to == q.gather_to
+        and p.grad_to == q.grad_to and torch.equal(p.to_local(), q.to_local())
+        for p, q in zip(drawn.parameters(), whole.parameters(), strict=True))
+    facts["train_losses"], facts["params_unequal"] = [], []
+    if extra["train"] and shape == (2, 2):  # an arch's own smoke config, both axes split
+        trained, _, facts["train_losses"] = train(
+            dataclasses.replace(tc, arch=extra["train"], steps=2, seq_len=prompts.shape[1]),
+            progress=lambda *_: None, device="cpu",
+            model=params_from_jax(cfg, tree, device="cpu"))
+        facts["params_unequal"] = equal_over_model(list(trained.parameters()))
+    return arrays, facts
+
+
+def _tp(n: int, rank: int, data_dir: str, out_path: str, shape: str, *names: str) -> None:
+    import numpy as np
+    import torch
+
+    from repro_torch.launch.mesh import make_mesh
+
+    dims = tuple(int(d) for d in shape.split("x"))
+    mesh = make_mesh(dims, ("data", "model"), "cpu")
+    import time
+    for name in names:
+        t0 = time.perf_counter()
+        arrays, facts = _tp_case(mesh, dims, name, data_dir)
+        if os.environ.get("TP_TIMES"):
+            print(name, time.perf_counter() - t0, facts.get("times"), flush=True)
+        if rank == 0:
+            np.savez(f"{out_path}.{name}.npz", **arrays)
+            Path(f"{out_path}.{name}.json").write_text(json.dumps(facts))
+    torch.distributed.barrier()
+
+
+def _tp64(n: int, rank: int, data_dir: str, out_path: str, shape: str, name: str) -> None:
+    import numpy as np
+    import torch
+
+    from repro_torch.interop import params_from_jax, tree_from_tensors
+    from repro_torch.kernels.wkv6 import ref as wkv_ref
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.shardings import shard_model
+    from repro_torch.models import recurrent
+    from repro_torch.models.model import loss_fn
+
+    # this process evaluates in float64 only: the model's f32 accumulations
+    # (`.float()`) become f64, and the WKV-6 op (whose backward is written
+    # for f32) is autograd through its plain scan
+    torch.Tensor.float = lambda self, *a, **kw: self.double()
+    recurrent.wkv6 = lambda r, k, v, lw, u, s0=None: wkv_ref.wkv6_scan(
+        r, k, v, torch.exp(lw), u, s0)
+    cfg, _, tree, batch = _tp_inputs(data_dir, name)
+    cfg = dataclasses.replace(cfg, dtype="float64")
+    dims = tuple(int(d) for d in shape.split("x"))
+    mesh = make_mesh(dims, ("data", "model"), "cpu")
+    model = params_from_jax(cfg, tree, device="cpu").double()
+    shard_model(model, mesh)
+    facts, grads, _ = _tp_grads(mesh, _tp_config(dims, batch), cfg, model, batch)
+    arrays = {f"tp/{k}": v.numpy() for k, v in _flat(tree_from_tensors(model, grads)).items()}
+    if rank == 0:
+        one = params_from_jax(cfg, tree, device="cpu").double()
+        loss, _ = loss_fn(cfg, one, batch)
+        assert loss.dtype == torch.float64
+        loss.backward()
+        facts["one_loss"] = loss.item()
+        arrays |= {f"one/{k}": v.numpy() for k, v in _flat(
+            tree_from_tensors(one, [p.grad for p in one.parameters()])).items()}
+        assert all(v.dtype == np.float64 for v in arrays.values())
+        np.savez(f"{out_path}.{name}.npz", **arrays)
+        Path(f"{out_path}.{name}.json").write_text(json.dumps(facts))
+    torch.distributed.barrier()
+
+
+def _tp_restart(n: int, rank: int, ckpt_dir: str, out_path: str) -> None:
+    import torch
+
+    from repro_torch.launch.train import TrainConfig, train
+
+    kw = {"arch": "stablelm-3b", "batch_size": 8, "seq_len": 32, "mesh_axes": ("data", "model")}
+    runs = {}
+    for name, tc in (("first", TrainConfig(steps=2, checkpoint_dir=ckpt_dir, checkpoint_every=2,
+                                           mesh_shape=(1, 2), **kw)),
+                     ("resumed", TrainConfig(steps=4, checkpoint_dir=ckpt_dir,
+                                             checkpoint_every=100, mesh_shape=(2, 1), **kw)),
+                     ("straight", TrainConfig(steps=4, mesh_shape=(1, 2), **kw))):
+        _, _, runs[name] = train(tc, progress=lambda *_: None, device="cpu")
+    if rank == 0:
+        Path(out_path).write_text(json.dumps(runs))
+    torch.distributed.barrier()
+
+
 def _a2a_grad(n: int, rank: int, out_path: str) -> None:
     import numpy as np
     import torch
@@ -463,6 +712,12 @@ def main() -> None:
             _a2a_grad(world, rank, sys.argv[5])
         elif mode == "adamw":
             _adamw(world, rank, sys.argv[5])
+        elif mode == "tp":
+            _tp(world, rank, *sys.argv[5:])
+        elif mode == "tp64":
+            _tp64(world, rank, *sys.argv[5:9])
+        elif mode == "tp_restart":
+            _tp_restart(world, rank, *sys.argv[5:7])
         elif mode == "pipeline":
             _pipeline(world, rank, *sys.argv[5:8])
         else:

@@ -21,6 +21,7 @@ Run from the repository root:
     PYTHONPATH=src JAX_PLATFORMS=cpu python tests/recurrent_bwd_readings.py
 """
 import copy
+import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -57,6 +58,7 @@ def _port_f64_embed_grad(cfg, batch):
     `.double()`, and the WKV-6 op is autograd through the plain scan."""
     _, model = tt.both_params(cfg)
     model = copy.deepcopy(model).double()
+    model.cfg = dataclasses.replace(model.cfg, dtype="float64")  # activations in f64 too
     to_float, op = torch.Tensor.float, recurrent.wkv6
     torch.Tensor.float = lambda self, *a, **kw: self.double()
     recurrent.wkv6 = lambda r, k, v, lw, u, s0=None: wkv_ref.wkv6_scan(
@@ -73,22 +75,22 @@ def _port_f64_embed_grad(cfg, batch):
 
 def remat_reading():
     arch, key = "rwkv6-3b", "embed/table"
-    batch = tt.JaxSyntheticLM(tt._cfg(arch, False).vocab_size, 32, seed=1).global_batch(0, 4, 1)
-    exact = _port_f64_embed_grad(tt._cfg(arch, False), batch)
-    port = tt._loss_and_grads(tt._cfg(arch, True), batch)[2][key].astype(np.float64)
+    batch = tt.JaxSyntheticLM(tt._cfg(arch, "none").vocab_size, 32, seed=1).global_batch(0, 4, 1)
+    exact = _port_f64_embed_grad(tt._cfg(arch, "none"), batch)
+    port = tt._loss_and_grads(tt._cfg(arch, "full"), batch)[2][key].astype(np.float64)
     grads = {"port (remat)": port}
-    for remat in (True, False):
+    for remat in ("full", "none"):
         cfg = tt._cfg(arch, remat)
         jp, _ = tt.both_params(cfg)
         g = jax.grad(lambda p: tt.jax_loss_fn(
             cfg, p, {k: jnp.asarray(x) for k, x in batch.items()})[0])(jp)
-        grads[f"JAX remat={remat}"] = tt.flatten(jax.tree.map(np.asarray, g))[key] \
+        grads[f"JAX remat {remat}"] = tt.flatten(jax.tree.map(np.asarray, g))[key] \
             .astype(np.float64)
     for name, g in grads.items():
         print(f"{arch} {key}: {name} max |g - f64| {np.abs(g - exact).max():.3g}")
-    want = grads["JAX remat=True"]
+    want = grads["JAX remat full"]
     outside = np.abs(port - want) > tt.GRAD_TOL["atol"] + tt.GRAD_TOL["rtol"] * np.abs(want)
-    print(f"{arch} {key}: port vs JAX remat=True: max {np.abs(port - want).max():.3g}, "
+    print(f"{arch} {key}: port vs JAX remat full: max {np.abs(port - want).max():.3g}, "
           f"{int(outside.sum())}/{outside.size} outside GRAD_TOL")
 
 

@@ -9,6 +9,7 @@ stand-ins (axis names and sizes, no devices), as tests/test_torch_mesh.py
 does.  The port's side runs on `torch.distributed`'s fake backend under
 `FakeTensorMode`: nothing is allocated and no device is touched.
 """
+import dataclasses
 import json
 import math
 import os
@@ -209,15 +210,25 @@ def test_a_sharded_cache_is_gathered_where_attention_reads_it(pod):
 # --- FLOPs ----------------------------------------------------------------------------------
 
 
-def _dense_train_flops(cfg, rows, s) -> int:
+def _split(n, tp):
+    """A rank's share of a dimension of n on tp 'model' ranks: n / tp where
+    it divides (tensor parallelism), else all of it."""
+    return n // tp if n % tp == 0 else n
+
+
+def _dense_train_flops(cfg, rows, s, tp=1) -> int:
     """Σ 2 m n k over every product of a dense step: forward, full remat's
     recompute of each block, backward (each projection's dx and dw; the
     plain attention backward's scores and dP twice, dV, dK and dQ).  The
     recompute stops once the backward has every tensor it saved (torch's
     checkpoint early stop), so it skips the block's last product, the
-    down projection, whose output the backward never reads."""
-    d, hq, hkv, hd, f, v = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
-                            cfg.d_ff, cfg.vocab_size)
+    down projection, whose output the backward never reads.  On tp 'model'
+    ranks each rank computes its share of the heads, of d_ff and of the
+    vocab, where they divide."""
+    d, hd = cfg.d_model, cfg.head_dim
+    hq = _split(cfg.num_heads, tp)
+    hkv = hq * cfg.num_kv_heads // cfg.num_heads
+    f, v = _split(cfg.d_ff, tp), _split(cfg.vocab_size, tp)
     n = rows * s
     proj = 2 * n * d * (hq * hd + 2 * hkv * hd) + 2 * n * hq * hd * d
     mlp = 3 * 2 * n * d * f
@@ -230,10 +241,40 @@ def _dense_train_flops(cfg, rows, s) -> int:
 
 
 def test_traced_flops_of_a_dense_train_step_are_the_analytic_count(pod):
+    """The rows lie over 'data' (512 over 16: 32 a rank) and the 16 'model'
+    peers split d_ff and the vocab (the smoke config's 4 heads do not
+    divide: attention is computed whole)."""
     cfg = configs.get("stablelm-3b").scaled_down()
-    shape = ShapeConfig("t", 64, 512, "train")      # 2 rows a rank of 256
+    shape = ShapeConfig("t", 64, 512, "train")
     got = dryrun.trace_step(cfg, shape, pod)
-    assert got["flops"] == _dense_train_flops(cfg, 2, 64)
+    assert got["flops"] == _dense_train_flops(cfg, 32, 64, tp=16)
+
+
+def test_a_dense_block_splits_its_products_over_model(pod):
+    """stablelm-3b at full width (32 heads, d_ff 6912, vocab 50304: each
+    divides by 16), 1 layer, prefilled at 2 rows a rank: each rank's traced
+    products are 1/16 of the whole forward's (its heads' projections and
+    attention, its d_ff's MLP, its vocab's logits), and the 'model' peers
+    sum the row-parallel products (the attention output and the MLP down
+    projection, float32) and the vocab-parallel lookup (bf16) with
+    all-reduces, and gather the logits along the vocab."""
+    cfg = dataclasses.replace(configs.get("stablelm-3b"), num_layers=1)
+    rows, s = 2, 128
+    shape = ShapeConfig("p", s, 16 * rows, "prefill")
+    lay, split = dryrun._split(shape, pod, set())
+    with FakeTensorMode():
+        rank = dryrun.build_rank(cfg, shape, pod, set(), lay, split)
+        counter, flops = dryrun.CollectiveCounter(), dryrun.flop_counter()
+        with flops, counter:
+            dryrun.run_step(rank, cfg, shape, set())
+    d, h, hd, f, v = cfg.d_model, cfg.num_heads, cfg.head_dim, cfg.d_ff, cfg.vocab_size
+    n = rows * s
+    whole = (2 * n * d * 3 * h * hd + 2 * n * h * hd * d + 2 * 2 * rows * h * s * s * hd
+             + 3 * 2 * n * d * f + 2 * n * d * v)
+    assert flops.get_total_flops() * 16 == whole
+    ops = counter.result()
+    assert ops["all-reduce"] == {"count": 3, "bytes": 2 * n * d * 4 + n * d * 2}
+    assert ops["all-gather"]["count"] >= 1
 
 
 def test_products_with_an_f32_result_are_counted():
