@@ -185,9 +185,22 @@ Phases, in order; any failure raises and the script exits non-zero:
                stage, both walls and the bubble; check 5: stablelm-3b (2
                layers) saved at step 2 on (4,), resumed on (2, 2) for steps
                3-4, against 4 straight steps on (4,) at rtol 2e-3, with the
-               checkpoint's bytes and seconds.  With two or three cards the
-               mesh paths say that they did not run; with one card the
-               phase says that it did not run.
+               checkpoint's bytes and seconds.  Tensor parallelism over
+               'model' and the rest of that axis: the
+               vocab-parallel loss against the gathered logits' and the
+               sequence-parallel step against the TP step (stablelm-3b, 2
+               layers, f32, (2, 2) and (1, 4)); recurrentgemma-9b (2, 2)
+               and rwkv6-3b (1, 4) whole with and without sequence
+               parallelism, each first loss against one card's forward;
+               command-r-plus-104b at 4 layers with SP on and off, and
+               served whole on (1, 4) (the vocab-parallel argmax's ids
+               against the gathered argmax's); qwen3-moe (2, 2) 1 layer with
+               SP and under `moe-ep-data` against phase 8's losses; decode
+               through the dry run's sequence-sharded caches (the
+               partial-softmax combine) against one card in f32 and beside
+               phase 7's ids in bf16, with the bytes a step sends.  With two
+               or three cards the mesh paths say that they did not run;
+               with one card the phase says that it did not run.
  10. fabric playback - the certified tape playback B6 (float64) against
                its plain version on the card, bit for bit and over two runs:
                the deduped a2a / rs / ag candidate sets at n in {6, 12, 48,
@@ -258,10 +271,11 @@ Phases, in order; any failure raises and the script exits non-zero:
                (B6 launched, each call held bit for bit to the plain version
                on its own inputs, the largest timed) and on the CPU, its
                lines equal.  Phases 3 and 4 take the twins' shapes (f32).
- 13. dry run - four cells of `python -m repro_torch.launch.dryrun` (one
-               a mode, a MoE variant among them) in process on a fake world
-               of 256 or 512 ranks; `torch.cuda.memory_allocated()` the same
-               before and after.
+ 13. dry run - six cells of `python -m repro_torch.launch.dryrun` (one
+               a mode, a MoE variant, the sequence-parallel train step and
+               decode over sequence-sharded caches among them) in process on
+               a fake world of 256 or 512 ranks; `torch.cuda.memory_allocated()`
+               the same before and after.
 Phase 5 also holds arctic-480b (1 layer, 32 of 128 experts, f32) card
 against CPU, its routing decisions compared (a decision may differ only at
 a near-tie under MODEL_TOL); phase 7 serves it at 2 of 35 layers (B1 2 a
@@ -324,7 +338,8 @@ from repro_torch.launch.serve import Request, serve_requests  # noqa: E402
 from repro_torch.models import decode_step, forward, init_params, prefill  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.data import SyntheticLM  # noqa: E402
-from repro_torch.models.model import loss_fn  # noqa: E402
+from repro_torch.models import tensor_parallel as tp_mod  # noqa: E402
+from repro_torch.models.model import greedy, loss_fn  # noqa: E402
 from repro_torch.planner import Planner, PlanRequest  # noqa: E402
 
 # Published peaks of one H100 SXM (NVIDIA data sheet, dense): HBM3 bytes/s,
@@ -2324,6 +2339,11 @@ TP_SERVE_ARCH = "command-r-plus-104b"
 TP_PARITY_LAYERS, TP_PARITY_PROMPT, TP_PARITY_STEPS = 2, 256, 4
 TP_TRAIN_PARITY_LAYERS = 2
 TP_CR_TRAIN_LAYERS = 4
+# command-r-plus-104b's peaks a card with the logits gathered whole in f32, before
+# the vocab-parallel loss and greedy pick (PERF.md section 6): trained at
+# TP_CR_TRAIN_LAYERS, and served whole on (1, 4)
+GATHERED_PEAK_GIB = {"2x2": 62.361, "1x4": 56.501}
+GATHERED_SERVE_PEAK_GIB = 55.198
 
 
 def tp_whole(arch: str, shape: tuple, n: int, dev, say) -> dict:
@@ -2556,6 +2576,15 @@ def tp_serve_whole(n: int, dev, say) -> dict:
     if not all(x == ids for x in every):
         raise AssertionError(f"{arch} on (1, {n}): the ranks returned different ids")
     with torch.inference_mode(), activation_sharding(mesh, rules):
+        # the greedy ids of the vocab-parallel argmax against the gathered logits'
+        local, caches = prefill(cfg, model, {"tokens": prompts.to(dev)}, max_seq,
+                                logits_whole=False)
+        picks = []
+        for _ in range(4):
+            vp, whole = greedy(cfg, model, local), torch.argmax(tp_mod.gather(local, -1), -1)
+            picks.append((vp.tolist(), whole.tolist()))
+            local, caches = decode_step(cfg, model, vp[:, None], caches, logits_whole=False)
+        del caches
         logits, caches = prefill(cfg, model, {"tokens": prompts.to(dev)}, max_seq)
         finite = bool(torch.isfinite(logits).all())
         kv = tuple(caches[0]["mix"]["k"].shape)
@@ -2564,6 +2593,9 @@ def tp_serve_whole(n: int, dev, say) -> dict:
         prof = profiled(lambda: decode_step(cfg, model, step, caches))
     if not finite:
         raise AssertionError(f"{arch} on (1, {n}): non-finite logits")
+    if any(vp != whole for vp, whole in picks):
+        raise AssertionError(f"{arch} on (1, {n}): vocab_parallel_argmax's ids differ from "
+                             f"the gathered logits' argmax: {picks}")
     del model, caches, logits
     gc.collect()
     torch.cuda.empty_cache()
@@ -2574,11 +2606,14 @@ def tp_serve_whole(n: int, dev, say) -> dict:
         f"bf16) on (1, {n}) (tensor parallel, fsdp=False), {batch} x ({prompt_len} + "
         f"{new_tokens}): sharded init {init_s:.1f} s; prefill {prefill_s:.3f} s = "
         f"{batch * prompt_len / prefill_s:.1f} tok/s, decode {decode_tps:.1f} tok/s; every rank "
-        f"the same ids; logits finite; a rank's KV cache {kv} a layer; launches a rank "
+        f"the same ids; the greedy ids of vocab_parallel_argmax equal the gathered logits' "
+        f"argmax at the prefill and 3 decode steps ({4 * batch} ids); logits finite; a rank's "
+        f"KV cache {kv} a layer; launches a rank "
         f"prefill {launches['prefill']}, decode {launches['decode']}; parameters held a card "
         f"{held} bytes; peak memory a card, init {[round(x / 2**30, 3) for x in init_peaks]} "
         f"GiB ({init_peaks} bytes), serving {[round(x / 2**30, 3) for x in serve_peaks]} GiB "
-        f"({serve_peaks} bytes); decode step (batch {batch}) under the profiler, rank 0: "
+        f"({serve_peaks} bytes; with the prefill's logits gathered whole: "
+        f"{GATHERED_SERVE_PEAK_GIB} GiB); decode step (batch {batch}) under the profiler, rank 0: "
         f"{profile_text(prof)}")
     return {"launches": launches["prefill"], "decode_launches": launches["decode"],
             "ids": ids, "prefill_s": prefill_s, "decode_tps": decode_tps, "held": held,
@@ -2600,7 +2635,12 @@ def tp_train_parity(n: int, dev, say) -> dict:
     gradient leaf gathered whole against rank 0's unsharded run of the same
     weights and batch at phase 6's bound (1e-4 + 1e-4 |want|), and every
     gradient the rule table replicates over 'model' the same bits on each
-    'model' peer."""
+    'model' peer.  On the same weights and batch, the sequence-parallel
+    step against the TP step (the loss within SP_LOSS_RTOL, every gradient
+    element within SP_GRAD_ATOL, replicated gradients the same bits on each
+    peer) and, on (1, n), the vocab-parallel loss against the loss on the
+    gathered logits, the path it replaced (`gathered_loss`; the loss and
+    every gradient element within VOCAB_TOL + VOCAB_TOL |want|)."""
     import torch.distributed as dist
     from torch.distributed.tensor import Replicate
 
@@ -2633,54 +2673,94 @@ def tp_train_parity(n: int, dev, say) -> dict:
         per = 2 // lay.rows.size
         rows = {k: v[lay.rows.rank * per:(lay.rows.rank + 1) * per].to(dev)
                 for k, v in batch.items()}
-        reset_launches()
-        with activation_sharding(mesh, activation_rules(mesh), lay.split):
-            loss, _ = loss_fn(cfg, model, rows)
-            loss.backward()
-        launches = read_launches()
-        total = loss.detach().clone()
-        dist.all_reduce(total, group=lay.rows.group)
-        got_loss = total.item() / lay.rows.size
         model_group, model_dim = mesh.get_group("model"), 1
-        unequal = []
-        for name, p in model.named_parameters():
-            if isinstance(p.placements[model_dim], Replicate):
-                g = p.grad.to_local().contiguous()
-                peers = [torch.empty_like(g) for _ in range(dist.get_world_size(model_group))]
-                dist.all_gather(peers, g, group=model_group)
-                if not all(torch.equal(peers[0], x) for x in peers):
-                    unequal.append(name)
-        grads = [(p.grad.full_tensor() / lay.rows.size).cpu() for p in model.parameters()]
+        runs = {"tp": (False, lambda: loss_fn(cfg, model, rows)[0]),
+                "sp": (True, lambda: loss_fn(cfg, model, rows)[0])}
+        if shape[1] == n:
+            runs["gathered"] = (False, lambda: gathered_loss(cfg, model, rows))
+        got = {}
+        for name, (seq, fn) in runs.items():
+            for p in model.parameters():
+                p.grad = None
+            reset_launches()
+            with activation_sharding(mesh, activation_rules(mesh, seq), lay.split):
+                loss = fn()
+                loss.backward()
+            launches = read_launches()
+            total = loss.detach().clone()
+            dist.all_reduce(total, group=lay.rows.group)
+            unequal = []
+            for pname, p in model.named_parameters():
+                if isinstance(p.placements[model_dim], Replicate):
+                    g = p.grad.to_local().contiguous()
+                    peers = [torch.empty_like(g) for _ in range(dist.get_world_size(model_group))]
+                    dist.all_gather(peers, g, group=model_group)
+                    if not all(torch.equal(peers[0], x) for x in peers):
+                        unequal.append(pname)
+            got[name] = (total.item() / lay.rows.size, unequal, launches,
+                         [(p.grad.full_tensor() / lay.rows.size).cpu()
+                          for p in model.parameters()])
         del model, loss
         gc.collect()
         torch.cuda.empty_cache()
-        if rank == 0:
-            errs = [max_err(g, w, TRAIN_GRAD_RTOL, TRAIN_GRAD_RTOL)
-                    for g, w in zip(grads, want[1], strict=True)]
-            worst = max(e for e, _ in errs)
-            loss_diff = abs(got_loss - want[0]) / abs(want[0])
-            say(f"mesh train parity {arch} ({TP_TRAIN_PARITY_LAYERS} layers, f32, 2 x 128) on "
-                f"{shape} against one card: loss {got_loss:.7f} against {want[0]:.7f} "
-                f"(relative {loss_diff:.3e}, rtol {TRAIN_LOSS_RTOL}); gradients of "
-                f"{len(grads)} leaves, worst max|err| {worst:.3e} (tol {TRAIN_GRAD_RTOL} + "
-                f"{TRAIN_GRAD_RTOL}|want|); gradients replicated over 'model' that differ "
-                f"between peers {unequal}; a rank's launches {launches}")
-            if loss_diff > TRAIN_LOSS_RTOL or not all(ok for _, ok in errs) or unequal:
-                raise AssertionError(f"{arch} on {shape}: tensor-parallel training differs "
-                                     f"from one card")
-            out["x".join(map(str, shape))] = {"loss_diff": loss_diff, "worst": worst,
-                                               "launches": launches}
-        elif unequal:
-            raise AssertionError(f"rank {rank}: replicated gradients differ: {unequal}")
+        if rank != 0:
+            if got["tp"][1] or got["sp"][1]:
+                raise AssertionError(f"rank {rank}: replicated gradients differ: "
+                                     f"{got['tp'][1]}, {got['sp'][1]}")
+            continue
+        got_loss, unequal, launches, grads = got["tp"]
+        errs = [max_err(g, w, TRAIN_GRAD_RTOL, TRAIN_GRAD_RTOL)
+                for g, w in zip(grads, want[1], strict=True)]
+        worst = max(e for e, _ in errs)
+        loss_diff = abs(got_loss - want[0]) / abs(want[0])
+        say(f"mesh train parity {arch} ({TP_TRAIN_PARITY_LAYERS} layers, f32, 2 x 128) on "
+            f"{shape} against one card: loss {got_loss:.7f} against {want[0]:.7f} "
+            f"(relative {loss_diff:.3e}, rtol {TRAIN_LOSS_RTOL}); gradients of "
+            f"{len(grads)} leaves, worst max|err| {worst:.3e} (tol {TRAIN_GRAD_RTOL} + "
+            f"{TRAIN_GRAD_RTOL}|want|); gradients replicated over 'model' that differ "
+            f"between peers {unequal}; a rank's launches {launches}")
+        if loss_diff > TRAIN_LOSS_RTOL or not all(ok for _, ok in errs) or unequal:
+            raise AssertionError(f"{arch} on {shape}: tensor-parallel training differs "
+                                 f"from one card")
+        key = "x".join(map(str, shape))
+        out[key] = {"loss_diff": loss_diff, "worst": worst, "launches": launches}
+        sp_loss = abs(got["sp"][0] - got_loss) / abs(got_loss)
+        sp_grad = max(float((g - w).abs().max())
+                      for g, w in zip(got["sp"][3], grads, strict=True))
+        say(f"mesh sp parity {arch} ({TP_TRAIN_PARITY_LAYERS} layers, f32, 2 x 128) on {shape}: "
+            f"the sequence-parallel step's loss {got['sp'][0]:.8f} against TP's {got_loss:.8f} "
+            f"(relative {sp_loss:.3e}, tol {SP_LOSS_RTOL}), worst gradient element "
+            f"{sp_grad:.3e} (tol {SP_GRAD_ATOL}); replicated gradients that differ between "
+            f"peers {got['sp'][1]}; a rank's launches {got['sp'][2]}")
+        out[key] |= {"sp_loss": sp_loss, "sp_grad": sp_grad}
+        if sp_loss > SP_LOSS_RTOL or sp_grad > SP_GRAD_ATOL or got["sp"][1]:
+            raise AssertionError(f"{arch} on {shape}: the sequence-parallel step differs "
+                                 f"from the TP step")
+        if "gathered" in got:
+            vp_loss = abs(got_loss - got["gathered"][0]) / abs(got["gathered"][0])
+            errs = [max_err(g, w, VOCAB_TOL, VOCAB_TOL)
+                    for g, w in zip(grads, got["gathered"][3], strict=True)]
+            vp_grad = max(e for e, _ in errs)
+            say(f"mesh vocab-parallel loss {arch} on {shape}: {got_loss:.8f} against the "
+                f"gathered logits' {got['gathered'][0]:.8f} (relative {vp_loss:.3e}, tol "
+                f"{VOCAB_TOL}), worst gradient max|err| {vp_grad:.3e} (tol {VOCAB_TOL} + "
+                f"{VOCAB_TOL}|want|)")
+            out[key] |= {"vp_loss": vp_loss, "vp_grad": vp_grad}
+            if vp_loss > VOCAB_TOL or not all(ok for _, ok in errs):
+                raise AssertionError(f"{arch} on {shape}: the vocab-parallel loss differs "
+                                     f"from the gathered logits'")
     return out
 
 
 def tp_command_r_train(n: int, dev, say) -> dict:
     """command-r-plus-104b at full width cut to TP_CR_TRAIN_LAYERS trained
     MESH_STEPS gspmd steps (bf16, full remat, 8 x 512) on (2, 2) and on
-    (1, n): more parameters and moments than one card holds (12 B a
-    parameter).  Its losses finite, the two layouts' first losses within
-    TP_LOSS_RTOL[arch], each card's peak and the step times."""
+    (1, n), each with and without sequence parallelism: more parameters
+    and moments than one card holds (12 B a parameter).  Its losses finite,
+    the two layouts' first losses within TP_LOSS_RTOL[arch], and each
+    layout's sequence-parallel first loss within it of the layout's own;
+    each card's peak beside the one with the logits gathered whole, and
+    the step times."""
     import torch.distributed as dist
 
     arch, rank = TP_SERVE_ARCH, dist.get_rank()
@@ -2695,15 +2775,30 @@ def tp_command_r_train(n: int, dev, say) -> dict:
         gc.collect()
         torch.cuda.empty_cache()
         peaks = rank_memory(dev)
-        out["x".join(map(str, shape))] = {
-            k: run[k] for k in ("losses", "launches", "per_step", "step_s")} | {
+        key = "x".join(map(str, shape))
+        out[key] = {k: run[k] for k in ("losses", "launches", "per_step", "step_s")} | {
             "peaks": peaks, "params": params}
         say(f"mesh train {arch} full width cut to {TP_CR_TRAIN_LAYERS} of 64 layers on {shape} "
-            f"(tensor parallel), {params} parameters ({params * 12 / 1e9:.1f} GB of parameters "
-            f"and moments, {params * 12 / n / 1e9:.1f} GB a card), bf16, remat full, gspmd, 8 x "
-            f"512: losses {run['losses']}, steps {run['step_s']} s, launches a step "
-            f"{run['per_step']}; peak memory a card {[round(x / 2**30, 3) for x in peaks]} GiB "
-            f"({peaks} bytes)")
+            f"(tensor parallel, the vocab-parallel loss), {params} parameters "
+            f"({params * 12 / 1e9:.1f} GB of parameters and moments, "
+            f"{params * 12 / n / 1e9:.1f} GB a card), bf16, remat full, gspmd, 8 x 512: losses "
+            f"{run['losses']}, steps {run['step_s']} s, launches a step {run['per_step']}; peak "
+            f"memory a card {[round(x / 2**30, 3) for x in peaks]} GiB ({peaks} bytes; with "
+            f"the logits gathered whole: {GATHERED_PEAK_GIB[key]} GiB)")
+        sp = sp_mesh_train(tc, cfg, f"train {arch} {TP_CR_TRAIN_LAYERS} layers on {shape}, "
+                           f"sequence parallel", dev, probe=True)
+        diff = abs(sp["losses"][0] - run["losses"][0]) / abs(run["losses"][0])
+        out[key + " sp"] = sp | {"diff": diff}
+        say(f"mesh train {arch} {TP_CR_TRAIN_LAYERS} layers on {shape} with sequence "
+            f"parallelism: losses {sp['losses']} (first against the TP step's: relative "
+            f"{diff:.3e}, rtol {TP_LOSS_RTOL[arch]}), steps {sp['step_s']} s, peak memory a card "
+            f"{[round(x / 2**30, 3) for x in sp['peaks']]} GiB ({sp['peaks']} bytes); after the "
+            f"steps a card holds {[round(x / 2**30, 3) for x in sp['held']]} GiB, and one more "
+            f"forward and backward alone (no AdamW) peaks at "
+            f"{[round(x / 2**30, 3) for x in sp['fwd_bwd_peaks']]} GiB")
+        if diff > TP_LOSS_RTOL[arch]:
+            raise AssertionError(f"{arch} on {shape}: the sequence-parallel first loss "
+                                 f"{sp['losses'][0]} against {run['losses'][0]}")
     a, b = out["2x2"]["losses"][0], out[f"1x{n}"]["losses"][0]
     diff = abs(a - b) / abs(b)
     if rank == 0:
@@ -2711,6 +2806,303 @@ def tp_command_r_train(n: int, dev, say) -> dict:
             f"{diff:.3e} (rtol {TP_LOSS_RTOL[arch]})")
     if diff > TP_LOSS_RTOL[arch]:
         raise AssertionError(f"{arch}: the two layouts' first losses differ: {a}, {b}")
+    return out
+
+
+# --- the rest of the 'model' axis: sequence parallelism, the vocab-parallel loss
+# and greedy pick, TP inside the experts, the combine over sharded caches -----------
+
+SP_LOSS_RTOL = 1e-6       # f32: the SP step against the TP step, its loss (relative)
+SP_GRAD_ATOL = 1e-5       # and every gradient element
+VOCAB_TOL = 1e-6          # the vocab-parallel loss and gradients against the gathered logits'
+COMBINE_TOL = 1e-4        # f32 decode logits through the sharded caches against one card's
+# the combine's f32 cases: (layers, the dry run's variant, config cuts); recurrentgemma-9b's
+# first local-attention layer is its third, and a window of 64 under a 100-slot cache
+# wraps its ring buffer
+COMBINE_CASES = {"recurrentgemma-9b": (3, "kv-seq-sharded", {"window": 64}),
+                 "minicpm3-4b": (2, "baseline", {})}
+COMBINE_PROMPT, COMBINE_STEPS = 96, 4
+COMBINE_SERVE_SEQ = 548   # phase 7's 512 + 32 (+ 1 rounded up so the sequence divides by 4)
+COMBINE_SERVE_TOKENS = 16  # of phase 7's 32 ids, compared (the phase's time)
+
+
+def gathered_loss(cfg, model, batch):
+    """`loss_fn` as it was before the vocab-parallel loss: the logits gathered
+    whole over 'model' (f32, (rows, S, V) on every peer), the whole-vocab
+    logsumexp and gold logit."""
+    out = forward(cfg, model, batch, mode="train")
+    labels = batch["labels"].long()
+    logits = out.logits[:, -labels.shape[1]:, :].float()
+    per = torch.logsumexp(logits, -1) - torch.gather(logits, -1,
+                                                     labels.clamp_min(0)[..., None])[..., 0]
+    mask = (labels >= 0).float()
+    return torch.sum(per * mask) / torch.clamp_min(mask.sum(), 1.0) + 0.01 * out.aux_loss
+
+
+def sp_mesh_train(tc, cfg, label: str, dev, seq_parallel: bool = True,
+                  experts: str = "model", probe: bool = False) -> dict:
+    """`train()`'s gspmd loop on `tc`'s mesh with the step of
+    `make_train_step(..., seq_parallel)` (which `train()` does not take, as
+    the reference's does not) and the expert stacks sharded over `experts`
+    (the reference's `moe-ep-data` where "data": each expert's d_ff over
+    'model', the tokens exchanged over 'data'): the weights of `cfg` drawn
+    from the seed whole on each card and sharded, MESH_STEPS steps on the
+    global batch's rows; the launches a step checked, the exchanges
+    counted.  Returns the losses, launches, step times and each card's
+    peak; with `probe`, also each card's peak over one more forward and
+    backward of the last batch alone (no AdamW), from what the steps left
+    allocated."""
+    from repro_torch.collectives import bruck_all_to_all
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.shardings import shard_model
+    from repro_torch.optim import adamw_init
+
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    mesh = make_mesh(tc.mesh_shape, tc.mesh_axes, dev)
+    lay = train_mod.layout(tc, train_mod.current_world(), mesh)
+    if experts != "model":
+        lay = dataclasses.replace(lay, split=dataclasses.replace(
+            lay.split, experts=mesh.get_group(experts)))
+    model = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED), dev)
+    shard_model(model, mesh, moe_expert_axis=experts)
+    params = sum(p.numel() for p in model.parameters())
+    opt = adamw_init(list(model.parameters()))
+    step_fn = train_mod.make_train_step(tc, lay, mesh, seq_parallel=seq_parallel)
+    data = SyntheticLM(cfg.vocab_size, tc.seq_len, seed=tc.seed)
+    per = tc.batch_size // lay.rows.size
+    rows = slice(lay.rows.rank * per, (lay.rows.rank + 1) * per)
+    reset_launches()
+    bruck_all_to_all.calls = 0
+    losses, step_s = [], []
+    for step in range(tc.steps):
+        batch = {k: torch.from_numpy(v[rows]).to(dev)
+                 for k, v in data.global_batch(step, tc.batch_size, 1).items()}
+        t0 = time.perf_counter()
+        opt, metrics, _ = step_fn(model, opt, batch)
+        losses.append(float(metrics["loss"]))
+        step_s.append(round(time.perf_counter() - t0, 4))
+    launches, designs, calls = read_launches(), read_designs(), bruck_all_to_all.calls
+    check_tensor_core_launches(label)
+    per_step = check_train_launches(label, cfg.layer_kinds, len(losses), launches, designs)
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"{label}: losses {losses}")
+    out = {"losses": losses, "launches": launches, "per_step": per_step, "step_s": step_s,
+           "ep_a2a": calls, "peaks": rank_memory(dev), "params": params}
+    if probe:
+        from repro_torch.launch.shardings import activation_rules
+        from repro_torch.models.sharding import activation_sharding
+
+        for p in model.parameters():
+            p.grad = None
+        torch.cuda.synchronize(dev)
+        out["held"] = rank_memory_of(torch.cuda.memory_allocated(dev))
+        torch.cuda.reset_peak_memory_stats(dev)
+        with activation_sharding(mesh, activation_rules(mesh, seq_parallel), lay.split):
+            loss_fn(cfg, model, batch)[0].backward()
+        torch.cuda.synchronize(dev)
+        out["fwd_bwd_peaks"] = rank_memory(dev)
+    del model, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def sp_whole(arch: str, shape: tuple, n: int, dev, say, reference: float | None) -> dict:
+    """`arch` whole at full width (bf16, full remat, 8 x 512) trained
+    MESH_STEPS steps on a `shape` mesh with sequence parallelism: its first
+    loss against one card's forward `loss_fn` (`reference`, rank 0's from
+    `tp_whole`) at TP_LOSS_RTOL; the launches of B1-B5' a step."""
+    import torch.distributed as dist
+
+    tc = mesh_tc(arch, shape, TP_AXES)
+    cfg = full_config(tc)
+    run = sp_mesh_train(tc, cfg, f"train {arch} whole on {shape}, sequence parallel", dev)
+    if dist.get_rank() == 0:
+        diff = abs(run["losses"][0] - reference) / abs(reference)
+        say(f"mesh train {arch} whole ({cfg.num_layers} layers) on {shape} with sequence "
+            f"parallelism, bf16, remat full, 8 x 512: losses {run['losses']}, steps "
+            f"{run['step_s']} s, launches a step {run['per_step']}; first loss against one "
+            f"card's forward loss_fn {reference}: relative difference {diff:.3e} (rtol "
+            f"{TP_LOSS_RTOL[arch]}); peak memory a card "
+            f"{[round(x / 2**30, 3) for x in run['peaks']]} GiB")
+        run["diff"] = diff
+        if diff > TP_LOSS_RTOL[arch]:
+            raise AssertionError(f"{arch} on {shape} with sequence parallelism: first loss "
+                                 f"{run['losses'][0]} against one card's {reference}")
+    return run
+
+
+def moe_sp_and_ep(n: int, dev, say) -> dict:
+    """qwen3-moe at full width cut to 1 layer on (2, 2), MESH_STEPS gspmd
+    steps (bf16, full remat, 8 x 512), with sequence parallelism and, apart,
+    with its expert stacks sharded over 'data' and each expert's d_ff over
+    'model' (`moe-ep-data`); the parent holds both runs' losses to phase
+    8's unsharded ones at LOSS_RTOL."""
+    out = {}
+    for name, seq, experts in (("sp", True, "model"), ("ep_data", False, "data")):
+        tc = mesh_tc(MOE_ARCH, (2, 2), TP_AXES)
+        cfg = dataclasses.replace(full_config(tc), num_layers=1)
+        out[name] = sp_mesh_train(tc, cfg, f"train {MOE_ARCH} 1 layer on (2, 2), {name}", dev,
+                                  seq_parallel=seq, experts=experts)
+        say(f"mesh train {MOE_ARCH} 1 layer on (2, 2), "
+            f"{'sequence parallel' if seq else 'moe-ep-data (experts over data, d_ff over model)'}"
+            f": losses {out[name]['losses']}, steps {out[name]['step_s']} s, launches a step "
+            f"{out[name]['per_step']}, exchanges {out[name]['ep_a2a']}, peak memory a card "
+            f"{[round(x / 2**30, 3) for x in out[name]['peaks']]} GiB")
+    return out
+
+
+def combine_layout(cfg, model, mesh, batch: int, max_seq: int, variant: str, dev):
+    """The dry run's sharded serving layout with real tensors on `dev`: its
+    serving `TokenSplit` and the caches as `cache_shardings` lays them
+    out (`launch.dryrun._split`, `_shard_caches`)."""
+    from repro_torch.launch import dryrun
+    from repro_torch.models import ShapeConfig, init_caches
+
+    shape = ShapeConfig("combine", max_seq, batch, "decode")
+    _, split = dryrun._split(shape, mesh, {variant})
+    caches = dryrun._shard_caches(init_caches(cfg, split.rows, max_seq, dev), cfg, mesh,
+                                  batch, variant == "kv-seq-sharded")
+    return split, caches
+
+
+def combine_greedy(cfg, model, mesh, split, caches, prompts, steps: int, counter=None):
+    """Prefill and `steps` - 1 greedy decode steps inside the sharded serving
+    layout: (each step's logits (B, V) f32 on the host, the ids (B, steps));
+    `counter` (a `dryrun.CollectiveCounter`) counts the first decode step's
+    collectives."""
+    from repro_torch.launch.shardings import activation_rules
+    from repro_torch.models.model import greedy, last_logits
+    from repro_torch.models.sharding import activation_sharding
+
+    out, tokens, mode = [], prompts, "prefill"
+    # no_grad, not inference_mode: DTensor's redistribute refuses inference tensors
+    with torch.no_grad(), activation_sharding(mesh, activation_rules(mesh), split,
+                                              sharded_caches=True):
+        for i in range(steps):
+            ctx = counter if counter is not None and i == 1 else contextlib.nullcontext()
+            with ctx:
+                res = forward(cfg, model, {"tokens": tokens}, caches=caches, mode=mode,
+                              logits_whole=False)
+                local = last_logits(cfg, model, res.logits, whole=False)
+                ids = greedy(cfg, model, local)
+            out.append(last_logits(cfg, model, res.logits).float().cpu())
+            tokens, mode = ids[:, None], "decode"
+    return out, torch.stack([x.argmax(-1) for x in out], 1)
+
+
+def combine_reckoning(cfg, batch: int, max_seq: int, variant: str, tp: int) -> dict:
+    """The bytes one decode step moves over 'model' for the sequence-sharded
+    cache leaves: gathered (every such leaf whole, the all-gather's result)
+    against combined (two all-reduces a layer: each (row, head)'s max, and
+    its sum and unnormalised P V or latent, f32)."""
+    gathered = combined = 0
+    for kind in cfg.layer_kinds:
+        if kind in ("attn", "local") and variant == "kv-seq-sharded" \
+                and cfg.num_kv_heads % tp:
+            s_cache = min(max_seq, cfg.window) if kind == "local" else max_seq
+            if s_cache % tp == 0:
+                gathered += 2 * batch * cfg.num_kv_heads * s_cache * cfg.head_dim * 2
+                combined += batch * cfg.num_heads * (cfg.head_dim + 2) * 4
+        elif kind == "mla" and max_seq % tp == 0:
+            m = cfg.mla
+            gathered += batch * max_seq * (m.kv_lora_rank + m.qk_rope_head_dim) * 2
+            combined += batch * cfg.num_heads * (m.kv_lora_rank + 2) * 4
+    return {"gathered": gathered, "combined": combined}
+
+
+def combine_paths(n: int, dev, say) -> dict:
+    """Decode through the dry run's sharded-cache serving layout on (1, n),
+    real tensors: recurrentgemma-9b under `kv-seq-sharded` (one KV head;
+    its local layers' ring buffer) and minicpm3-4b's latent cache in the
+    baseline layout, where each rank attends over its own slots and the
+    peers' partial softmaxes are combined.  In f32 at COMBINE_CASES' depth
+    (COMBINE_PROMPT + COMBINE_STEPS, a cache of 100), the logits of every
+    step against rank 0's unsharded run within COMBINE_TOL, the same ids;
+    in bf16 whole, phase 7's prompts of 512 (the cache rounded up to
+    COMBINE_SERVE_SEQ slots, so it divides), COMBINE_SERVE_TOKENS ids beside
+    the first of phase 7's; the
+    bytes a decode step sends over 'model' (counted) beside the gather's
+    and the combine's reckoning."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.shardings import init_sharded
+
+    rank = dist.get_rank()
+    mesh = make_mesh((1, n), TP_AXES, dev)
+    one_card = json.loads(Path(os.environ["CHIP_SMOKE_SERVED"]).read_text())
+    out = {}
+    for arch, (layers, variant, cuts) in COMBINE_CASES.items():
+        cfg = dataclasses.replace(configs.get(arch), num_layers=layers, dtype="float32", **cuts)
+        prompts = tp_prompts(cfg, COMBINE_PROMPT)
+        max_seq = COMBINE_PROMPT + COMBINE_STEPS
+        want = None
+        if rank == 0:
+            model = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED), dev)
+            with torch.inference_mode():
+                want = tp_greedy(cfg, model, prompts, COMBINE_STEPS, max_seq, dev)
+            del model
+            gc.collect()
+            torch.cuda.empty_cache()
+        dist.barrier()
+        model = init_sharded(cfg, torch.Generator(device=dev).manual_seed(SEED), dev, mesh,
+                             fsdp=False)
+        split, caches = combine_layout(cfg, model, mesh, 4, max_seq, variant, dev)
+        sharded = sorted(f"{i}.{k}" for i, c in enumerate(caches)
+                         for k in ("k", "v", "c_kv", "k_rope")
+                         if hasattr(c["mix"].get(k), "device_mesh"))
+        got = combine_greedy(cfg, model, mesh, split, caches, prompts.to(dev), COMBINE_STEPS)
+        del model, caches
+        gc.collect()
+        torch.cuda.empty_cache()
+        every = [None] * dist.get_world_size()
+        dist.all_gather_object(every, got[1].tolist())
+        if rank == 0:
+            errs = [max_err(g, w, COMBINE_TOL, COMBINE_TOL)
+                    for g, w in zip(got[0], want[0], strict=True)]
+            same = torch.equal(got[1], want[1]) and all(x == every[0] for x in every)
+            say(f"mesh combine {arch} ({layers} layers, f32, {variant}"
+                f"{', ' + str(cuts) if cuts else ''}, 4 x ({COMBINE_PROMPT} + "
+                f"{COMBINE_STEPS}), a cache of {max_seq}) on (1, {n}), sequence-sharded cache "
+                f"leaves {sharded}: logits max|err| prefill and decode steps against one card "
+                f"{[round(e, 8) for e, _ in errs]} (tol {COMBINE_TOL} + {COMBINE_TOL}|want|), "
+                f"ids equal to one card's and on every rank {same}")
+            if not sharded or not all(ok for _, ok in errs) or not same:
+                raise AssertionError(f"{arch}: decode through the sharded caches differs "
+                                     f"from one card")
+            out[f"{arch} f32"] = {"errs": [e for e, _ in errs], "sharded": sharded}
+
+        # whole, bf16, phase 7's requests
+        cfg = configs.get(arch)
+        model = init_sharded(cfg, torch.Generator(device=dev).manual_seed(SEED), dev, mesh,
+                             fsdp=False)
+        prompts = tp_prompts(cfg, 512)
+        split, caches = combine_layout(cfg, model, mesh, 4, COMBINE_SERVE_SEQ, variant, dev)
+        counter = dryrun.CollectiveCounter()
+        t0 = time.perf_counter()
+        _, ids = combine_greedy(cfg, model, mesh, split, caches, prompts.to(dev),
+                                COMBINE_SERVE_TOKENS, counter)
+        wall = time.perf_counter() - t0
+        del model, caches
+        gc.collect()
+        torch.cuda.empty_cache()
+        if rank == 0:
+            mine = {i: one_card[arch][str(i)][:COMBINE_SERVE_TOKENS] for i in range(4)}
+            agree = sum(a == b for i in range(4) for a, b in
+                        zip(ids[i].tolist(), mine[i], strict=True)) / (4 * COMBINE_SERVE_TOKENS)
+            sent = counter.result()
+            reckoned = combine_reckoning(cfg, 4, COMBINE_SERVE_SEQ, variant, n)
+            say(f"mesh combine {arch} whole ({cfg.num_layers} layers, bf16, {variant}) on (1, "
+                f"{n}), 4 x (512 + {COMBINE_SERVE_TOKENS}), a cache of {COMBINE_SERVE_SEQ}: "
+                f"{wall:.1f} s; ids agree with phase 7's one card's first {COMBINE_SERVE_TOKENS} "
+                f"at {agree * 100:.1f} % of positions (not gated); a "
+                f"decode step's collectives over the mesh (counted, result bytes) {sent}; the "
+                f"sequence-sharded leaves' bytes a step, gathered {reckoned['gathered']} "
+                f"against combined {reckoned['combined']} (reckoned)")
+            out[arch] = {"agreement": agree, "sent": sent, "reckoned": reckoned, "wall_s": wall}
     return out
 
 
@@ -2858,9 +3250,14 @@ def elastic_path(n: int, dev, say) -> dict:
 def mesh_paths(n: int, dev, say) -> dict:
     """Phase 9's mesh paths (four cards), tensor parallel over 'model' where
     the mesh has it: the TP parity of serving, command-r-plus-104b served
-    whole on (1, 4) and trained at 4 layers, the TP parity of training,
-    check 3 at 1 and 4 layers and the EP exchange, recurrentgemma-9b whole
-    on (2, 2), rwkv6-3b whole on (1, 4), check 4, check 5."""
+    whole on (1, 4) and trained at 4 layers (with and without sequence
+    parallelism), the TP parity of training, check 3 at 1 and 4 layers and
+    the EP exchange, recurrentgemma-9b whole on (2, 2) and rwkv6-3b whole on
+    (1, 4) (each with and without sequence parallelism; the training parity
+    also holds the sequence-parallel step and the vocab-parallel loss to
+    TP's and the gathered logits'), qwen3-moe with sequence parallelism
+    and under `moe-ep-data`, decode combined over sequence-sharded caches,
+    check 4, check 5."""
     paths = {"tp_serve_parity": lambda: tp_serve_parity(n, dev, say),
              "tp_serve": lambda: tp_serve_whole(n, dev, say),
              "command_r_train": lambda: tp_command_r_train(n, dev, say),
@@ -2868,7 +3265,13 @@ def mesh_paths(n: int, dev, say) -> dict:
              "moe_1": lambda: mesh_moe(n, dev, say, 1), "moe_4": lambda: mesh_moe(n, dev, say, 4),
              "ep_exchange": lambda: time_ep_exchange(dev, say),
              "griffin": lambda: tp_whole("recurrentgemma-9b", (2, 2), n, dev, say),
+             "griffin_sp": lambda: sp_whole("recurrentgemma-9b", (2, 2), n, dev, say,
+                                            out["griffin"].get("reference_loss")),
              "rwkv": lambda: tp_whole("rwkv6-3b", (1, n), n, dev, say),
+             "rwkv_sp": lambda: sp_whole("rwkv6-3b", (1, n), n, dev, say,
+                                         out["rwkv"].get("reference_loss")),
+             "moe_sp_ep": lambda: moe_sp_and_ep(n, dev, say),
+             "combine": lambda: combine_paths(n, dev, say),
              "pipeline": lambda: pipeline_paths(n, dev, say),
              "elastic": lambda: elastic_path(n, dev, say)}
     out = {}
@@ -2951,6 +3354,14 @@ def multi_card(n: int, main_losses: list[float], moe_losses: list[float]) -> dic
               f"first step's is the forward's alone; rtol {LOSS_RTOL})")
         if max(diff) > LOSS_RTOL:
             raise AssertionError(f"{MOE_ARCH} on (2, 2) differs from one card: {diff}")
+        for name, run in res["mesh"]["moe_sp_ep"].items():
+            diff = [abs(a - b) / abs(b) for a, b in zip(run["losses"], moe_losses, strict=True)]
+            print(f"mesh train {MOE_ARCH} 1 layer on (2, 2), {name}, against phase 8's "
+                  f"unsharded run on one card: losses {run['losses']} against {moe_losses}, "
+                  f"relative differences {diff} (rtol {LOSS_RTOL})")
+            if max(diff) > LOSS_RTOL:
+                raise AssertionError(f"{MOE_ARCH} on (2, 2), {name}, differs from one card: "
+                                     f"{diff}")
     return res
 
 
@@ -3987,7 +4398,9 @@ def twin_paths() -> dict:
 DRYRUN_CELLS = (("stablelm-3b", "train_4k", "pod", "baseline"),
                 ("whisper-base", "prefill_32k", "multipod", "baseline"),
                 ("qwen3-moe-235b-a22b", "decode_32k", "pod", "moe-ep-data"),
-                ("rwkv6-3b", "long_500k", "multipod", "baseline"))
+                ("rwkv6-3b", "long_500k", "multipod", "baseline"),
+                ("stablelm-3b", "train_4k", "pod", "seq-parallel"),
+                ("command-r-plus-104b", "decode_32k", "pod", "kv-seq-sharded"))
 
 
 def dryrun_cells() -> None:

@@ -18,33 +18,35 @@ The steps (`run_step`) are the port's own: train is
 in `train()`'s gspmd layout (rows over the batch axes, the 'model' peers
 splitting the projections: tensor parallelism); prefill is what
 `models.prefill` runs (the forward in "prefill" mode, into the cell's
-caches) and decode `models.decode_step` against full caches of the cell's
-`seq_len`.  A serving cell traces one rank's step as `serve_requests` runs
+caches, the last position's logits gathered) and decode
+`models.decode_step` against full caches of the cell's `seq_len`.  A serving cell traces one rank's step as `serve_requests` runs
 it on a mesh: the batch rows split over `batch_axes(mesh)` (whole on every
 rank where they do not divide), the projections split over 'model', and
 the caches held as `cache_shardings` lays them out: a leaf whose 'model'
 shard is what the block computes (the local KV heads where they divide) is
-that plain local tensor; a leaf sharded otherwise (the MLA latent's
-sequence, `kv-seq-sharded`, the odd 'data' of `slot_pos`) is a DTensor
-shard that the block gathers where it reads the cache, and a leaf the block
-computes a part of but the rule keeps whole or shards otherwise (RG-LRU
-states, KV heads that do not divide) is cut to the block's part and its
-update gathered back over 'model' (`models.sharding`, inside
-`activation_sharding(..., sharded_caches=True)`).
+that plain local tensor; a leaf sharded on its sequence over 'model' (the
+MLA latent, `kv-seq-sharded` K/V) is a DTensor shard whose slots decode
+reads in place, combining the peers' partial softmaxes; any other sharded
+leaf (the odd 'data' of `slot_pos`) is a DTensor shard that the block
+gathers where it reads the cache, and a leaf the block computes a part of
+but the rule keeps whole or shards otherwise (RG-LRU states, KV heads that
+do not divide) is cut to the block's part and its update gathered back
+over 'model' (`models.sharding`, inside `activation_sharding(...,
+sharded_caches=True)`).
 
 The variants are the reference's:
   serve-tp-params : `param_shardings(..., fsdp=False)`;
   moe-ep-data     : `moe_expert_axis="data"`: the expert stacks stay sharded
                     over 'data', and the MoE exchanges tokens over 'data';
   kv-seq-sharded  : `cache_shardings(kv_seq_shard=True)`: a rank holds 1/16
-                    of the sequence and gathers the shards over 'model' where
-                    attention reads the cache (GSPMD would instead insert a
-                    partial-softmax combine; the port's choice differs);
+                    of the sequence, and decode combines the peers' partial
+                    softmaxes over their slots, as GSPMD's combine;
   logits-sharded  : the vocab-parallel logits are not gathered, so the
                     decode logits stay (B_local, V / 16) (where V divides);
-  seq-parallel    : traced as the baseline: the port keeps the sequence
-                    whole (`models.sharding` reads only whether a rule is
-                    set), and the cell's JSON says so (`seq_parallel_note`);
+  seq-parallel    : the train step of `make_train_step(...,
+                    seq_parallel=True)`: the residual stream sharded on its
+                    sequence over 'model', the projections' all-reduces
+                    reduce-scatters and all-gathers;
   remat-dots, remat-none, moe-vmap : the config tweaks.
 
 What a cell records (the reference's keys where they mean the same):
@@ -73,8 +75,12 @@ over-estimate by the largest such copy, reported, not gated.
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch rwkv6-3b --shape train_4k --mesh pod
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all --mesh both
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --all --shape train_4k --mesh both \\
+      --variant baseline --variant seq-parallel
 More than one cell to trace runs one worker process a core (a cell holds
-one), at most one a cell.
+one), at most one a cell, the cells of the recurrent archs (their plain
+T-step loops) first.  With --all, --shape and --arch (a comma-separated
+list) keep only their cells; each --variant given sweeps them again.
 """
 from __future__ import annotations
 
@@ -96,7 +102,7 @@ from torch.utils.flop_counter import FlopCounterMode
 from repro_torch import configs
 from repro_torch.data import make_batch_specs
 from repro_torch.models import SHAPES, forward, init_caches, init_params
-from repro_torch.models.model import cache_cuts
+from repro_torch.models.model import cache_cuts, last_logits
 from repro_torch.models.sharding import TokenSplit, activation_sharding
 from repro_torch.optim import adamw_init
 
@@ -132,7 +138,7 @@ _KINDS = {
     # a shift is one send and one receive: counted once, at the receive
     "recv_": "collective-permute", "recv_any_source_": "collective-permute",
 }
-_UNCOUNTED = {"send", "wait_tensor", "barrier"}
+_UNCOUNTED = {"send", "wait_tensor", "barrier", "_wrap_tensor_autograd"}
 _NAMESPACES = ("c10d", "_c10d_functional", "_c10d_functional_autograd")
 
 
@@ -336,7 +342,7 @@ def build_rank(cfg, shape, mesh, tweaks: set, lay, split: TokenSplit) -> Rank:
                 fsdp="serve-tp-params" not in tweaks)
     if shape.mode == "train":
         tc = TrainConfig(batch_size=shape.global_batch, grad_sync="gspmd")
-        step = make_train_step(tc, lay, mesh)
+        step = make_train_step(tc, lay, mesh, seq_parallel="seq-parallel" in tweaks)
         rank = Rank(model, "train", {}, split, adamw_init(list(model.parameters())),
                     step_fn=step, mesh=mesh)
     else:
@@ -358,8 +364,9 @@ def run_step(rank: Rank, cfg, shape, tweaks: set):
                                               rank.split, sharded_caches=True):
         # `models.prefill`, into the sharded caches; `models.decode_step`
         out = forward(cfg, rank.model, rank.batch, caches=rank.caches, mode=rank.mode,
-                      logits_whole="logits-sharded" not in tweaks)
-        return out.logits[:, -1, :], out.caches
+                      logits_whole=False)
+        return (last_logits(cfg, rank.model, out.logits, "logits-sharded" not in tweaks),
+                out.caches)
 
 
 def trace_step(cfg, shape, mesh, variant: str = "baseline") -> dict:
@@ -461,14 +468,6 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, variant: str = "baselin
     }
     if m1["logits_shape"] is not None:
         result["logits_shape"] = m1["logits_shape"]
-    if "kv-seq-sharded" in variant:
-        result["kv_seq_note"] = ("each rank holds 1/16 of the sequence and gathers the "
-                                 "shards over 'model' where attention reads the cache; "
-                                 "GSPMD would insert a partial-softmax combine")
-    if "seq-parallel" in variant:
-        result["seq_parallel_note"] = ("traced as the baseline: the port keeps the sequence "
-                                       "whole, where the reference shards the block outputs' "
-                                       "sequence over 'model'")
     return result
 
 
@@ -485,19 +484,26 @@ def _run_tagged(job: tuple) -> tuple:
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default=None)
-    ap.add_argument("--shape", default=None)
+    ap.add_argument("--arch", default=None,
+                    help="an arch, or with --all a comma-separated list of them")
+    ap.add_argument("--shape", default=None, help="a shape; with --all, only its cells")
     ap.add_argument("--mesh", choices=["pod", "multipod", "both"], default="pod")
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--out", default="results/dryrun_torch")
-    ap.add_argument("--variant", default="baseline",
-                    help="comma-separated tweaks: " + ", ".join(VARIANTS))
+    ap.add_argument("--variant", action="append", default=None,
+                    help="comma-separated tweaks: " + ", ".join(VARIANTS)
+                    + "; given again, another sweep in the same pool")
     args = ap.parse_args(argv)
-    _apply_variant(configs.get("stablelm-3b"), args.variant)  # a bad name fails first
+    variants = args.variant or ["baseline"]
+    for variant in variants:  # a bad name fails first
+        _apply_variant(configs.get("stablelm-3b"), variant)
 
     cells: list[tuple[str, str]] = []
     if args.all:
+        archs = None if args.arch is None else args.arch.split(",")
         for a, s in configs.cells():
+            if (archs is not None and a not in archs) or args.shape not in (None, s):
+                continue
             ok, why = configs.runnable(a, s)
             if ok:
                 cells.append((a, s))
@@ -511,15 +517,19 @@ def main(argv=None):
 
     os.makedirs(args.out, exist_ok=True)
     jobs = []
-    for arch, shp in cells:
-        for mk in meshes:
-            tag = f"{arch}__{shp}__{mk}"
-            if args.variant != "baseline":
-                tag += "__" + args.variant.replace(",", "+")
-            if os.path.exists(os.path.join(args.out, tag + ".json")):
-                print(f"CACHED {tag}")
-                continue
-            jobs.append((arch, shp, mk, args.variant, tag))
+    for variant in variants:
+        for arch, shp in cells:
+            for mk in meshes:
+                tag = f"{arch}__{shp}__{mk}"
+                if variant != "baseline":
+                    tag += "__" + variant.replace(",", "+")
+                if os.path.exists(os.path.join(args.out, tag + ".json")):
+                    print(f"CACHED {tag}")
+                    continue
+                jobs.append((arch, shp, mk, variant, tag))
+    # the cells that trace the plain T-step recurrences take minutes: first
+    jobs.sort(key=lambda job: not any(k in ("rglru", "rwkv6")
+                                      for k in configs.get(job[0]).pattern))
     workers = min(len(jobs), os.cpu_count() or 1)
     if workers > 1:
         import multiprocessing

@@ -24,6 +24,7 @@ import torch
 from repro_torch import configs
 from repro_torch._device import resolve_device
 from repro_torch.models import decode_step, init_params, prefill
+from repro_torch.models.model import greedy
 
 
 @dataclasses.dataclass
@@ -51,15 +52,17 @@ def serve_requests(cfg, model, requests: list[Request], max_seq: int,
     the same requests inside `models.sharding.activation_sharding(mesh,
     launch.shardings.activation_rules(mesh))`; each rank computes its heads
     and channels, its caches hold them, and every rank returns the same
-    tokens."""
+    tokens.  The greedy pick reads each rank's vocab slice of the logits
+    (`models.model.greedy`), so no rank holds the whole vocab's."""
     dev = resolve_device(device)
     if model.device.type != dev.type:
         raise ValueError(f"model on {model.device}, serving on {dev}")
     batch = len(requests)
     prompts = torch.from_numpy(np.stack([r.prompt for r in requests])).to(model.device)
     t0 = time.perf_counter()
-    logits, caches = prefill(cfg, model, {"tokens": prompts}, max_seq=max_seq)
-    tok = torch.argmax(logits, dim=-1)[:, None]
+    logits, caches = prefill(cfg, model, {"tokens": prompts}, max_seq=max_seq,
+                             logits_whole=False)
+    tok = greedy(cfg, model, logits)[:, None]
     host_tok = tok.cpu()  # waits for the device
     dt = time.perf_counter() - t0
     n = prompts.numel()
@@ -74,8 +77,8 @@ def serve_requests(cfg, model, requests: list[Request], max_seq: int,
                 r.out.append(t)
         if i == budget - 1:
             break
-        logits, caches = decode_step(cfg, model, tok, caches)
-        tok = torch.argmax(logits, dim=-1)[:, None]
+        logits, caches = decode_step(cfg, model, tok, caches, logits_whole=False)
+        tok = greedy(cfg, model, logits)[:, None]
         host_tok = tok.cpu()
     dt = time.perf_counter() - t0
     # the first token of each request came from prefill; count only decode's

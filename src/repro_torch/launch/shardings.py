@@ -30,8 +30,9 @@ block reads it (on use, inside the block's remat) to its compute layout:
 the tensor-parallel leaves keep their 'model' shard (`tp_role`: the
 reference's column- and row-parallel projections and vocab shards, where the
 block's heads, channels or vocab divide by the 'model' size), every other
-axis is gathered (FSDP), and the expert stacks keep E sharded; the gradient
-comes back as this rank's shard of the sum.
+axis is gathered (FSDP), and the expert stacks keep E sharded (and, under
+`moe_expert_axis="data"`, their d_ff over 'model': tensor parallelism inside
+each expert); the gradient comes back as this rank's shard of the sum.
 """
 from __future__ import annotations
 
@@ -312,6 +313,9 @@ def tp_role(name: str, cfg, kinds, tp: int, moe_expert_axis: str = "model"):
         if leaf == "router":               # read on the tokens cut over 'model'
             cut = moe_expert_axis == "model" and divides(cfg.moe.num_experts, tp)
             return "part" if cut else "whole"
+        if moe_expert_axis == "data" and divides(cfg.moe.d_ff_expert, tp):
+            # d_ff over 'model' inside each expert: (E, d, ff) and (E, ff, d)
+            return ("expert", 1 if leaf == "w_down" else 2)
         return "expert"
     return _mlp_role(leaf, cfg.d_ff, tp)
 
@@ -321,10 +325,12 @@ def compute_layout(mesh, pl: tuple, role) -> tuple[tuple, tuple]:
     batch axes gathered, the gradient partial over them (their ranks hold
     distinct rows); over 'model' the role's shard kept, or the leaf
     gathered with its gradient whole ("whole") or partial ("part").  An
-    expert stack keeps E (dim 0) sharded over whichever axis shards it."""
+    expert stack ("expert", or ("expert", d) with its d_ff dim d kept over
+    'model') keeps E (dim 0) sharded over whichever axis shards it."""
+    expert = role == "expert" or (isinstance(role, tuple) and role[0] == "expert")
     gather_to, grad_to = [], []
     for ax, p in zip(axis_sizes(mesh), pl, strict=True):
-        if role == "expert" and isinstance(p, Shard) and p.dim == 0:
+        if expert and isinstance(p, Shard) and p.dim == 0:
             gather_to.append(p)
             grad_to.append(p)
         elif ax != "model":

@@ -225,13 +225,15 @@ def _pmean(x: torch.Tensor, world: World) -> torch.Tensor:
     return x
 
 
-def make_train_step(tc: TrainConfig, lay: Layout, mesh=None):
+def make_train_step(tc: TrainConfig, lay: Layout, mesh=None, seq_parallel: bool = False):
     """step(model, opt_state, batch, ef) -> (opt_state, metrics, ef): the
     loss of the model's own config (`model.cfg`); the model's parameters are
     updated in place, and `ef` is the error feedback state of
-    `bridge-compressed` (None for the other modes)."""
+    `bridge-compressed` (None for the other modes).  `seq_parallel`: the
+    reference's `build_train_step(cfg, mesh, seq_parallel)`, the residual
+    stream sharded on its sequence over 'model' (`activation_rules`)."""
     lr = cosine_warmup_schedule(tc.lr, tc.warmup, tc.steps)
-    rules = {} if mesh is None else activation_rules(mesh)
+    rules = {} if mesh is None else activation_rules(mesh, seq_parallel)
 
     def step(model: Model, opt_state, batch: dict, ef=None):
         params = list(model.parameters())

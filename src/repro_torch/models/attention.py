@@ -33,10 +33,24 @@ keeps the KV heads its query heads read (`tensor_parallel.kv_heads`, from wk
 and wv gathered whole).  The caches hold those local heads.  MLA splits its
 heads (w_uq, w_uk, w_uv, wo), its down projections and the latent cache stay
 whole.  Heads that do not divide: the block computes them all, replicated.
+Under sequence parallelism a block reads the sequence gathered and writes
+its output back to this rank's slice (`tensor_parallel.enter`, `leave`).
+
+Sequence-sharded caches (a cache dict with `"shard": (offset, whole)`,
+`models.sharding.gathered_cache`: this rank holds slots [offset, offset +
+n) of the whole cache, `kv-seq-sharded` K/V or MLA's latents): decode
+attends every head over this rank's slots only and combines the 'model'
+peers' partial softmaxes, the flash-decoding combine GSPMD inserts (each
+rank's max m_r, sum l_r and unnormalised P V in float32, rescaled by
+exp(m_r - m) and summed; a rank with no valid slot adds zero).  The query
+heads, and the new token's K/V where the KV heads split, are gathered over
+'model' first (B H D a step, against the whole cache for a gather), and the
+new token is written only by the rank whose slots hold it.
 """
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
 from ..kernels.flash_attention.ops import flash_attention
 from . import layers
@@ -60,6 +74,65 @@ def _decode_attend(q, k_cache, v_cache, slot_pos, q_pos, window):
     p = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhgs,bhsd->bhgd", p, v_cache.float())
     return out.reshape(b, hq, 1, hd).to(q.dtype)
+
+
+def _combine(m, l, o):
+    """Every 'model' peer's partial softmax over its slots, combined: m
+    (...,) its max (-inf: no valid slot), l (...,) its sum of exp(s - m), o
+    (..., D) its unnormalised P V, all float32.  Returns the normalised
+    (..., D), the same on every peer."""
+    g = tp.group()
+    mm = m.clone()
+    dist.all_reduce(mm, op=dist.ReduceOp.MAX, group=g)
+    c = torch.exp(m - mm)                               # 0 where m = -inf
+    sums = torch.cat([(l * c)[..., None], o * c[..., None]], -1)
+    dist.all_reduce(sums, group=g)
+    return sums[..., 1:] / sums[..., :1]
+
+
+def _partial_softmax(scores, valid):
+    """(m, l, p) of scores (..., n) over the valid slots: the max (-inf
+    where none is valid), the sum of exp(s - m) and the unnormalised
+    weights (zero at an invalid slot)."""
+    scores = scores.masked_fill(~valid, float("-inf"))
+    m = scores.amax(-1)
+    p = torch.exp(scores - torch.where(torch.isinf(m), 0.0, m)[..., None])
+    return m, p.sum(-1), p
+
+
+def _heads(t, split: bool):
+    """Every rank's heads (dim 1) of this rank's `t`, where they split."""
+    return tp.gather(t, 1) if split else t
+
+
+def _mine(t, split: bool):
+    """This rank's heads (dim 1) of every head's `t`."""
+    return tp.cut(t, 1) if split else t
+
+
+def _decode_sharded(cache, q, k, v, pos, window, split):
+    """One decode step against a sequence-sharded cache: q (B, Hq, 1, hd)
+    and the new token's k, v (B, Hkv, 1, hd) of every head, the cache's
+    local slots.  Returns this rank's heads of the output, (B, hq, 1, hd)."""
+    lo, whole = cache["shard"]
+    n = cache["k"].shape[2]
+    slot = pos % whole             # ring buffer (== pos for global caches)
+    if lo <= slot < lo + n:
+        cache["k"][:, :, slot - lo] = k[:, :, 0]
+        cache["v"][:, :, slot - lo] = v[:, :, 0]
+    cache["slot_pos"][slot] = pos
+    slot_pos = cache["slot_pos"][lo:lo + n]
+    b, hq, _, hd = q.shape
+    hkv = k.shape[1]
+    qg = (q.float() * (hd ** -0.5)).reshape(b, hkv, hq // hkv, hd)
+    scores = torch.einsum("bhgd,bhsd->bhgs", qg, cache["k"].float())
+    valid = (slot_pos >= 0) & (slot_pos <= pos)
+    if window is not None:
+        valid &= slot_pos > pos - window
+    m, l, p = _partial_softmax(scores, valid)
+    o = torch.einsum("bhgs,bhsd->bhgd", p, cache["v"].float())
+    out = _combine(m, l, o).reshape(b, hq, 1, hd).to(q.dtype)
+    return _mine(out, split)
 
 
 def init_attention(cfg: ArchConfig, generator, dtype):
@@ -111,12 +184,14 @@ def attention_block(cfg: ArchConfig, p, x, positions, *, kind: str, cache=None,
                     bidirectional: bool = False):
     """x: (B, S, d).  Returns (y, cache) — the cache updated in place.
     `bidirectional` (whisper's encoder) drops the causal mask."""
-    b, s, d = x.shape
     hd = cfg.head_dim
     window = cfg.window if kind == "local" else None
     split = tp.is_split(p, "wq")
-    xi = tp.copy(x) if split else x
-    wk, wv = _kv_weights(cfg, p)
+    xi = tp.enter(x, split)
+    b, s = xi.shape[:2]
+    sharded = cache is not None and "shard" in cache
+    # against a sequence-sharded cache the new token's K/V of every KV head
+    wk, wv = (p["wk"], p["wv"]) if sharded and not tp.is_split(p, "wk") else _kv_weights(cfg, p)
     hq, hkv = p["wq"].shape[1] // hd, wk.shape[1] // hd     # this rank's heads
     q = _split_heads(layers.dot(xi, p["wq"]).to(x.dtype), hq, hd)
     k = _split_heads(layers.dot(xi, wk).to(x.dtype), hkv, hd)
@@ -124,7 +199,12 @@ def attention_block(cfg: ArchConfig, p, x, positions, *, kind: str, cache=None,
     q = layers.apply_rope(q, positions, cfg.rope_theta)
     k = layers.apply_rope(k, positions, cfg.rope_theta)
 
-    if cache is not None and s == 1:  # decode: one token
+    if sharded and s == 1:  # decode against this rank's slots of the cache
+        kv_split = tp.is_split(p, "wk")
+        out = _decode_sharded(cache, _heads(q, split), _heads(k, kv_split),
+                              _heads(v, kv_split), cache["pos"], window, split)
+        cache["pos"] += 1
+    elif cache is not None and s == 1:  # decode: one token
         pos = cache["pos"]
         slot = pos % cache["k"].shape[2]  # ring buffer (== pos for global caches)
         cache["k"][:, :, slot] = k[:, :, 0]
@@ -194,12 +274,13 @@ def init_mla_cache(cfg: ArchConfig, batch: int, max_seq: int, dtype, device):
 def mla_block(cfg: ArchConfig, p, x, positions, *, cache=None):
     """x: (B, S, d).  Returns (y, cache) — the latent cache written in place."""
     m = cfg.mla
-    b, s, _ = x.shape
     nope, rope_d, vd = m.qk_nope_head_dim, m.qk_rope_head_dim, m.v_head_dim
     h = p["w_uq"].shape[1] // (nope + rope_d)                     # this rank's heads
     split = tp.is_split(p, "w_uq")
     scale = (nope + rope_d) ** -0.5
 
+    x = tp.enter(x, False)             # on a slice: the sequence gathered
+    b, s, _ = x.shape
     cq = layers.dot(x, p["w_dq"]).to(x.dtype)                      # (B,S,rq)
     dkv = layers.dot(x, p["w_dkv"]).to(x.dtype)                    # (B,S,rkv+rope)
     if split:  # the down projections' outputs feed every rank's heads
@@ -225,19 +306,28 @@ def mla_block(cfg: ArchConfig, p, x, positions, *, cache=None):
             cache["pos"] = s
     else:  # decode with weight absorption: attend in latent space
         pos = cache["pos"]
-        cache["c_kv"][:, pos] = c_kv[:, 0]
-        cache["k_rope"][:, pos] = k_rope[:, 0]
+        sharded = "shard" in cache
+        lo, n = cache["shard"][0] if sharded else 0, cache["c_kv"].shape[1]  # this rank's slots
+        if lo <= pos < lo + n:
+            cache["c_kv"][:, pos - lo] = c_kv[:, 0]
+            cache["k_rope"][:, pos - lo] = k_rope[:, 0]
         c_all, kr_all = cache["c_kv"].float(), cache["k_rope"].float()
         w_uk = p["w_uk"].reshape(m.kv_lora_rank, h, nope).float()
         # absorb: q_abs[b,h,r] = sum_n q_nope[b,h,n] * w_uk[r,h,n]
         q_abs = torch.einsum("bhln,rhn->bhlr", q_nope.float(), w_uk)    # (B,H,1,rkv)
+        if sharded:  # every head over this rank's slots
+            q_abs, q_rope = _heads(q_abs, split), _heads(q_rope, split)
         scores = torch.einsum("bhlr,bsr->bhls", q_abs, c_all)
         scores = scores + torch.einsum("bhld,bsd->bhls", q_rope.float(), kr_all)
         scores = scores * scale
-        spos = torch.arange(c_all.shape[1], device=x.device)
-        scores = scores.masked_fill(spos > pos, float("-inf"))
-        w = torch.softmax(scores, dim=-1)
-        lat = torch.einsum("bhls,bsr->bhlr", w, c_all)
+        spos = torch.arange(lo, lo + n, device=x.device)
+        if sharded:
+            mx, sm, w = _partial_softmax(scores, spos <= pos)
+            lat = _mine(_combine(mx, sm, torch.einsum("bhls,bsr->bhlr", w, c_all)), split)
+        else:
+            scores = scores.masked_fill(spos > pos, float("-inf"))
+            w = torch.softmax(scores, dim=-1)
+            lat = torch.einsum("bhls,bsr->bhlr", w, c_all)
         w_uv = p["w_uv"].reshape(m.kv_lora_rank, h, vd).float()
         out = torch.einsum("bhlr,rhv->bhlv", lat, w_uv).to(x.dtype)
         cache["pos"] = pos + 1
@@ -257,12 +347,12 @@ def cross_attention_block(cfg: ArchConfig, p, x, enc_kv):
     """x: (B, S, d); enc_kv: (k, v) each (B, Hkv, S_enc, hd), contiguous
     (this rank's KV heads, `encode_cross_kv`).  Every query attends every
     frame (no mask)."""
-    b, s, _ = x.shape
     hd = cfg.head_dim
     split = tp.is_split(p, "wq")
     hq = p["wq"].shape[1] // hd
-    q = _split_heads(layers.dot(tp.copy(x) if split else x, p["wq"]).to(x.dtype),
-                     hq, hd).contiguous()
+    xi = tp.enter(x, split)
+    b, s, _ = xi.shape
+    q = _split_heads(layers.dot(xi, p["wq"]).to(x.dtype), hq, hd).contiguous()
     k, v = enc_kv
     out = flash_attention(q, k, v, False, None)
     y = out.transpose(1, 2).reshape(b, s, hq * hd)

@@ -10,7 +10,10 @@ Under tensor parallelism (`tensor_parallel`; a parameter group read with its
 'model' shards kept) the FFNs run column-parallel then row-parallel, the row
 product's float32 partial sums all-reduced before the cast (as XLA reduces
 a `preferred_element_type=f32` product before the model's `astype`), and
-the embedding and unembedding run vocab-parallel.
+the embedding and unembedding run vocab-parallel.  Under sequence
+parallelism the FFNs and the embedding read and write the residual stream's
+slice of the sequence (`tensor_parallel.enter`, `leave`): the row product's
+partial sums are reduce-scattered, in float32 before the cast.
 """
 from __future__ import annotations
 
@@ -112,15 +115,16 @@ def init_swiglu(generator, d, d_ff, dtype):
 
 
 def row_parallel(h, w, split: bool):
-    """h @ w in float32: where `split`, this rank's rows of w, the partial
-    products summed over 'model'."""
-    y = dot(h, w)
-    return tp.reduce(y) if split else y
+    """A block's output h @ w in float32 as the residual stream holds it
+    (`tensor_parallel.leave`): where `split`, this rank's rows of w, the
+    partial products summed over 'model' (and on a sequence slice, cut to
+    this rank's slice)."""
+    return tp.leave(dot(h, w), split)
 
 
 def swiglu(p, x):
     split = tp.is_split(p, "w_gate")
-    xi = tp.copy(x) if split else x
+    xi = tp.enter(x, split)
     g = dot(xi, p["w_gate"])
     u = dot(xi, p["w_up"])
     h = (F.silu(g) * u).to(x.dtype)
@@ -147,12 +151,14 @@ def gelu_mlp(p, x):
     """`jax.nn.gelu` defaults to the tanh approximation; `F.gelu` to the
     exact erf form, so the approximation is named here.  Under tensor
     parallelism b_in is cut to the rank's channels and b_out added once,
-    after the reduce."""
+    after the reduce (on the residual stream's slice under sequence
+    parallelism)."""
     split = tp.is_split(p, "w_in")
-    xi = tp.copy(x) if split else x
+    xi = tp.enter(x, split)
     b_in = local_cols(p["b_in"], p["w_in"].shape[1]) if split else p["b_in"]
     h = F.gelu(dot(xi, p["w_in"]) + b_in.float(), approximate="tanh")
-    return (row_parallel(h.to(x.dtype), p["w_out"], split) + p["b_out"].float()).to(x.dtype)
+    y = row_parallel(h.to(x.dtype), p["w_out"], split)
+    return (y + tp.on_shard(p["b_out"]).float()).to(x.dtype)
 
 
 # --- embeddings / head -----------------------------------------------------------
@@ -163,29 +169,33 @@ def init_embedding(generator, vocab, d, dtype):
 
 
 def embed(p, tokens):
-    """The table's rows; vocab-parallel (the table's 'model' shard kept):
-    each rank looks up the tokens in its rows, zeros elsewhere, and the
-    rows are summed over 'model' (exact: one rank gives each token's row)."""
+    """The table's rows, as the residual stream holds them
+    (`tensor_parallel.leave`); vocab-parallel (the table's 'model' shard
+    kept): each rank looks up the tokens in its rows, zeros elsewhere, and
+    the rows are summed over 'model' (exact: one rank gives each token's
+    row), under sequence parallelism reduce-scattered."""
     table = p["table"]
-    if not tp.is_split(p, "table"):
-        return table[tokens]
+    split = tp.is_split(p, "table")
+    if not split:
+        return tp.leave(table[tokens], False)
     n = table.shape[0]
     local = tokens - tp.rank() * n
     mine = (local >= 0) & (local < n)
     rows = table[local.clamp(0, n - 1)]
-    return tp.reduce(torch.where(mine[..., None], rows, torch.zeros_like(rows)))
+    return tp.leave(torch.where(mine[..., None], rows, torch.zeros_like(rows)), True)
 
 
 def unembed(p, x, gather: bool = True):
-    """Logits (float32); when tied, p is the embedding table.  Vocab-parallel,
-    each rank computes its vocab's logits and, where `gather`, they are
-    gathered over 'model' along the vocab (whole on every rank)."""
+    """Logits (float32) of the residual stream x (`tensor_parallel.enter`: on
+    a sequence slice, the sequence gathered); when tied, p is the embedding
+    table.  Vocab-parallel, each rank computes its vocab's logits and, where
+    `gather`, they are gathered over 'model' along the vocab (whole on every
+    rank)."""
     key = "table" if "table" in p else "w"
-    if not tp.is_split(p, key):
-        return dot(x, p["table"].T) if key == "table" else dot(x, p["w"])
+    split = tp.is_split(p, key)
     w = p["table"].T if key == "table" else p["w"]
-    logits = dot(tp.copy(x), w)
-    return tp.gather(logits, -1) if gather else logits
+    logits = dot(tp.enter(x, split), w)
+    return tp.gather(logits, -1) if split and gather else logits
 
 
 def init_unembed(generator, d, vocab, dtype):

@@ -298,21 +298,39 @@ def init_caches(cfg: ArchConfig, batch: int, max_seq: int,
 # --- stack apply --------------------------------------------------------------------
 
 
+# a cache leaf's sequence dim, where a sharded cache may hold it as its
+# 'model' shard (`kv-seq-sharded` K/V, MLA's latent cache)
+SEQ_DIMS = {"mix.k": 2, "mix.v": 2, "mix.c_kv": 1, "mix.k_rope": 1}
+
+
+def _norm(p, x):
+    """rmsnorm of the residual stream; on its sequence slice the scale's
+    gradient is each peer's part, summed (`tensor_parallel.on_shard`)."""
+    return layers.rmsnorm({"scale": tp.on_shard(p["scale"])}, x)
+
+
 def apply_block(cfg: ArchConfig, p: Block, kind: str, x, positions, *, cache=None,
-                enc_out=None, bidirectional: bool = False):
+                enc_out=None, bidirectional: bool = False, seq: bool = False):
     """Returns (x, cache, aux); the cache is updated in place: attention
     caches by the attention blocks, recurrent states and the cross K/V here.
     aux is the MoE FFN's auxiliary loss (a float32 tensor), 0.0 for the other
     FFNs.  A block with cross attention attends to `enc_out`'s K/V where it
     is given (train, prefill: prefill also stores them in the cache) and to
-    the cached ones in decode."""
+    the cached ones in decode.  `seq`: x is this rank's slice of the
+    sequence (sequence parallelism; `positions` stay the whole sequence's)."""
+    with sharding.sequence(seq):
+        return _apply_block(cfg, p, kind, x, positions, cache, enc_out, bidirectional)
+
+
+def _apply_block(cfg, p, kind, x, positions, cache, enc_out, bidirectional):
     held = cache  # a sharded cache: this rank's part here, its shards kept at the end
-    cut = {}
+    cut, local = {}, set()
     if cache is not None and sharding.caches_sharded():
-        cache = sharding.gathered_cache(cache, fresh=x.shape[1] > 1)
-        cache, cut = sharding.cut_cache(cache, cache_cuts(cfg, kind, tp.size(), "cross" in p),
-                                        tp.rank())
-    h = layers.rmsnorm(p["norm1"], x)
+        cache, local = sharding.gathered_cache(cache, fresh=x.shape[1] > 1, seq_dims=SEQ_DIMS)
+        cuts = {k: v for k, v in cache_cuts(cfg, kind, tp.size(), "cross" in p).items()
+                if k not in local}
+        cache, cut = sharding.cut_cache(cache, cuts, tp.rank())
+    h = _norm(p["norm1"], x)
     mix_cache = None if cache is None else cache["mix"]
     if kind in ("attn", "local"):
         y, new_mix = attention.attention_block(cfg, p["mix"], h, positions, kind=kind,
@@ -327,7 +345,7 @@ def apply_block(cfg: ArchConfig, p: Block, kind: str, x, positions, *, cache=Non
         raise ValueError(kind)
     x = x + y
     if "cross" in p:
-        hc = layers.rmsnorm(p["norm_cross"], x)
+        hc = _norm(p["norm_cross"], x)
         if enc_out is not None:  # train / prefill: fresh encoder output
             enc_kv = attention.encode_cross_kv(cfg, p["cross"], enc_out)
             if cache is not None:  # written in place, as every cache
@@ -336,7 +354,7 @@ def apply_block(cfg: ArchConfig, p: Block, kind: str, x, positions, *, cache=Non
         else:  # decode: cached cross K/V
             enc_kv = (cache["cross_k"], cache["cross_v"])
         x = x + attention.cross_attention_block(cfg, p["cross"], hc, enc_kv)
-    h = layers.rmsnorm(p["norm2"], x)
+    h = _norm(p["norm2"], x)
     if kind == "rwkv6":
         y, new_cmix = recurrent.rwkv_cmix(cfg, p["ffn"], h,
                                           state=None if cache is None else cache["cmix"])
@@ -350,7 +368,7 @@ def apply_block(cfg: ArchConfig, p: Block, kind: str, x, positions, *, cache=Non
         if cut:
             cache = sharding.uncut_cache(cache, cut, tp.group())
         if cache is not held:
-            sharding.keep_shards(held, cache)
+            sharding.keep_shards(held, cache, local)
     return sharding.shard(x + y, "act"), held, aux
 
 
@@ -392,43 +410,71 @@ class ModelOutput:
     aux_loss: torch.Tensor
 
 
-def _embed_inputs(cfg: ArchConfig, params: Model, batch: dict):
+def _embed_inputs(cfg: ArchConfig, params: Model, batch: dict, seq: bool = False):
     """(x, positions): the token embeddings, after the projected patches
-    where the frontend is `patch_stub` and the batch has `patches`."""
-    x = layers.embed(params["embed"], batch["tokens"].long()) * (cfg.d_model ** 0.5)
+    where the frontend is `patch_stub` and the batch has `patches`; `seq`:
+    x is this rank's slice of that sequence (sequence parallelism), the
+    positions the whole sequence's."""
+    patches = cfg.frontend == "patch_stub" and "patches" in batch
+    with sharding.sequence(seq and not patches):
+        x = layers.embed(params["embed"], batch["tokens"].long()) * (cfg.d_model ** 0.5)
     x = x.to(getattr(torch, cfg.dtype))
-    if cfg.frontend == "patch_stub" and "patches" in batch:
+    if patches:
         px = layers.linear(params["patch_proj"], batch["patches"])
         x = torch.cat([px.to(x.dtype), x], dim=1)
-    b, s = x.shape[:2]
+        x = tp.cut(x, 1) if seq else x
+    b, s = batch["tokens"].shape[0], _seq_len(cfg, batch)
     return sharding.shard(x, "act"), torch.arange(s, dtype=torch.int32,
                                                   device=x.device).expand(b, s)
 
 
+def _seq_len(cfg: ArchConfig, batch: dict) -> int:
+    """The decoder's sequence: the tokens, after internvl2's patches."""
+    s = batch["tokens"].shape[1]
+    if cfg.frontend == "patch_stub" and "patches" in batch:
+        s += batch["patches"].shape[1]
+    return s
+
+
 def _encode(cfg: ArchConfig, params: Model, frames):
-    """Whisper encoder on precomputed conv-frontend frames (B, S_enc, d)."""
+    """Whisper encoder on precomputed conv-frontend frames (B, S_enc, d),
+    returned whole on every 'model' peer (under sequence parallelism the
+    encoder runs on slices of the frames where they divide)."""
     x = frames.to(getattr(torch, cfg.dtype))
     x = x + layers.sinusoidal_positions(x.shape[1], cfg.d_model, x.device)[None].to(x.dtype)
     b, s = x.shape[:2]
     positions = torch.arange(s, dtype=torch.int32, device=x.device).expand(b, s)
+    seq = tp.shards_sequence(s)
+    x = tp.cut(x, 1) if seq else x
     for block in params.encoder:
-        x, _, _ = apply_block(cfg, block, "attn", x, positions, bidirectional=True)
-    return layers.rmsnorm(params["final_norm"], x)
+        x, _, _ = apply_block(cfg, block, "attn", x, positions, bidirectional=True, seq=seq)
+    with sharding.sequence(seq):
+        return tp.enter(_norm(params["final_norm"], x), False)
+
+
+def vocab_split(cfg: ArchConfig, params: Model) -> bool:
+    """Whether the unembedding computes each 'model' rank's vocab slice of
+    the logits (a sharded model whose vocab divides by the 'model' size)."""
+    head = params.embed["table"] if cfg.tied_embeddings else params.unembed["w"]
+    return getattr(head, "tp_split", False)
 
 
 def forward(cfg: ArchConfig, params: Model, batch: dict, *, caches=None,
             mode: str = "train", logits_whole: bool = True) -> ModelOutput:
     """batch: tokens (B, S) [+ patches (B, P, d) | frames (B, S_enc, d)] on the
     model's device.  Logits are float32; a vocab-parallel unembedding's are
-    gathered over 'model' unless `logits_whole` is False (the dry run's
-    logits-sharded variant: this rank's vocab only)."""
+    gathered over 'model' unless `logits_whole` is False (this rank's vocab
+    only: `loss_fn`, `greedy`, the dry run's logits-sharded variant).  Under
+    the `seq-parallel` rule the residual stream is each rank's slice of the
+    sequence where the sequence divides by the 'model' size."""
     enc_out = None
     if cfg.enc_dec and mode != "decode":
         if "frames" not in batch:
             raise ValueError(f"{cfg.name} is an encoder-decoder: the batch needs frames")
         enc_out = _encode(cfg, params, batch["frames"])
-    x, positions = _embed_inputs(cfg, params, batch)
-    b, s = x.shape[:2]
+    seq = tp.shards_sequence(_seq_len(cfg, batch))
+    x, positions = _embed_inputs(cfg, params, batch, seq)
+    b, s = positions.shape
     if caches is not None and mode == "decode":
         # single-token step: positions come from the cache pointer
         positions = torch.full((b, s), _cache_pos(caches), dtype=torch.int32,
@@ -442,15 +488,16 @@ def forward(cfg: ArchConfig, params: Model, batch: dict, *, caches=None,
         cache = None if caches is None else caches[i]
         if remat:
             x, _, aux = checkpoint(apply_block, cfg, block, block.kind, x, positions,
-                                   cache=cache, enc_out=enc_out, use_reentrant=False,
+                                   cache=cache, enc_out=enc_out, seq=seq, use_reentrant=False,
                                    **context)
         else:
             x, _, aux = apply_block(cfg, block, block.kind, x, positions, cache=cache,
-                                    enc_out=enc_out)
+                                    enc_out=enc_out, seq=seq)
         total_aux = total_aux + aux
-    x = layers.rmsnorm(params["final_norm"], x)
     head = params["embed"] if cfg.tied_embeddings else params["unembed"]
-    logits = sharding.shard(layers.unembed(head, x, gather=logits_whole), "logits")
+    with sharding.sequence(seq):
+        x = _norm(params["final_norm"], x)
+        logits = sharding.shard(layers.unembed(head, x, gather=logits_whole), "logits")
     return ModelOutput(logits=logits, caches=caches,
                        aux_loss=torch.as_tensor(total_aux, dtype=torch.float32,
                                                 device=x.device))
@@ -468,35 +515,64 @@ def _cache_pos(caches) -> int:
     return 0
 
 
-def prefill(cfg: ArchConfig, params: Model, batch: dict, max_seq: int):
+def last_logits(cfg: ArchConfig, params: Model, logits, whole: bool = True):
+    """The last position's logits (B, V) of a forward's (B, S, V / tp): this
+    rank's vocab slice, gathered over 'model' where `whole` and the
+    unembedding is vocab-split (so no (B, S, V) tensor is held)."""
+    last = logits[:, -1, :]
+    return tp.gather(last, -1) if whole and vocab_split(cfg, params) else last
+
+
+def greedy(cfg: ArchConfig, params: Model, logits):
+    """The greedy ids (B,) of logits (B, V) as `prefill` and `decode_step`
+    return them with `logits_whole=False`: a vocab-split unembedding's
+    vocab slices are combined over 'model'
+    (`tensor_parallel.vocab_parallel_argmax`), the same ids as the argmax of
+    the gathered logits."""
+    if vocab_split(cfg, params):
+        return tp.vocab_parallel_argmax(logits)
+    return torch.argmax(logits, dim=-1)
+
+
+def prefill(cfg: ArchConfig, params: Model, batch: dict, max_seq: int, *,
+            logits_whole: bool = True):
     """Run the prompt (and, for whisper, encode the frames once, filling the
-    cross K/V caches), build caches.  Returns (last-token logits, caches)."""
+    cross K/V caches), build caches.  Returns (last-token logits, caches):
+    with `logits_whole` False, a vocab-split unembedding's are this rank's
+    vocab slice (`greedy` reads them)."""
     b = batch["tokens"].shape[0]
     # a sharded model's blocks split over the installed mesh's 'model' axis
     caches = init_caches(cfg, b, max_seq, params.device,
                          tp.size() if getattr(params, "sharded", False) else 1)
-    out = forward(cfg, params, batch, caches=caches, mode="prefill")
-    return out.logits[:, -1, :], out.caches
+    out = forward(cfg, params, batch, caches=caches, mode="prefill", logits_whole=False)
+    return last_logits(cfg, params, out.logits, logits_whole), out.caches
 
 
-def decode_step(cfg: ArchConfig, params: Model, token, caches):
+def decode_step(cfg: ArchConfig, params: Model, token, caches, *, logits_whole: bool = True):
     """token: (B, 1) int.  Returns (logits (B, vocab), caches), the caches
-    advanced in place."""
-    out = forward(cfg, params, {"tokens": token}, caches=caches, mode="decode")
-    return out.logits[:, -1, :], out.caches
-
+    advanced in place; `logits_whole` as `prefill`'s."""
+    out = forward(cfg, params, {"tokens": token}, caches=caches, mode="decode",
+                  logits_whole=False)
+    return last_logits(cfg, params, out.logits, logits_whole), out.caches
 
 
 def loss_fn(cfg: ArchConfig, params: Model, batch: dict, aux_weight: float = 0.01):
     """Mean next-token NLL over the label positions with `labels >= 0`, plus
     `aux_weight` times the auxiliary loss (0 for a dense model).  Returns
-    (loss, {"nll", "aux"}), as `repro.models.model.loss_fn`."""
-    out = forward(cfg, params, batch, mode="train")
+    (loss, {"nll", "aux"}), as `repro.models.model.loss_fn`.  Where the
+    unembedding is vocab-split the NLL is computed from each rank's vocab
+    slice (`tensor_parallel.vocab_parallel_nll`): the logits are never
+    gathered, as the reference's logits rule keeps them sharded."""
+    out = forward(cfg, params, batch, mode="train", logits_whole=False)
     labels = batch["labels"].long()
     logits = out.logits[:, -labels.shape[1]:, :].float()
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels.clamp_min(0)[..., None])[..., 0]
+    if vocab_split(cfg, params):
+        per_token = tp.vocab_parallel_nll(logits, labels)
+    else:
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, labels.clamp_min(0)[..., None])[..., 0]
+        per_token = logz - gold
     mask = (labels >= 0).float()
-    nll = torch.sum((logz - gold) * mask) / torch.clamp_min(mask.sum(), 1.0)
+    nll = torch.sum(per_token * mask) / torch.clamp_min(mask.sum(), 1.0)
     loss = nll + aux_weight * out.aux_loss
     return loss, {"nll": nll, "aux": out.aux_loss}

@@ -67,7 +67,18 @@ loss is averaged over the peers, so every peer reports the whole batch's
 and its gradient is counted once.  Where the tokens do not divide by tp,
 every peer runs them all (serving only: the expert stacks' gradients would
 be counted tp times).  Arctic's dense residual reads the whole rows, as a
-tensor-parallel SwiGLU.
+tensor-parallel SwiGLU.  Under sequence parallelism the block's input is
+this rank's slice of the sequence: the MoE gathers the sequence, runs the
+same global groups as above and cuts its output back to the slice (the
+slice's tokens are another set than the contiguous cut of the flattened
+tokens, and grouping them as they lie would change the reference's groups).
+
+Tensor parallelism inside the experts (`moe_expert_axis="data"`, the
+reference's `moe-ep-data`): the stacks are sharded over 'data' on E and over
+'model' on d_ff, the tokens exchanged over 'data'; each 'model' peer runs
+the gate and up products on its d_ff columns and the down product on its
+rows, summed over 'model' in float32 before the cast (`layers.row_parallel`
+'s arithmetic).
 """
 from __future__ import annotations
 
@@ -151,10 +162,16 @@ class _GatherRows(torch.autograd.Function):
 
 
 def _experts(p, xe, dtype):
-    """The expert FFNs on their slots: xe (E, rows, d) -> (E, rows, d)."""
-    h = layers.dot(xe, p["w_gate"])
-    u = layers.dot(xe, p["w_up"])
-    return layers.dot((F.silu(h) * u).to(dtype), p["w_down"]).to(dtype)
+    """The expert FFNs on their slots: xe (E, rows, d) -> (E, rows, d).
+    Where the stacks keep their 'model' shard of d_ff (`moe-ep-data`), the
+    slots are the same on every 'model' peer: column-parallel gate and up
+    products, the row-parallel down product summed over 'model'."""
+    split = tp.is_split(p, "w_gate")
+    xi = tp.copy(xe) if split else xe
+    h = layers.dot(xi, p["w_gate"])
+    u = layers.dot(xi, p["w_up"])
+    y = layers.dot((F.silu(h) * u).to(dtype), p["w_down"])
+    return (tp.reduce(y) if split else y).to(dtype)
 
 
 def _expert_parallel(p, xe, dtype, group):
@@ -250,10 +267,12 @@ def _peers(group, ep) -> list[int]:
 
 
 def moe_ffn(cfg: ArchConfig, p, x):
-    """x: (B, S, d).  Returns (y, aux_loss)."""
+    """x: (B, S, d), or this rank's slice of the sequence (sequence
+    parallelism).  Returns (y, aux_loss)."""
     m = cfg.moe
-    b, s, d = x.shape
-    flat = x.reshape(b * s, d)
+    xw = tp.enter(x, False)        # on a slice: the sequence gathered
+    b, s, d = xw.shape
+    flat = xw.reshape(b * s, d)
     split = sharding.token_split()
     ep = _experts_group(p, m, split)
     tpg = tp.group()
@@ -269,7 +288,7 @@ def moe_ffn(cfg: ArchConfig, p, x):
     else:
         y, aux = _moe_tokens(p, flat, m, None if split is None else split.group,
                              ep, alone=split is None)
-    y = y.reshape(b, s, d)
+    y = tp.leave(y.reshape(b, s, d), False)
     if "dense" in p:  # Arctic dense residual
         y = y + layers.swiglu(p["dense"], x)
     return y, aux

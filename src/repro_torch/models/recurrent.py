@@ -36,7 +36,10 @@ conv and Lambda entries) and w_out row-parallel; RWKV-6 runs heads / tp
 heads (w_r, w_k, w_v, w_g and its cut of the decay LoRA's output, the
 bonus and the group norm) and w_o row-parallel; the channel mix splits
 d_ff (w_k, w_v) and computes r whole.  The states hold the local channels
-or heads; the last-token states stay whole.
+or heads; the last-token states stay whole.  Under sequence parallelism the
+scans, the causal conv and the token shifts need the whole sequence: each
+block reads the sequence gathered (`tensor_parallel.enter`), never the
+slice, and writes its output back to the slice.
 """
 from __future__ import annotations
 
@@ -100,9 +103,9 @@ def _causal_conv(p, v, tail):
 
 def rglru_block(cfg: ArchConfig, p, x, *, state=None):
     """x: (B, S, d).  Returns (y, new state)."""
-    b, s, d = x.shape
     split = tp.is_split(p, "w_in")
-    xi = tp.copy(x) if split else x
+    xi = tp.enter(x, split)
+    b, s = xi.shape[:2]
     u = layers.dot(xi, p["w_gate"]).to(x.dtype)
     v = layers.dot(xi, p["w_in"]).to(x.dtype)
     w = v.shape[-1]                                   # this rank's channels
@@ -180,15 +183,15 @@ def _group_norm(scale, bias, y):
 
 def rwkv6_block(cfg: ArchConfig, p, x, *, state=None):
     """x: (B, S, d).  Returns (y, new state)."""
-    b, s, d = x.shape
     hd = cfg.rwkv_head_dim
     split = tp.is_split(p, "w_r")
+    xi = tp.enter(x, split)
+    b, s, d = xi.shape
     dl = p["w_r"].shape[1]                            # this rank's channels
     heads = dl // hd
     last = state["last"] if state is not None else \
         torch.zeros((b, d), dtype=x.dtype, device=x.device)
-    xs = _token_shift(x, last)
-    xi, xsi = (tp.copy(x), tp.copy(xs)) if split else (x, xs)
+    xsi = _token_shift(xi, last)
 
     def mix(i):
         return (xi + (xsi - xi) * p["mu"][i][None, None, :]).to(x.dtype)
@@ -213,7 +216,7 @@ def rwkv6_block(cfg: ArchConfig, p, x, *, state=None):
     y = _group_norm(mine(p["ln_scale"], 0), mine(p["ln_bias"], 0), y.float())
     y = y.transpose(1, 2).reshape(b, s, dl)
     out = layers.row_parallel((F.silu(g) * y).to(x.dtype), p["w_o"], split).to(x.dtype)
-    return out, {"last": x[:, -1, :].clone(), "wkv": s_last}
+    return out, {"last": xi[:, -1, :].clone(), "wkv": s_last}
 
 
 # --- RWKV channel mix ------------------------------------------------------------
@@ -231,16 +234,17 @@ def init_rwkv_cmix(cfg: ArchConfig, generator, dtype):
 
 def rwkv_cmix(cfg: ArchConfig, p, x, *, state=None):
     """x: (B, S, d).  Returns (y, new last-token state)."""
-    b, s, d = x.shape
+    xw = tp.enter(x, False)            # on a slice: the sequence gathered
+    b, s, d = xw.shape
     last = state if state is not None else \
         torch.zeros((b, d), dtype=x.dtype, device=x.device)
-    xs = _token_shift(x, last)
+    xs = _token_shift(xw, last)
 
     def mix(i):
-        return (x + (xs - x) * p["mu"][i][None, None, :]).to(x.dtype)
+        return (xw + (xs - xw) * p["mu"][i][None, None, :]).to(x.dtype)
     split = tp.is_split(p, "w_k")      # d_ff over 'model'; r whole on every rank
     xk = tp.copy(mix(0)) if split else mix(0)
     k = torch.square(F.relu(layers.dot(xk, p["w_k"]))).to(x.dtype)
-    r = torch.sigmoid(layers.dot(mix(1), p["w_r"]))
+    r = tp.leave(torch.sigmoid(layers.dot(mix(1), p["w_r"])), False)
     out = (r * layers.row_parallel(k, p["w_v"], split)).to(x.dtype)
-    return out, x[:, -1, :].clone()
+    return out, xw[:, -1, :].clone()

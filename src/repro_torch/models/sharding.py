@@ -16,8 +16,11 @@ rank's part of the global one and there is nothing left to constrain:
 Where the reference shards a dim over 'model', the port splits the
 computation instead (`models.tensor_parallel`): the dense projections' heads
 and channels, and the vocab of the embedding and the unembedding, each
-rank computing its shard; block outputs and the logits are whole on every
-peer (sequence parallelism and a vocab-parallel loss are not ported).
+rank computing its shard.  Under the reference's `seq-parallel` rule ("act"
+sharding the sequence over 'model') the block outputs are each peer's slice
+of the sequence: `sequence` tells the blocks, and `tensor_parallel` moves
+the slices in and out of them.  The logits stay vocab-parallel through the
+loss and the greedy pick (`tensor_parallel.vocab_parallel_nll`, `_argmax`).
 
 `gathered(pdict)` is the other half of the sharded layout
 (`launch.shardings.shard_model`): a parameter held as a DTensor shard is
@@ -36,11 +39,15 @@ backward and only one block's weights are whole at a time.
 
 Caches alike, inside `activation_sharding(..., sharded_caches=True)` only
 (the dry run's serving layout, `launch.dryrun`): a cache leaf held as a
-DTensor shard (a latent or sequence dim over 'model') is gathered where a
-block reads its cache (`gathered_cache`), a leaf held otherwise than the
-block computes it is cut to the block's part (`cut_cache`), the block reads
-and writes its part, and `keep_shards` copies this rank's shard of the
-result back (`uncut_cache` first gathers a cut leaf over 'model').
+DTensor shard is gathered where a block reads its cache (`gathered_cache`),
+a leaf held otherwise than the block computes it is cut to the block's part
+(`cut_cache`), the block reads and writes its part, and `keep_shards`
+copies this rank's shard of the result back (`uncut_cache` first gathers a
+cut leaf over 'model').  In decode, a leaf held as its sequence's 'model'
+shard (`kv-seq-sharded` K/V, MLA's latent cache) is not gathered: the block
+reads and writes this rank's slots in place, and attention combines the
+peers' partial softmaxes (`models.attention`), as GSPMD's flash-decoding
+combine does.
 """
 from __future__ import annotations
 
@@ -55,6 +62,7 @@ from torch.distributed.tensor import DTensor, Replicate, Shard
 # process-wide, not thread-local as the reference's: the backward's remat
 # recompute reads it on the autograd engine's device thread
 _CTX: list = [None]
+_SEQ: list = [False]    # the residual stream is this rank's slice of the sequence
 
 
 @dataclasses.dataclass(frozen=True)
@@ -98,6 +106,28 @@ def token_split() -> TokenSplit | None:
 def caches_sharded() -> bool:
     ctx = _CTX[0]
     return ctx is not None and ctx[3]
+
+
+def rules() -> dict:
+    ctx = _CTX[0]
+    return {} if ctx is None else ctx[1]
+
+
+@contextlib.contextmanager
+def sequence(sharded: bool):
+    """Within: the residual stream is (`sharded`) or is not this rank's slice
+    of the sequence.  `models.model` sets it around each block (its remat
+    recompute too) and the final norm and unembedding."""
+    prev = _SEQ[0]
+    _SEQ[0] = sharded
+    try:
+        yield
+    finally:
+        _SEQ[0] = prev
+
+
+def sequence_sharded() -> bool:
+    return _SEQ[0]
 
 
 def shard(x, name: str):
@@ -150,40 +180,73 @@ def _any_shard(cache: dict) -> bool:
                for v in cache.values())
 
 
-def gathered_cache(cache: dict | None, fresh: bool = False):
-    """`cache` itself where no leaf is a DTensor, else a copy whose DTensor
-    leaves are whole plain tensors: gathered, or zeros of the whole shape
-    where the block is about to fill the cache (`fresh`: prefill)."""
-    if cache is None or not _any_shard(cache):
-        return cache
+def _sequence_shard(v: DTensor, dim: int):
+    """(offset, whole length) of this rank's slots where `v` is held as its
+    'model' shard along `dim` and whole over every other mesh dim, else
+    None."""
+    names = v.device_mesh.mesh_dim_names or ()
+    if "model" not in names:
+        return None
+    want = tuple(Shard(dim) if n == "model" else Replicate() for n in names)
+    if tuple(v.placements) != want:
+        return None
+    rank, n = v.device_mesh.get_local_rank("model"), v.device_mesh.size(names.index("model"))
+    return rank * (v.shape[dim] // n), v.shape[dim]
 
-    def whole(v):
+
+def gathered_cache(cache: dict | None, fresh: bool = False, seq_dims: dict | None = None):
+    """(cache, local): `cache` itself where no leaf is a DTensor, else a copy
+    whose DTensor leaves are whole plain tensors: gathered, or zeros of the
+    whole shape where the block is about to fill the cache (`fresh`:
+    prefill).  Not fresh, a leaf that `seq_dims` names ({"mix.k": its
+    sequence dim}) and that is held as its 'model' shard along that dim is
+    this rank's slots, the DTensor's own local tensor (a write lands in
+    it); `local` names those leaves, and the copy gives each dict holding
+    them `"shard": (offset, whole length)` of its slots."""
+    local: set = set()
+    if cache is None or not _any_shard(cache):
+        return cache, local
+
+    def whole(v, key=""):
         if isinstance(v, dict):
-            return {k: whole(x) for k, x in v.items()}
+            out = {}
+            for k, x in v.items():
+                where = (_sequence_shard(x, seq_dims[f"{key}{k}"])
+                         if isinstance(x, DTensor) and not fresh
+                         and f"{key}{k}" in (seq_dims or {}) else None)
+                if where is None:
+                    out[k] = whole(x, f"{key}{k}.")
+                else:
+                    out[k], out["shard"] = x.to_local(), where
+                    local.add(f"{key}{k}")
+            return out
         if not isinstance(v, DTensor):
             return v
         if fresh:
             return v.to_local().new_zeros(v.shape)
         return v.redistribute(v.device_mesh, [Replicate()] * v.device_mesh.ndim).to_local()
 
-    return whole(cache)
+    return whole(cache), local
 
 
-def keep_shards(held: dict, whole: dict) -> None:
+def keep_shards(held: dict, whole: dict, local: set = frozenset(), prefix: str = "") -> None:
     """Write back what a block did to the whole cache `whole`: into `held`'s
     DTensor leaves this rank's shard of each (a local cut, no
-    communication), every other entry as it is."""
+    communication), every other entry as it is; the leaves `local` names
+    were written in place, and the `"shard"` entries are dropped."""
     for k, v in whole.items():
         old = held.get(k)
+        if k == "shard" or f"{prefix}{k}" in local:
+            continue
         if isinstance(v, dict):
-            keep_shards(old, v)
+            keep_shards(old, v, local, f"{prefix}{k}.")
         elif isinstance(old, DTensor):
-            local = v
+            part = v
             for i, pl in enumerate(old.placements):
                 if isinstance(pl, Shard):
                     mesh = old.device_mesh
-                    local = local.chunk(mesh.size(i), dim=pl.dim)[mesh.get_local_rank(i)]
-            old.to_local().copy_(local)
+                    part = part.chunk(mesh.size(i), dim=pl.dim)[mesh.get_local_rank(i)]
+            old.to_local().copy_(part)
         else:
             held[k] = v
 
@@ -212,10 +275,13 @@ def cut_cache(cache: dict, cuts: dict, rank: int) -> tuple[dict, dict]:
     done = {}
     for key, (dim, per_rank) in cuts.items():
         leaf, idx = _leaf(out, key), per_rank[rank]
-        if leaf.shape[dim] != len(idx):
+        whole = 1 + max(j for part in per_rank for j in part)
+        # whole, and not already this rank's part (an uneven part, such as
+        # KV heads [0, 0, 1] of 3, is never held: it is cut here)
+        if leaf.shape[dim] == whole and idx != list(range(whole)):
             _set_leaf(out, key, leaf.index_select(
                 dim, torch.tensor(idx, device=leaf.device)))
-            done[key] = (dim, per_rank, leaf.shape[dim])
+            done[key] = (dim, per_rank, whole)
     return out, done
 
 

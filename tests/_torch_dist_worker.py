@@ -75,6 +75,28 @@ Modes:
                     on the whole batch without a mesh.  Rank 0 writes
                     OUT.NAME.npz (`tp/` and `one/` gradients) and
                     OUT.NAME.json (both losses).
+  sp DIR OUT SHAPE  sequence parallelism and the rest of the 'model' axis on a
+                    SHAPE ("data", "model") mesh, the cases named by the JSON
+                    file DIR/plan.json ({"sp": [...], "combine": [...],
+                    "ep": [...]}; each case's files as `tp`'s).  "sp": the
+                    forward logits, and the loss and every gradient (whole)
+                    in `train()`'s layout under the `seq-parallel` rule, for
+                    the batch and for its first S - 1 positions (a sequence
+                    that does not divide), with the collectives each issued
+                    (the dry run's counter), whether every gradient replicated
+                    over 'model' is bit-equal across the peers, and whether
+                    the unembedding is vocab-split.  "combine": the dry
+                    run's sharded serving layout (its `_split` and
+                    `_shard_caches`, the `_serve` field's variant) with real
+                    tensors: prefill and greedy decode steps, the logits of
+                    every row, and the cache leaves held as their
+                    sequence's 'model' shard.  "ep": the loss and every
+                    gradient with `moe_expert_axis="data"` (tensor
+                    parallelism inside the experts), which expert stacks
+                    keep d_ff over 'model'.  Also the vocab-parallel loss
+                    and argmax against their whole-vocab versions on seeded
+                    logits.  Rank 0 writes OUT.NAME.npz and OUT.NAME.json a
+                    case ("ep-NAME" for an "ep" case), and OUT.vocab.json.
   tp_restart DIR OUT
                     stablelm-3b smoke under tensor parallelism: 2 gspmd steps
                     on (1, 2) saving into DIR, steps 3-4 resumed on (2, 1),
@@ -400,10 +422,12 @@ def _tp_config(shape, batch):
                        mesh_shape=shape, mesh_axes=("data", "model"))
 
 
-def _tp_grads(mesh, tc, cfg, model, batch):
+def _tp_grads(mesh, tc, cfg, model, batch, seq_parallel=False, experts=None):
     """The loss facts (loss, nll, aux) and every gradient, whole, of the
-    sharded `model` in `train()`'s layout (gspmd, `tc`) on `mesh`: (facts,
-    gradients in `model.parameters()` order, the layout)."""
+    sharded `model` in `train()`'s layout (gspmd, `tc`) on `mesh`, under
+    the `seq-parallel` rule where `seq_parallel`, the experts' exchange over
+    the mesh axis `experts` where given: (facts, gradients in
+    `model.parameters()` order, the layout)."""
     import torch.distributed as dist
 
     from repro_torch.launch.shardings import activation_rules
@@ -413,9 +437,12 @@ def _tp_grads(mesh, tc, cfg, model, batch):
 
     b = batch["tokens"].shape[0]
     lay = layout(tc, current_world(), mesh)
+    if experts is not None:
+        lay = dataclasses.replace(lay, split=dataclasses.replace(
+            lay.split, experts=mesh.get_group(experts)))
     per = b // lay.rows.size
     rows = {k: v[lay.rows.rank * per:(lay.rows.rank + 1) * per] for k, v in batch.items()}
-    with activation_sharding(mesh, activation_rules(mesh), lay.split):
+    with activation_sharding(mesh, activation_rules(mesh, seq_parallel), lay.split):
         loss, metrics = loss_fn(cfg, model, rows)
         loss.backward()
     facts = {}
@@ -532,6 +559,196 @@ def _tp(n: int, rank: int, data_dir: str, out_path: str, shape: str, *names: str
         if rank == 0:
             np.savez(f"{out_path}.{name}.npz", **arrays)
             Path(f"{out_path}.{name}.json").write_text(json.dumps(facts))
+    torch.distributed.barrier()
+
+
+def _unequal_over_model(mesh, model, tensors) -> list:
+    """The parameters replicated over 'model' whose `tensors` (one a
+    parameter) differ between the 'model' peers."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import Replicate
+
+    group, dim = mesh.get_group("model"), list(mesh.mesh_dim_names).index("model")
+    unequal = []
+    for (name, p), t in zip(model.named_parameters(), tensors, strict=True):
+        if not isinstance(p.placements[dim], Replicate):
+            continue
+        t = (t.to_local() if hasattr(t, "to_local") else t).contiguous()
+        peers = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
+        dist.all_gather(peers, t, group=group)
+        if not all(torch.equal(peers[0], x) for x in peers):
+            unequal.append(name)
+    return unequal
+
+
+def _sp_case(mesh, dims, name: str, data_dir: str):
+    """One "sp" case: (arrays, facts) for rank 0."""
+    import torch
+
+    from repro_torch.interop import params_from_jax, tree_from_tensors
+    from repro_torch.launch.dryrun import CollectiveCounter
+    from repro_torch.launch.shardings import activation_rules, shard_model
+    from repro_torch.models import forward
+    from repro_torch.models.model import vocab_split
+    from repro_torch.models.sharding import activation_sharding
+
+    cfg, _, tree, batch = _tp_inputs(data_dir, name)
+    arrays, facts = {}, {}
+    model = params_from_jax(cfg, tree, device="cpu")
+    shard_model(model, mesh)
+    with torch.no_grad(), activation_sharding(mesh, activation_rules(mesh, True)):
+        arrays["logits"] = forward(cfg, model, batch, mode="train").logits.numpy()
+        facts["vocab_split"] = vocab_split(cfg, model)
+    tc = _tp_config(dims, batch)
+    odd = {k: v[:, :-1] if k in ("tokens", "labels") else v for k, v in batch.items()}
+    for tag, rows in (("", batch), ("odd_", odd)):
+        for p in model.parameters():
+            p.grad = None
+        counter = CollectiveCounter()
+        with counter:
+            got, grads, _ = _tp_grads(mesh, tc, cfg, model, rows, seq_parallel=True)
+        facts[tag + "collectives"] = counter.result()
+        facts |= {tag + k: v for k, v in got.items()}
+        arrays |= {f"{tag}grad/{k}": v.numpy() for k, v in
+                   _flat(tree_from_tensors(model, grads)).items()}
+        facts[tag + "grads_unequal"] = _unequal_over_model(
+            mesh, model, [p.grad for p in model.parameters()])
+    return arrays, facts
+
+
+def _combine_case(mesh, name: str, data_dir: str):
+    """One "combine" case: (arrays, facts), the same on every rank."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.interop import params_from_jax
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.shardings import activation_rules, shard_model
+    from repro_torch.models import ShapeConfig, forward, init_caches
+    from repro_torch.models.model import SEQ_DIMS, last_logits
+    from repro_torch.models.sharding import activation_sharding
+
+    cfg, extra, tree, batch = _tp_inputs(data_dir, name)
+    prompts = batch["tokens"]
+    b, new = prompts.shape[0], extra["new_tokens"]
+    max_seq = prompts.shape[1] + new
+    model = params_from_jax(cfg, tree, device="cpu")
+    shard_model(model, mesh, fsdp=False)
+    shape = ShapeConfig("combine", max_seq, b, "decode")
+    tweaks = {extra["variant"]}
+    _, split = dryrun._split(shape, mesh, tweaks)
+    caches = dryrun._shard_caches(init_caches(cfg, split.rows, max_seq, "cpu"), cfg, mesh, b,
+                                  "kv-seq-sharded" in tweaks)
+    names = list(mesh.mesh_dim_names)
+    local = sorted({k for c in caches for k, v in _flat(c).items()
+                    if isinstance(v, DTensor) and k.replace("/", ".") in SEQ_DIMS
+                    and v.placements[names.index("model")].is_shard(
+                        SEQ_DIMS[k.replace("/", ".")])})
+    group = split.group
+    me = dist.get_rank(group) if split.rows < b else 0
+    tokens = prompts[me * split.rows:(me + 1) * split.rows]
+    steps = []
+    with torch.no_grad(), activation_sharding(mesh, activation_rules(mesh), split,
+                                              sharded_caches=True):
+        mode = "prefill"
+        for _ in range(new):
+            out = forward(cfg, model, {"tokens": tokens}, caches=caches, mode=mode,
+                          logits_whole=False)
+            logits = last_logits(cfg, model, out.logits)
+            steps.append(logits)
+            tokens, mode = torch.argmax(logits, -1)[:, None], "decode"
+    logits = torch.stack(steps, 1)
+    if split.rows < b:  # every row's, in rank order
+        parts = [torch.empty_like(logits) for _ in range(dist.get_world_size(group))]
+        dist.all_gather(parts, logits.contiguous(), group=group)
+        logits = torch.cat(parts)
+    return {"served_logits": logits.numpy()}, {"seq_sharded_leaves": local}
+
+
+def _ep_case(mesh, dims, name: str, data_dir: str):
+    """One "ep" case: (arrays, facts) for rank 0."""
+    from repro_torch.interop import params_from_jax, tree_from_tensors
+    from repro_torch.launch.shardings import shard_model
+
+    cfg, _, tree, batch = _tp_inputs(data_dir, name)
+    model = params_from_jax(cfg, tree, device="cpu")
+    shard_model(model, mesh, moe_expert_axis="data")
+    facts, grads, _ = _tp_grads(mesh, _tp_config(dims, batch), cfg, model, batch,
+                                experts="data")
+    facts["experts_split"] = sorted(n for n, p in model.named_parameters()
+                                    if n.split(".")[-1] in ("w_gate", "w_up", "w_down")
+                                    and ".ffn." in n and "dense" not in n and p.tp_split)
+    return ({f"grad/{k}": v.numpy() for k, v in
+             _flat(tree_from_tensors(model, grads)).items()}, facts)
+
+
+def _vocab_checks(mesh) -> dict:
+    """`vocab_parallel_nll` and `vocab_parallel_argmax` on each 'model'
+    rank's slice of seeded logits against the whole-vocab versions:
+    labels with -1 and on every slice's first and last id; ties planted
+    across the slices."""
+    import numpy as np
+    import torch
+
+    from repro_torch.launch.shardings import activation_rules
+    from repro_torch.models import tensor_parallel as tp
+    from repro_torch.models.sharding import activation_sharding
+
+    rng = np.random.default_rng(5)
+    out = {}
+    with activation_sharding(mesh, activation_rules(mesh)):
+        t, r = tp.size(), tp.rank()
+        v = 12 * t
+        n = v // t
+        logits = torch.from_numpy(rng.standard_normal((3, 8, v)).astype(np.float32) * 3)
+        labels = torch.from_numpy(rng.integers(0, v, (3, 8)))
+        edges = [e for q in range(t) for e in (q * n, q * n + n - 1)]
+        labels.view(-1)[:len(edges)] = torch.tensor(edges)
+        labels[2, -3:] = -1
+        mask = (labels >= 0).float()
+        whole = logits.clone().requires_grad_()
+        per = torch.logsumexp(whole, -1) - torch.gather(whole, -1, labels.clamp_min(0)[..., None])[..., 0]
+        want = (per * mask).sum() / mask.sum()
+        want.backward()
+        local = logits[..., r * n:(r + 1) * n].clone().requires_grad_()
+        got = (tp.vocab_parallel_nll(local, labels) * mask).sum() / mask.sum()
+        got.backward()
+        out["nll"] = [got.item(), want.item()]
+        out["grad_err"] = (local.grad - whole.grad[..., r * n:(r + 1) * n]).abs().max().item()
+        ties = torch.from_numpy(rng.integers(0, 3, (6, 5, v)).astype(np.float32))
+        ties[0, 0, :] = 0
+        ties[0, 0, [n + 1, v - 1]] = 7          # equal maxima on two slices
+        ties[1, 1, :] = 2                       # every logit equal
+        got_ids = tp.vocab_parallel_argmax(ties[..., r * n:(r + 1) * n].contiguous())
+        out["argmax_equal"] = torch.equal(got_ids, torch.argmax(ties, -1))
+        out["argmax_tied_rows"] = int(((ties == ties.amax(-1, keepdim=True)).sum(-1) > 1)
+                                      .sum())
+    return out
+
+
+def _sp(n: int, rank: int, data_dir: str, out_path: str, shape: str) -> None:
+    import numpy as np
+    import torch
+
+    from repro_torch.launch.mesh import make_mesh
+
+    dims = tuple(int(d) for d in shape.split("x"))
+    mesh = make_mesh(dims, ("data", "model"), "cpu")
+    plan = json.loads(Path(data_dir, "plan.json").read_text())
+    results = {}
+    for kind, fn in (("sp", lambda name: _sp_case(mesh, dims, name, data_dir)),
+                     ("combine", lambda name: _combine_case(mesh, name, data_dir)),
+                     ("ep", lambda name: _ep_case(mesh, dims, name, data_dir))):
+        for name in plan[kind]:
+            results[f"ep-{name}" if kind == "ep" else name] = fn(name)
+    vocab = _vocab_checks(mesh)
+    if rank == 0:
+        for name, (arrays, facts) in results.items():
+            np.savez(f"{out_path}.{name}.npz", **arrays)
+            Path(f"{out_path}.{name}.json").write_text(json.dumps(facts))
+        Path(f"{out_path}.vocab.json").write_text(json.dumps(vocab))
     torch.distributed.barrier()
 
 
@@ -714,6 +931,8 @@ def main() -> None:
             _adamw(world, rank, sys.argv[5])
         elif mode == "tp":
             _tp(world, rank, *sys.argv[5:])
+        elif mode == "sp":
+            _sp(world, rank, *sys.argv[5:8])
         elif mode == "tp64":
             _tp64(world, rank, *sys.argv[5:9])
         elif mode == "tp_restart":

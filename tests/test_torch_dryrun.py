@@ -185,26 +185,69 @@ def test_cache_bytes_a_rank_are_the_references_shards(pod, arch, shape, variant)
     assert got["cache_bytes"] == _ref_cache_bytes(arch, shape, variant == "kv-seq-sharded")
 
 
-def test_a_sharded_cache_is_gathered_where_attention_reads_it(pod):
-    """kv-seq-sharded: each rank keeps 1/16 of the sequence; the decode step
-    gathers it over 'model' (one all-gather of K and V a layer) and writes
-    back only this rank's shard."""
-    cfg, tweaks = dryrun._apply_variant(configs.get("arctic-480b"), "kv-seq-sharded")
+def _decode_ops(mesh, arch, variant, whole_caches=False):
+    """The collectives of one rank's decode step of `arch` (1 period) at
+    decode_32k on the fake world; `whole_caches`: every cache leaf held as
+    its sequence's 'model' shard is replaced by the whole leaf, a plain
+    tensor (what the combine saves the gather of).  Returns (ops, the
+    rank's caches)."""
+    from repro_torch.models.model import SEQ_DIMS
+
+    cfg, tweaks = dryrun._apply_variant(configs.get(arch), variant)
     cfg = dryrun.periods(cfg, 1)
     shape = SHAPES["decode_32k"]
-    lay, split = dryrun._split(shape, pod, tweaks)
+    lay, split = dryrun._split(shape, mesh, tweaks)
     with FakeTensorMode():
-        rank = dryrun.build_rank(cfg, shape, pod, tweaks, lay, split)
-        k = rank.caches[0]["mix"]["k"]
-        assert isinstance(k, DTensor) and k.placements == (Replicate(), Shard(2))
-        assert tuple(k.to_local().shape) == (8, 8, 32768 // 16, 128)
+        rank = dryrun.build_rank(cfg, shape, mesh, tweaks, lay, split)
+        if whole_caches:
+            for c in rank.caches:
+                for k in ("k", "v", "c_kv", "k_rope"):
+                    if isinstance(c["mix"].get(k), DTensor) and f"mix.{k}" in SEQ_DIMS:
+                        c["mix"][k] = torch.zeros(c["mix"][k].shape, dtype=c["mix"][k].dtype)
         counter = dryrun.CollectiveCounter()
         with counter:
             dryrun.run_step(rank, cfg, shape, tweaks)
-        assert rank.caches[0]["mix"]["k"] is k and rank.caches[0]["mix"]["pos"] == 32768
-    gathered = 2 * 8 * 8 * 32768 * 128 * 2 + 32768 * 4   # K and V whole, slot_pos
-    params = counter.result()["all-gather"]["bytes"] - gathered
-    assert params > 0 and counter.result()["all-gather"]["count"] >= 3
+    return counter.result(), rank.caches
+
+
+def test_a_sharded_cache_is_gathered_where_attention_reads_it(pod):
+    """kv-seq-sharded: each rank keeps 1/16 of the sequence, and the decode
+    step no longer gathers it where attention reads it: it attends over its
+    own slots and combines the 'model' peers' partial softmaxes (two
+    all-reduces a layer, of each (row, head)'s max and of its sum and
+    unnormalised P V, f32), writing the new token in place; only the
+    tiny `slot_pos` (sharded over 'data' by the rule) is still gathered, as
+    in the baseline, where arctic-480b's 8 KV heads leave K and V whole."""
+    ops, caches = _decode_ops(pod, "arctic-480b", "kv-seq-sharded")
+    k = caches[0]["mix"]["k"]
+    assert isinstance(k, DTensor) and k.placements == (Replicate(), Shard(2))
+    assert tuple(k.to_local().shape) == (8, 8, 32768 // 16, 128)
+    assert caches[0]["mix"]["pos"] == 32768
+    base, _ = _decode_ops(pod, "arctic-480b", "baseline")
+    rows, heads, hd = 8, 56, 128
+    combine = rows * heads * 4 + rows * heads * (hd + 1) * 4   # (m), (l, P V)
+    assert ops["all-gather"] == base["all-gather"]
+    assert ops["all-reduce"] == {"count": base["all-reduce"]["count"] + 2,
+                                 "bytes": base["all-reduce"]["bytes"] + combine}
+    cache = 2 * rows * 8 * 32768 * 128 * 2                     # K and V gathered whole
+    assert combine * 500 < cache
+
+
+def test_mla_latent_decode_sends_the_combine_not_the_cache(pod):
+    """minicpm3-4b's baseline layout holds the latent cache's sequence over
+    'model' (its 40 heads do not divide 16): decode combines the peers'
+    partial softmaxes in latent space (rank 256 + 1 floats a head) where a
+    gather would move the whole c_kv and k_rope."""
+    ops, caches = _decode_ops(pod, "minicpm3-4b", "baseline")
+    assert tuple(caches[0]["mix"]["c_kv"].to_local().shape) == (8, 32768 // 16, 256)
+    whole, _ = _decode_ops(pod, "minicpm3-4b", "baseline", whole_caches=True)
+    rows, heads, r = 8, 40, 256
+    combine = rows * heads * 4 + rows * heads * (r + 1) * 4
+    assert ops["all-gather"] == whole["all-gather"]
+    assert ops["all-reduce"] == {"count": whole["all-reduce"]["count"] + 2,
+                                 "bytes": whole["all-reduce"]["bytes"] + combine}
+    gathered = rows * 32768 * (256 + 32) * 2                   # c_kv and k_rope whole
+    assert combine * 100 < gathered
 
 
 # --- FLOPs ----------------------------------------------------------------------------------
@@ -377,9 +420,31 @@ def test_representative_cells_trace_on_a_fake_world(tmp_path, capsys, arch, shap
     assert not dist.is_initialized()
 
 
-def test_seq_parallel_is_traced_as_the_baseline_with_a_note(tmp_path, capsys):
-    """The port keeps the sequence whole: a seq-parallel cell records the
-    baseline's numbers and says so in its JSON."""
+def test_seq_parallel_traces_reduce_scatters_and_a_lower_peak(pod):
+    """A small train cell (stablelm-3b smoke, 512 x 64 on the pod: 32 rows a
+    data shard, the sequence of 64 over the 16 'model' peers) under the
+    `seq-parallel` variant against the baseline: the row-parallel sums
+    (the MLP's down projection, the vocab-parallel embedding) are
+    reduce-scattered and the slices all-gathered where the baseline
+    all-reduces them, the residual stream (full remat's saved block inputs)
+    is held 1/16 a rank, so the peak is lower, and the cell's JSON carries
+    no note."""
+    cfg = configs.get("stablelm-3b").scaled_down()
+    shape = ShapeConfig("t", 64, 512, "train")
+    base = dryrun.trace_step(cfg, shape, pod)
+    seq = dryrun.trace_step(cfg, shape, pod, "seq-parallel")
+    b, s = base["collectives"], seq["collectives"]
+    assert s["reduce-scatter"]["count"] > b["reduce-scatter"]["count"]
+    assert s["all-gather"]["count"] > b["all-gather"]["count"]
+    assert s["all-reduce"]["bytes"] < b["all-reduce"]["bytes"]
+    assert seq["flops"] <= base["flops"]
+    assert seq["peak_bytes"] < base["peak_bytes"]
+
+
+def test_seq_parallel_cell_records_the_traced_step(tmp_path, capsys):
+    """`--variant seq-parallel` writes its own numbers: a decode cell's step
+    is the baseline's (the reference's serving steps take no
+    `seq_parallel`), a train cell's differs, and neither carries a note."""
     res = {}
     for variant in ("baseline", "seq-parallel"):
         dryrun.main(["--arch", "stablelm-3b", "--shape", "decode_32k", "--mesh", "pod",
@@ -390,6 +455,5 @@ def test_seq_parallel_is_traced_as_the_baseline_with_a_note(tmp_path, capsys):
     base, seq = res["baseline"], res["seq-parallel"]
     for key in ("flops", "collectives", "calibrated"):
         assert seq[key] == base[key], key
-    assert seq["memory"] == base["memory"]
-    assert "seq_parallel_note" in seq and "seq_parallel_note" not in base
+    assert not any(k.endswith("_note") for k in (*seq, *base))
     assert not dist.is_initialized()
