@@ -120,10 +120,31 @@ Phases, in order; any failure raises and the script exits non-zero:
                tensor-core variant; B4 / B5 once per recurrent
                layer in prefill and in every decode step; every prefill call
                of B4 in the ring design and of B5 in the two-pass design,
-               every decode call of both in the step kernel).  Then one more
-               decode step of each runs under torch.profiler (device ms, the
-               device's idle share, host reads of device values, the top ops
-               by device time), and the MoE arch's FFN is timed at the
+               every decode call of both in the step kernel).  Each run
+               is made twice, with the decode step captured once as a CUDA
+               graph and replayed (`serve_requests`' default on the card:
+               one eager warm-up step, the capture, a replay a token) and
+               eagerly (graph=False): the ids equal, the launches of both
+               checked.  The wrappers' counters see a captured run's
+               warm-up step and its capture (which launches nothing), not
+               its replays: so one more captured run, first, decodes under
+               torch.profiler and its decode launches are its kernels'
+               events counted by name (every replay's included), the
+               launches the kernels line reports; the timed captured runs'
+               counters must show the warm-up and the capture, one step's
+               launches each; stablelm-3b, rwkv6-3b, recurrentgemma-9b, gemma3-4b
+               and qwen3-moe alternate the two ways GRAPH_REPEATS times for
+               the decode tok/s (and the replays' alone), beside each run's
+               peak memory.  Then, from fresh prefills, the first replayed
+               step's logits against the eager step's at the same position
+               (bit for bit, else the largest difference printed; the ids
+               equal), one eager decode step and one replay under
+               torch.profiler (device ms, the device's idle share, host
+               reads of device values, the top ops or, for the replay, the
+               top kernels by device time; the replay must run B5's and
+               B4's step kernels and B1's tensor-core one by name, as many
+               times as one step launches them) and REPLAY_TIMED replays on the host clock;
+               and the MoE arch's FFN is timed at the
                prefill and decode shapes: whole, its expert products, and
                its dispatch and combine products, beside its bound.
   8. train (the main path) - stablelm-3b at its full published config, then
@@ -194,7 +215,11 @@ Phases, in order; any failure raises and the script exits non-zero:
                parallelism, each first loss against one card's forward;
                command-r-plus-104b at 4 layers with SP on and off, and
                served whole on (1, 4) (the vocab-parallel argmax's ids
-               against the gathered argmax's); qwen3-moe (2, 2) 1 layer with
+               against the gathered argmax's; the decode step captured as a
+               CUDA graph on every rank, NCCL's all-reduces in it, and
+               eager: the ids equal both ways on every rank, both tok/s, and
+               one replay under the profiler with its NCCL kernels' time);
+               qwen3-moe (2, 2) 1 layer with
                SP and under `moe-ep-data` against phase 8's losses; decode
                through the dry run's sequence-sharded caches (the
                partial-softmax combine) against one card in f32 and beside
@@ -334,7 +359,8 @@ from repro_torch.kernels.rg_lru import ref as lru_ref  # noqa: E402
 from repro_torch.kernels.wkv6 import kernel as wkv_kernel  # noqa: E402
 from repro_torch.kernels.wkv6 import ref as wkv_ref  # noqa: E402
 from repro_torch.launch import train as train_mod  # noqa: E402
-from repro_torch.launch.serve import Request, serve_requests  # noqa: E402
+from repro_torch.launch.serve import (CapturedDecode, Request, decode_loop,  # noqa: E402
+                                      serve_requests)  # noqa: E402
 from repro_torch.models import decode_step, forward, init_params, prefill  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.data import SyntheticLM  # noqa: E402
@@ -628,6 +654,21 @@ SERVE_LENGTHS = {"gemma3-4b": ((1536, 32), (1000, 64))}
 # the dense residual, attention): 2 layers and the untied embed and unembed
 # are 27.68 G, ~55.4 GB (51.6 GiB)
 SERVE_DEPTH = {"qwen3-moe-235b-a22b": 8, "command-r-plus-104b": 12, "arctic-480b": 2}
+# phase 7 serves each model with its decode step captured as a CUDA graph
+# (`serve_requests`' default on the card) and again eagerly (graph=False),
+# the ids equal; these archs' runs alternate GRAPH_REPEATS times each way for
+# the decode tok/s (host-clock rates spread between runs)
+GRAPH_REPEAT_ARCHS = ("stablelm-3b", "rwkv6-3b", "recurrentgemma-9b", "gemma3-4b",
+                      "qwen3-moe-235b-a22b")
+GRAPH_REPEATS = 3
+# the kernels a decode-path wrapper launches, by name, one a call: its decode
+# design first (B1's tensor-core variant, whisper's cross attention; B4's and
+# B5's step kernels), then its others (B5's two-pass design counted by its
+# first pass); a decode's launches under the profiler are these kernels' events
+WRAPPER_KERNELS = {"flash_attention_fwd": ("flash_fwd_tc_kernel", "flash_fwd_f32_kernel"),
+                   "rg_lru_fwd": ("rg_lru_step_kernel", "rg_lru_scan_kernel"),
+                   "wkv6_fwd": ("wkv6_step_kernel", "wkv6_state_kernel", "wkv6_f32_kernel")}
+REPLAY_TIMED = 10   # replays timed on the host clock after the profiled one
 RECKONING_GIB = {"arctic-480b": 27.68e9 * 2 / 2**30}
 # the SDPA backends tried for the attention yardstick (torch.nn.attention.SDPBackend)
 SDPA_BACKENDS = ("FLASH_ATTENTION", "CUDNN_ATTENTION", "EFFICIENT_ATTENTION")
@@ -1083,42 +1124,158 @@ def expected_serve_launches(cfg, new_tokens: int) -> tuple[dict, dict]:
 
 @torch.inference_mode()
 def serve_entry_points(cfg, model, prompts, extra: dict, new_tokens: int, max_seq: int,
-                       progress) -> dict[int, list[int]]:
-    """`serve_requests`' loop through the model entry points `prefill` and
-    `decode_step`, for a model that needs inputs beside the tokens (whisper's
-    frames, internvl2's patches), which the reference's serving driver does
-    not take: prefill timed to the first greedy tokens on the host, then
-    greedy decode of every request to `new_tokens`, with the driver's two
-    progress lines."""
+                       progress, graph: bool = True) -> dict:
+    """`serve_requests` through the model entry point `prefill`, for a model
+    that needs inputs beside the tokens (whisper's frames, internvl2's
+    patches), which the reference's serving driver does not take: prefill
+    timed to the first greedy ids on the host, with the driver's progress
+    line, then the driver's own decode (`decode_loop`, with `graph` as
+    `serve_requests` passes it) of every request to `new_tokens`.  Returns
+    {request: ids}."""
     batch = prompts.shape[0]
     t0 = time.perf_counter()
-    logits, caches = prefill(cfg, model, {"tokens": prompts.cuda(), **extra}, max_seq)
-    tok = torch.argmax(logits, dim=-1)[:, None]
-    host = [tok.cpu()]  # waits for the device
+    logits, caches = prefill(cfg, model, {"tokens": prompts.cuda(), **extra}, max_seq,
+                             logits_whole=False)
+    tok = greedy(cfg, model, logits)[:, None]
+    tok.cpu()  # waits for the device
     dt = time.perf_counter() - t0
     progress(f"prefill: {batch} x {prompts.shape[1]} tokens in {dt:.3f}s "
              f"({prompts.numel() / dt:.1f} tok/s)")
-    t0 = time.perf_counter()
-    for _ in range(new_tokens - 1):
-        logits, caches = decode_step(cfg, model, tok, caches)
-        tok = torch.argmax(logits, dim=-1)[:, None]
-        host.append(tok.cpu())
-    dt = time.perf_counter() - t0
-    decoded = batch * (new_tokens - 1)
-    progress(f"decode: {decoded} tokens in {new_tokens - 1} steps, {dt:.3f}s "
-             f"({decoded / dt:.1f} tok/s)")
-    out = torch.cat(host, dim=1)
+    out = decode_loop(cfg, model, caches, tok, [new_tokens] * batch, graph, progress)
     return {i: out[i].tolist() for i in range(batch)}
 
 
-def serve_path(arch: str, prompt_len: int, new_tokens: int) -> tuple[dict, dict]:
+def kernel_events(prof) -> dict:
+    """{kernel name: events} of the CUDA kernels a stopped torch.profiler run
+    saw (a CUDA graph's replays included: each replayed kernel is an event),
+    read from the profiler's raw events: building its Python event list
+    takes seconds for a decode's ~100,000 kernels."""
+    from collections import Counter
+
+    from torch.autograd import DeviceType
+
+    return Counter(e.name() for e in prof.profiler.kineto_results.events()
+                   if e.device_type() == DeviceType.CUDA)
+
+
+def wrapper_launches(events: dict) -> tuple[dict, dict]:
+    """The decode-path wrappers' launches and designs measured from kernel
+    events (`kernel_events`): each call launches one of its WRAPPER_KERNELS
+    once.  Returns ({wrapper: launches}, {wrapper: {design counter: n}})."""
+    def n(name):
+        return sum(c for k, c in events.items() if name in k)
+
+    launches = {w: sum(n(k) for k in names) for w, names in WRAPPER_KERNELS.items()}
+    designs = {"flash_attention_fwd": {"launches_tc": n("flash_fwd_tc_kernel")},
+               "rg_lru_fwd": {"launches_step": n("rg_lru_step_kernel")},
+               "wkv6_fwd": {"launches_chunked": n("wkv6_state_kernel"),
+                            "launches_step": n("wkv6_step_kernel")}}
+    return launches, designs
+
+
+def replays_of(line: str) -> int | None:
+    """The replays of a served run's decode line (None for an eager run)."""
+    got = re.search(r"warm-up and capture [0-9.]+s, ([0-9]+) replays", line)
+    return None if got is None else int(got.group(1))
+
+
+def served_run(cfg, model, prompts, extra: dict, new_tokens: int, max_seq: int,
+               graph: bool, label: str, counted: bool = False) -> dict:
+    """One served run of `cfg`'s model, through `serve_requests` (or the
+    entry points where it needs frames or patches), with its decode step
+    captured (`graph`) or eager: its ids, the kernel launches and designs of
+    its prefill and decode, the prefill seconds, the decode tok/s, the
+    replays and the peak memory.  The launches are the wrappers' counters,
+    which see every eager launch but, of a captured decode, only the warm-up
+    step and the capture (which launches nothing), not the replays.  With
+    `counted` the decode runs under torch.profiler and its launches and
+    designs are the decode-path kernels' events (`wrapper_launches`), every
+    replay's included; every B1 launch there must be the tensor-core
+    variant's."""
+    from torch.profiler import ProfilerActivity, profile
+
+    batch, prompt_len = prompts.shape
+    reqs = [Request(rid=i, prompt=prompts[i].numpy(), max_new_tokens=new_tokens)
+            for i in range(batch)]
+    messages, at_prefill, designs_at_prefill = [], {}, {}
+    prof = profile(activities=[ProfilerActivity.CUDA]) if counted else None
+
+    def progress(msg):
+        if not messages:  # prefill is done (and synchronised): its launches so far
+            at_prefill.update(read_launches())
+            designs_at_prefill.update(read_designs())
+            if prof is not None:
+                prof.start()
+        elif prof is not None:  # decode is done, its last ids read on the host
+            prof.stop()
+        messages.append(msg)
+        print(f"{label}: {msg}", flush=True)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    if extra:
+        out = serve_entry_points(cfg, model, prompts, extra, new_tokens, max_seq, progress,
+                                 graph)
+    else:
+        out = serve_requests(cfg, model, reqs, max_seq=max_seq, progress=progress,
+                             device="cuda", graph=graph)
+    replays = replays_of(messages[1])
+    if graph != (replays is not None):
+        raise AssertionError(f"{label}: graph={graph}, decode {messages[1]!r}")
+    total, designs_total = read_launches(), read_designs()
+    check_tensor_core_launches(label)
+    decode = {k: total[k] - at_prefill[k] for k in total}
+    designs = {name: {k: designs_total[name][k] - designs_at_prefill[name][k] for k in keys}
+               for name, keys in DESIGN_COUNTERS.items()}
+    if counted:
+        t0 = time.perf_counter()
+        measured, measured_designs = wrapper_launches(kernel_events(prof))
+        read_s = time.perf_counter() - t0
+        tc = measured_designs.pop("flash_attention_fwd")["launches_tc"]
+        if tc != measured["flash_attention_fwd"]:
+            raise AssertionError(f"{label}: {measured['flash_attention_fwd'] - tc} B1 decode "
+                                 f"launches missed the tensor-core variant")
+        print(f"{label}: decode launches counted as kernel events under the profiler (the "
+              f"warm-up step and {replays} replays) {measured}; the counters saw {decode} (the "
+              f"warm-up step and the capture); the events read in {read_s:.3f}s", flush=True)
+        decode.update(measured)
+        for name, keys in measured_designs.items():
+            designs[name].update(keys)
+    return {"ids": out, "peak": torch.cuda.max_memory_allocated(), "replays": replays,
+            "launches": {"prefill": at_prefill, "decode": decode},
+            "designs": {"prefill": designs_at_prefill, "decode": designs},
+            "prefill_s": float(re.search(r"prefill: .* in ([0-9.]+)s", messages[0]).group(1)),
+            "decode_tps": float(re.search(r"\(([0-9.]+) tok/s\)", messages[1]).group(1)),
+            "replay_tps": replay_rate(messages[1], prompts.shape[0])}
+
+
+def replay_rate(line: str, batch: int) -> float | None:
+    """The tok/s of a served run's replays alone, from its decode line: the
+    loop's seconds less the warm-up and capture's, over the replays' tokens
+    (None for an eager run)."""
+    got = re.search(r", ([0-9.]+)s \(.*warm-up and capture ([0-9.]+)s, ([0-9]+) replays",
+                    line)
+    if got is None:
+        return None
+    loop_s, capture_s, replays = float(got.group(1)), float(got.group(2)), int(got.group(3))
+    return round(batch * replays / (loop_s - capture_s), 1)
+
+
+def serve_path(arch: str, prompt_len: int, new_tokens: int,
+               repeats: int = 1) -> tuple[dict, dict]:
     """`arch` at its full published config (its depth cut to SERVE_DEPTH
     where that names it) answers 4 requests of `prompt_len`-token prompts
     (whisper: after encoding 1500 frames; internvl2: after its 1024 patches)
     and `new_tokens` new tokens each, through `serve_requests`, or through
-    the model entry points where the model needs frames or patches.  Returns
-    the launch counts of the run, split into prefill and decode, and the ids
-    served, {request: ids}."""
+    the model entry points where the model needs frames or patches: with
+    the decode step captured as a CUDA graph and again eagerly: first one
+    captured run whose decode launches are counted under the profiler, then
+    timed runs in turns `repeats` times each way, every run's ids equal and
+    its launches checked.  Then the first replayed step's logits against the
+    eager step's at the same position, and one eager step and one replay
+    under the profiler.  Returns the launch counts of the counted run, split
+    into prefill and decode, and the ids served, {request: ids}."""
     cfg = configs.get(arch)
     if arch in SERVE_DEPTH:
         cfg = dataclasses.replace(cfg, num_layers=SERVE_DEPTH[arch])
@@ -1130,40 +1287,9 @@ def serve_path(arch: str, prompt_len: int, new_tokens: int) -> tuple[dict, dict]
                             dtype=torch.int32)
     extra = {k: t.cuda().to(torch.bfloat16) for k, t in
              extra_inputs(cfg, batch, torch.Generator().manual_seed(SEED + 3)).items()}
-    reqs = [Request(rid=i, prompt=prompts[i].numpy(), max_new_tokens=new_tokens)
-            for i in range(batch)]
-    messages, at_prefill, designs_at_prefill = [], {}, {}
-
-    def progress(msg):
-        if not messages:  # prefill is done (and synchronised): its launches so far
-            at_prefill.update(read_launches())
-            designs_at_prefill.update(read_designs())
-        messages.append(msg)
-        print(msg, flush=True)
-
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    reset_launches()
-    if extra:
-        out = serve_entry_points(cfg, model, prompts, extra, new_tokens, max_seq, progress)
-    else:
-        out = serve_requests(cfg, model, reqs, max_seq=max_seq, progress=progress,
-                             device="cuda")
-    total = read_launches()
-    designs_total = read_designs()
-    check_tensor_core_launches(f"serve {arch}")
-    peak = torch.cuda.max_memory_allocated()
-    launches = {"prefill": at_prefill,
-                "decode": {k: total[k] - at_prefill[k] for k in total}}
     want_prefill, want_decode = expected_serve_launches(cfg, new_tokens)
-    if launches["prefill"] != want_prefill or launches["decode"] != want_decode:
-        raise AssertionError(f"{arch}: launches in the served run {launches}, expected "
-                             f"prefill {want_prefill}, decode {want_decode}")
     # every prefill call of B4 in the ring, of B5 (bf16) in the two-pass
     # design; every decode call (T = 1) of both in the step kernel
-    designs = {"prefill": designs_at_prefill,
-               "decode": {name: {k: designs_total[name][k] - designs_at_prefill[name][k]
-                                 for k in keys} for name, keys in DESIGN_COUNTERS.items()}}
     want_designs = {
         "prefill": {"rg_lru_fwd": {"launches_step": 0},
                     "wkv6_fwd": {"launches_chunked": want_prefill["wkv6_fwd"],
@@ -1173,10 +1299,33 @@ def serve_path(arch: str, prompt_len: int, new_tokens: int) -> tuple[dict, dict]
                    "wkv6_fwd": {"launches_chunked": 0,
                                 "launches_step": want_decode["wkv6_fwd"]},
                    "wkv6_bwd": {"launches_chunked": 0, "launches_entry": 0}}}
-    print(f"serve {arch}: B4 / B5 designs {designs}")
-    if designs != want_designs:
-        raise AssertionError(f"{arch}: B4 / B5 designs in the served run {designs}, "
-                             f"expected {want_designs}")
+    per_step = {k: n // (new_tokens - 1) for k, n in want_decode.items()}
+    # a timed captured run's counters see its warm-up step and its capture
+    want_graph_decode = {k: 2 * n for k, n in per_step.items()}
+    counted, runs = None, []
+    ways = [("graph counted", True)] + [(f"{'graph' if graph else 'eager'} run {k + 1}", graph)
+                                        for k in range(repeats) for graph in (True, False)]
+    for name, graph in ways:
+        label = f"serve {arch} {name}"
+        run = served_run(cfg, model, prompts, extra, new_tokens, max_seq, graph, label,
+                         counted=counted is None)
+        want = want_graph_decode if graph and counted is not None else want_decode
+        if run["launches"]["prefill"] != want_prefill or run["launches"]["decode"] != want:
+            raise AssertionError(f"{label}: launches {run['launches']}, expected prefill "
+                                 f"{want_prefill}, decode {want}")
+        if run["designs"]["prefill"] != want_designs["prefill"] or (
+                want is want_decode and run["designs"] != want_designs):
+            raise AssertionError(f"{label}: B4 / B5 designs {run['designs']}, expected "
+                                 f"{want_designs}")
+        if counted is not None and run["ids"] != counted["ids"]:
+            raise AssertionError(f"{label}: ids differ from the counted captured run's")
+        if counted is None:
+            counted = run
+        else:
+            runs.append(run)
+    out = counted["ids"]
+    launches, peak = counted["launches"], runs[0]["peak"]
+    print(f"serve {arch}: B4 / B5 designs {counted['designs']}")
     if any(len(out[i]) != new_tokens for i in range(batch)):
         raise AssertionError(f"token budgets not met: {[len(t) for t in out.values()]}")
     gen = torch.tensor([out[i] for i in range(batch)], dtype=torch.int32)
@@ -1195,21 +1344,13 @@ def serve_path(arch: str, prompt_len: int, new_tokens: int) -> tuple[dict, dict]
     ref_tok = logits[:, first:-1].argmax(dim=-1).cpu()
     del logits
     agree = (ref_tok == gen).float().mean().item() * 100
-
-    # one more decode step (from a fresh prefill) under the profiler: the
-    # device's busy time and idle share in decode
-    with torch.inference_mode():
-        _, caches = prefill(cfg, model, {"tokens": prompts.cuda(), **extra}, max_seq)
-        step = gen[:, :1].cuda()
-        decode_step(cfg, model, step, caches)
-        print(f"serve {arch} decode step (batch {batch}) under the profiler: "
-              f"{profile_text(profiled(lambda: decode_step(cfg, model, step, caches)))}")
+    replay_logits_against_eager(arch, cfg, model, prompts, extra, gen, max_seq, per_step)
     if cfg.ffn == "moe":
         moe_breakdown(cfg, model)
 
-    prefill_s = float(re.search(r"prefill: .* in ([0-9.]+)s", messages[0]).group(1))
-    decode_tps = float(re.search(r"\(([0-9.]+) tok/s\)", messages[1]).group(1))
     inputs = ", ".join(f"{k} {tuple(t.shape)}" for k, t in extra.items())
+    ways = {"graph": runs[0::2], "eager": runs[1::2]}
+    prefill_s, decode_tps = runs[0]["prefill_s"], runs[0]["decode_tps"]
     print(f"serve {arch} full config ({cfg.num_layers} layers"
           + (f" + {cfg.num_encoder_layers} encoder layers" if cfg.enc_dec else "") + "), "
           f"{batch} x ({prompt_len} + {new_tokens})" + (f" beside {inputs}" if extra else "")
@@ -1222,16 +1363,84 @@ def serve_path(arch: str, prompt_len: int, new_tokens: int) -> tuple[dict, dict]
              if arch in RECKONING_GIB else "")
           + f", greedy agreement with full forward {agree:.1f}%, "
           f"launches prefill {launches['prefill']}, decode {launches['decode']}")
+    print(f"serve {arch} decode both ways, {repeats} run(s) each in turns, ids equal: "
+          + "; ".join(f"{way} decode tok/s {[r['decode_tps'] for r in rs]}"
+                      + (f" (the replays alone {[r['replay_tps'] for r in rs]})"
+                         if way == "graph" else "") + ", prefill s "
+                      f"{[r['prefill_s'] for r in rs]}, peak memory GiB "
+                      f"{[round(r['peak'] / 2**30, 3) for r in rs]} "
+                      f"({[r['peak'] for r in rs]} bytes)" for way, rs in ways.items()))
     return launches, out
 
 
-def profiled(fn, top: int = 8) -> dict:
+@torch.inference_mode()
+def replay_logits_against_eager(arch: str, cfg, model, prompts, extra: dict, gen,
+                                max_seq: int, per_step: dict) -> None:
+    """From a fresh prefill, two eager decode steps (the served ids' first
+    token in) and the second's logits; from another, a CapturedDecode (its
+    eager warm-up step, then the capture) replayed once: its logits at the
+    same position, held bit for bit against the eager ones (else the largest
+    difference printed; the ids are held by the served runs).  Then one more
+    eager step and one more replay under the profiler; the replay's
+    hand-written kernels, counted by name, must be one step's launches
+    (`per_step`, {wrapper: launches}), B1's in the tensor-core variant."""
+    batch = {"tokens": prompts.cuda(), **extra}
+    first = gen[:, :1].cuda()
+    _, caches = prefill(cfg, model, batch, max_seq)
+    logits, caches = decode_step(cfg, model, first, caches)
+    eager, caches = decode_step(cfg, model, torch.argmax(logits, -1)[:, None], caches)
+    eager = eager.clone()
+    step = torch.argmax(eager, -1)[:, None]
+    decode_step(cfg, model, step, caches)
+    prof = profiled(lambda: decode_step(cfg, model, step, caches))
+    print(f"serve {arch} decode step (batch {batch['tokens'].shape[0]}) under the profiler: "
+          f"{profile_text(prof)}")
+    del caches, logits
+    _, caches = prefill(cfg, model, batch, max_seq)
+    cap = CapturedDecode(cfg, model, caches, first)
+    cap.step()
+    same = torch.equal(cap.logits, eager)
+    diff = (cap.logits - eager).abs().max().item()
+    ids_same = torch.equal(cap.token, step)
+    print(f"serve {arch}: the first replayed step's logits {tuple(eager.shape)} against the "
+          f"eager step's at the same position: bit for bit {same}"
+          + ("" if same else f", max|diff| {diff:.6g}") + f"; ids equal {ids_same}")
+    if not ids_same:
+        raise AssertionError(f"{arch}: the replayed step's ids differ from the eager step's")
+    prof = profiled(cap.step, by_kernel=True)
+    kernels = prof.pop("kernels")
+    # the profiler's own cost inflates a replay's wall: the host clock over
+    # REPLAY_TIMED replays, each ending in the host's read of its ids
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(REPLAY_TIMED):
+        cap.step().cpu()
+    wall = (time.perf_counter() - t0) / REPLAY_TIMED * 1e3
+    ours = sorted((k, n) for k, n in kernels.items()
+                  if any(w in k for names in WRAPPER_KERNELS.values() for w in names))
+    print(f"serve {arch} decode step replayed as a CUDA graph under the profiler: "
+          f"{profile_text(prof)}; its hand-written kernels (name, events) {ours}; "
+          f"without the profiler {wall:.3f} ms a replay and its ids' read (host clock, "
+          f"{REPLAY_TIMED} replays), idle {(1 - prof['device_ms'] / wall) * 100:.1f} % of it")
+    replayed, designs = wrapper_launches(kernels)
+    want = {w: per_step[w] for w in WRAPPER_KERNELS}
+    if replayed != want or designs["flash_attention_fwd"]["launches_tc"] != want[
+            "flash_attention_fwd"]:
+        raise AssertionError(f"{arch}: the profiled replay launched {replayed} (designs "
+                             f"{designs}), one step launches {want}; kernels seen "
+                             f"{sorted(kernels)[:40]}")
+    del cap, caches
+
+
+def profiled(fn, top: int = 8, by_kernel: bool = False) -> dict:
     """One call of `fn` (warm) under torch.profiler, CPU and CUDA: its wall
     ms (host clock, ending in a synchronize, the profiler's own cost
     included), the device ms (the kernels' device times summed: one stream),
     the device's idle share of the wall time, the host's reads of device
-    values (`aten::_local_scalar_dense`, each a sync) and the `top` ops by
-    their kernels' device ms."""
+    values (`aten::_local_scalar_dense`, each a sync), the `top` ops by
+    their kernels' device ms (`by_kernel`: the kernels themselves, as a
+    CUDA graph's replay launches them), the NCCL kernels' device ms and
+    every kernel's events by name."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1248,9 +1457,15 @@ def profiled(fn, top: int = 8) -> dict:
                   if e.device_type == DeviceType.CPU and e.self_device_time_total > 0),
                  key=lambda op: -op[1])
     reads = sum(e.count for e in events if e.key == "aten::_local_scalar_dense")
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA]
+    if by_kernel:  # a graph replay: no op launched its kernels, so the kernels by name
+        ops = sorted(((e.key, round(e.self_device_time_total / 1e3, 4), e.count)
+                      for e in kernels), key=lambda op: -op[1])
+    nccl = sum(e.self_device_time_total for e in kernels if "nccl" in e.key.lower()) / 1e3
     return {"wall_ms": wall, "device_ms": device,
             "idle_share": 1 - device / wall if device else None,
-            "host_reads": reads, "top_ops": ops[:top]}
+            "host_reads": reads, "top_ops": ops[:top], "nccl_ms": nccl,
+            "kernels": {e.key: e.count for e in kernels}}
 
 
 def profile_text(prof: dict) -> str:
@@ -1259,7 +1474,8 @@ def profile_text(prof: dict) -> str:
                 f"saw no kernel)")
     return (f"wall {prof['wall_ms']:.3f} ms, device {prof['device_ms']:.3f} ms, idle "
             f"{prof['idle_share'] * 100:.1f} %, host reads of device values "
-            f"{prof['host_reads']}, top ops (name, device ms, calls) {prof['top_ops']}")
+            f"{prof['host_reads']}, top ops (name, device ms, calls) {prof['top_ops']}"
+            + (f", NCCL kernels {prof['nccl_ms']:.4f} ms" if prof["nccl_ms"] else ""))
 
 
 @torch.inference_mode()
@@ -2549,32 +2765,56 @@ def tp_serve_whole(n: int, dev, say) -> dict:
     prompts = tp_prompts(cfg, prompt_len, batch)
     reqs = [Request(rid=i, prompt=prompts[i].numpy(), max_new_tokens=new_tokens)
             for i in range(batch)]
-    messages, at_prefill = [], {}
-
-    def progress(msg):
-        if not messages:
-            at_prefill.update(read_launches())
-        messages.append(msg)
-
-    torch.cuda.synchronize(dev)
-    torch.cuda.reset_peak_memory_stats(dev)
-    dist.barrier()
-    reset_launches()
-    with activation_sharding(mesh, rules):
-        out = serve_requests(cfg, model, reqs, max_seq=max_seq, progress=progress, device=dev)
-    total = read_launches()
-    check_tensor_core_launches(f"serve {arch} on (1, {n}) rank {rank}")
-    serve_peak = torch.cuda.max_memory_allocated(dev)
-    launches = {"prefill": at_prefill, "decode": {k: total[k] - at_prefill[k] for k in total}}
     want_prefill, want_decode = expected_serve_launches(cfg, new_tokens)
-    if launches["prefill"] != want_prefill or launches["decode"] != want_decode:
-        raise AssertionError(f"{arch} on (1, {n}): launches {launches}, expected prefill "
-                             f"{want_prefill}, decode {want_decode}")
-    ids = [out[i] for i in range(batch)]
-    every = [None] * dist.get_world_size()
-    dist.all_gather_object(every, ids)
-    if not all(x == ids for x in every):
-        raise AssertionError(f"{arch} on (1, {n}): the ranks returned different ids")
+    per_step = {k: v // (new_tokens - 1) for k, v in want_decode.items()}
+    runs = {}
+    for graph in (True, False):  # the decode step captured (every rank the same), then eager
+        messages, at_prefill = [], {}
+
+        def progress(msg):
+            if not messages:
+                at_prefill.update(read_launches())
+            messages.append(msg)
+
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        dist.barrier()
+        reset_launches()
+        with activation_sharding(mesh, rules):
+            out = serve_requests(cfg, model, reqs, max_seq=max_seq, progress=progress,
+                                 device=dev, graph=graph)
+        total = read_launches()
+        way = "graph" if graph else "eager"
+        replays = replays_of(messages[1])
+        if graph != (replays is not None):
+            raise AssertionError(f"{arch} on (1, {n}), {way}: decode {messages[1]!r}")
+        check_tensor_core_launches(f"serve {arch} on (1, {n}) rank {rank}, {way}")
+        launches = {"prefill": dict(at_prefill),
+                    "decode": {k: total[k] - at_prefill[k] for k in total}}
+        # a captured run's counters see its warm-up step and its capture, not its replays
+        want = {k: 2 * v for k, v in per_step.items()} if graph else want_decode
+        if launches["prefill"] != want_prefill or launches["decode"] != want:
+            raise AssertionError(f"{arch} on (1, {n}), {way}: launches {launches}, expected "
+                                 f"prefill {want_prefill}, decode {want}")
+        ids = [out[i] for i in range(batch)]
+        every = [None] * dist.get_world_size()
+        dist.all_gather_object(every, ids)
+        if not all(x == ids for x in every):
+            raise AssertionError(f"{arch} on (1, {n}), {way}: the ranks returned different ids")
+        runs[way] = {"ids": ids, "launches": launches, "messages": messages,
+                     "peak": torch.cuda.max_memory_allocated(dev),
+                     "replays": replays,
+                     "prefill_s": float(re.search(r"prefill: .* in ([0-9.]+)s",
+                                                  messages[0]).group(1)),
+                     "decode_tps": float(re.search(r"\(([0-9.]+) tok/s\)",
+                                                   messages[1]).group(1)),
+                     "replay_tps": replay_rate(messages[1], batch)}
+    if runs["graph"]["ids"] != runs["eager"]["ids"]:
+        raise AssertionError(f"{arch} on (1, {n}): the captured step's ids differ from the "
+                             f"eager loop's")
+    ids, launches, messages = runs["graph"]["ids"], runs["graph"]["launches"], \
+        runs["graph"]["messages"]
+    serve_peak = runs["graph"]["peak"]
     with torch.inference_mode(), activation_sharding(mesh, rules):
         # the greedy ids of the vocab-parallel argmax against the gathered logits'
         local, caches = prefill(cfg, model, {"tokens": prompts.to(dev)}, max_seq,
@@ -2591,17 +2831,36 @@ def tp_serve_whole(n: int, dev, say) -> dict:
         step = torch.tensor([[t[0]] for t in ids], device=dev)
         decode_step(cfg, model, step, caches)
         prof = profiled(lambda: decode_step(cfg, model, step, caches))
+        del caches, logits
+        # one replay of the captured step under the profiler: its NCCL time
+        _, caches = prefill(cfg, model, {"tokens": prompts.to(dev)}, max_seq,
+                            logits_whole=False)
+        cap = CapturedDecode(cfg, model, caches, step)
+        cap.step()
+        prof_graph = profiled(cap.step, by_kernel=True)
+        del cap
+    # the captured run's decode launches: its warm-up step's, and a replay's
+    # hand-written kernels counted by name in the profiled replay, each replay
+    replayed, _ = wrapper_launches(prof_graph["kernels"])
+    if replayed != {w: per_step[w] for w in WRAPPER_KERNELS}:
+        raise AssertionError(f"{arch} on (1, {n}): the profiled replay launched {replayed}, "
+                             f"one step launches {per_step}")
+    launches["decode"].update({w: per_step[w] + k * runs["graph"]["replays"]
+                               for w, k in replayed.items()})
+    if launches["decode"] != want_decode:
+        raise AssertionError(f"{arch} on (1, {n}): the captured run's decode launches "
+                             f"{launches['decode']}, expected {want_decode}")
     if not finite:
         raise AssertionError(f"{arch} on (1, {n}): non-finite logits")
     if any(vp != whole for vp, whole in picks):
         raise AssertionError(f"{arch} on (1, {n}): vocab_parallel_argmax's ids differ from "
                              f"the gathered logits' argmax: {picks}")
-    del model, caches, logits
+    del model, caches
     gc.collect()
     torch.cuda.empty_cache()
     init_peaks, serve_peaks = rank_memory_of(init_peak), rank_memory_of(serve_peak)
-    prefill_s = float(re.search(r"prefill: .* in ([0-9.]+)s", messages[0]).group(1))
-    decode_tps = float(re.search(r"\(([0-9.]+) tok/s\)", messages[1]).group(1))
+    eager_peaks = rank_memory_of(runs["eager"]["peak"])
+    prefill_s, decode_tps = runs["graph"]["prefill_s"], runs["graph"]["decode_tps"]
     say(f"mesh serve {arch} whole ({cfg.num_layers} layers, {cfg.param_count()} parameters, "
         f"bf16) on (1, {n}) (tensor parallel, fsdp=False), {batch} x ({prompt_len} + "
         f"{new_tokens}): sharded init {init_s:.1f} s; prefill {prefill_s:.3f} s = "
@@ -2615,9 +2874,21 @@ def tp_serve_whole(n: int, dev, say) -> dict:
         f"({serve_peaks} bytes; with the prefill's logits gathered whole: "
         f"{GATHERED_SERVE_PEAK_GIB} GiB); decode step (batch {batch}) under the profiler, rank 0: "
         f"{profile_text(prof)}")
+    say(f"mesh serve {arch} whole on (1, {n}), the decode step captured as a CUDA graph "
+        f"({runs['graph']['replays']} replays) and eager, ids equal both ways on every rank: "
+        f"decode tok/s graph {runs['graph']['decode_tps']} (the replays alone "
+        f"{runs['graph']['replay_tps']}), eager {runs['eager']['decode_tps']}; "
+        f"prefill s graph {runs['graph']['prefill_s']}, eager {runs['eager']['prefill_s']}; "
+        f"serving peak a card, eager {[round(x / 2**30, 3) for x in eager_peaks]} GiB "
+        f"({eager_peaks} bytes); one replay under the profiler, rank 0: "
+        f"{profile_text(prof_graph)}")
+    prof.pop("kernels")
+    prof_graph.pop("kernels")
     return {"launches": launches["prefill"], "decode_launches": launches["decode"],
             "ids": ids, "prefill_s": prefill_s, "decode_tps": decode_tps, "held": held,
-            "init_peaks": init_peaks, "serve_peaks": serve_peaks, "profile": prof}
+            "init_peaks": init_peaks, "serve_peaks": serve_peaks, "profile": prof,
+            "eager_decode_tps": runs["eager"]["decode_tps"], "eager_peaks": eager_peaks,
+            "replay_profile": prof_graph}
 
 
 def rank_memory_of(value: int) -> list[int]:
@@ -4482,7 +4753,10 @@ def main() -> None:
         for prompt_len, new_tokens in SERVE_LENGTHS.get(arch, ((SERVE_PROMPT.get(arch, 512),
                                                                  32),)):
             key = arch if arch not in SERVE_LENGTHS else f"{arch} {prompt_len}+{new_tokens}"
-            serve_launches[key], served_ids[key] = serve_path(arch, prompt_len, new_tokens)
+            repeats = GRAPH_REPEATS if arch in GRAPH_REPEAT_ARCHS and not any(
+                k.startswith(arch) for k in served_ids) else 1
+            serve_launches[key], served_ids[key] = serve_path(arch, prompt_len, new_tokens,
+                                                              repeats)
             gc.collect()
             torch.cuda.empty_cache()
     phase("8 train (main path)")

@@ -262,7 +262,7 @@ def _shard_caches(caches: list[dict], cfg, mesh, global_batch: int, kv_seq_shard
     names = list(axis_sizes(mesh))
 
     def one(key, t, cut):
-        if not isinstance(t, torch.Tensor):
+        if not isinstance(t, torch.Tensor) or t.dim() == 0:  # `pos`: whole on every rank
             return t
         shape = ((1, *t.shape) if key.endswith("slot_pos")
                  else (1, global_batch, *t.shape[1:]))
@@ -291,10 +291,12 @@ def _shard_caches(caches: list[dict], cfg, mesh, global_batch: int, kv_seq_shard
 
 def _fill(caches: list[dict], seq_len: int) -> None:
     """Full caches: decode writes the last position (a fake tensor holds no
-    values, so the positions are all there is to set)."""
+    values, so the positions are all there is to set).  Each `pos` is built
+    as a 0-d tensor from its value, which a fake tensor keeps as a constant:
+    the step's `add_` advances it and `int(pos)` reads it after the trace."""
     for c in caches:
         if "pos" in c["mix"]:
-            c["mix"]["pos"] = seq_len - 1
+            c["mix"]["pos"] = torch.tensor(seq_len - 1, dtype=torch.int32)
 
 
 @dataclasses.dataclass

@@ -2,7 +2,10 @@
 
 The port of `repro.launch.serve`: fixed-batch slots, greedy decode,
 per-request stop lengths, KV caches managed by the model's cache protocol.
-Decode is an eager Python loop (the JAX driver jits its step).
+The reference jits its step once and calls it per token; on the card the
+port captures its step once as a CUDA graph and replays it per token
+(`CapturedDecode`), and on the CPU (or with `graph=False`) runs the same
+step as an eager Python loop.
 
 Run on the card (random weights from a seed, scaled-down config):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-3b
@@ -16,15 +19,25 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import configs
 from repro_torch._device import resolve_device
 from repro_torch.models import decode_step, init_params, prefill
 from repro_torch.models.model import greedy
+
+
+@functools.cache
+def _warmup_stream(index: int) -> torch.cuda.Stream:
+    """The side stream of every warm-up on card `index`: cuBLAS keeps a
+    workspace for each stream it has run on (32 MiB on the H100), so a new
+    stream a capture would hold one more workspace for each capture."""
+    return torch.cuda.Stream(torch.device("cuda", index))
 
 
 @dataclasses.dataclass
@@ -35,15 +48,112 @@ class Request:
     out: list = dataclasses.field(default_factory=list)
 
 
+class CapturedDecode:
+    """One greedy decode step over `caches` (the caches `prefill` returned,
+    on the card), captured once as a `torch.cuda.CUDAGraph` and replayed per
+    token: the counterpart of the reference's `jax.jit` of `decode_step`.
+
+    Building it runs the first step eagerly on a side stream from `token`
+    (B, 1), the prefill's greedy ids: the warm-up, which builds and loads the
+    kernels (and, on a mesh, creates the NCCL communicators) and advances the
+    caches as a real step does.  Then it captures the next step without
+    running it.  `token` is the static buffer the step reads and writes its
+    greedy ids into; `logits` the step's logits (this rank's vocab slice),
+    valid until the next replay; `step()` replays the graph and returns
+    `token`.  Every cache leaf is written in place and the position is a
+    device tensor, so each replay continues where the last one stopped.
+    Capture or replay errors propagate; nothing falls back to the eager
+    loop."""
+
+    def __init__(self, cfg, model, caches, token):
+        if token.device.type != "cuda":
+            raise ValueError(f"a CUDA graph captures a step on the card; the token is on "
+                             f"{token.device}")
+        self.cfg, self.model, self.caches = cfg, model, caches
+        self.token = token.clone()
+        dev = token.device
+        side = _warmup_stream(dev.index)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            self._step()
+        torch.cuda.current_stream(dev).wait_stream(side)
+        torch.cuda.synchronize(dev)  # no collective of the warm-up is left in flight
+        self.graph = torch.cuda.CUDAGraph()
+        # on a mesh the NCCL watchdog's thread queries events while this one
+        # captures: only this thread's calls must be capture-safe
+        mode = "thread_local" if dist.is_available() and dist.is_initialized() else "global"
+        with torch.cuda.graph(self.graph, capture_error_mode=mode):
+            self.logits = self._step()
+        self.replays = 0
+
+    def _step(self):
+        logits, _ = decode_step(self.cfg, self.model, self.token, self.caches,
+                                logits_whole=False)
+        self.token.copy_(greedy(self.cfg, self.model, logits)[:, None])
+        return logits
+
+    def step(self):
+        self.graph.replay()
+        self.replays += 1
+        return self.token
+
+
+@torch.inference_mode()
+def decode_loop(cfg, model, caches, tok, budgets: list[int], graph: bool,
+                progress=print) -> torch.Tensor:
+    """Greedy decode from `tok` (B, 1), the prefill's greedy ids, over
+    `caches` until row i holds `budgets[i]` ids (the longest budget's steps
+    for every row).  Returns the ids read on the host, (B, max(budgets)),
+    `tok`'s first.  With `graph` (on the card), the first step runs eagerly
+    and the next is captured once (`CapturedDecode`), where a replay follows,
+    and every later step replays it; else every step runs eagerly.  The host
+    reads each step's ids once, outside the graph, as the reference's
+    `np.asarray(tok)`.  Prints one progress line: the decoded tokens, steps,
+    seconds and tok/s, and how the steps ran (the graph's warm-up and capture
+    seconds and its replays)."""
+    steps = max(budgets) - 1
+    captured, capture_s = None, 0.0
+    t0 = time.perf_counter()
+    host = [tok.cpu()]  # waits for the device
+    for i in range(steps):
+        if captured is not None:
+            tok = captured.step()
+        elif graph and i + 1 < steps:  # a replay follows: warm up and capture
+            t1 = time.perf_counter()
+            captured = CapturedDecode(cfg, model, caches, tok)
+            capture_s = time.perf_counter() - t1
+            tok = captured.token
+        else:
+            logits, caches = decode_step(cfg, model, tok, caches, logits_whole=False)
+            tok = greedy(cfg, model, logits)[:, None]
+        host.append(tok.cpu())
+    dt = time.perf_counter() - t0
+    # the first id of each row came from prefill; count only decode's
+    decoded = sum(max(n - 1, 0) for n in budgets)
+    how = ("eager" if captured is None else
+           f"CUDA graph: warm-up and capture {capture_s:.3f}s, {captured.replays} replays")
+    progress(f"decode: {decoded} tokens in {steps} steps, {dt:.3f}s "
+             f"({decoded / max(dt, 1e-9):.1f} tok/s), {how}")
+    return torch.cat(host, dim=1)
+
+
 @torch.inference_mode()
 def serve_requests(cfg, model, requests: list[Request], max_seq: int,
-                   progress=print, device=None) -> dict[int, list[int]]:
+                   progress=print, device=None, graph: bool | None = None
+                   ) -> dict[int, list[int]]:
     """Batch all requests together (same prompt length), prefill once, decode
     until every request hits its token budget.  Returns rid -> token ids.
 
     Runs on `device` (default `cuda`), where `model` must already live, under
     `torch.inference_mode()`: the parameters are trainable, and serving
     builds no autograd graph.
+
+    `graph` (None: on a CUDA device): after prefill, the first decode step
+    runs eagerly, the next is captured once (`CapturedDecode`) and every
+    later token replays it; the ids are the eager loop's, the same kernels
+    running in the same order.  `graph=False` runs every step eagerly, the
+    same step; `graph=True` on the CPU raises ValueError (no CUDA graph
+    there).  The decode runs in `decode_loop`.
 
     On a mesh (tensor parallelism over its 'model' axis), as the reference's
     dry run builds its prefill and decode steps: every rank shards the model
@@ -53,38 +163,29 @@ def serve_requests(cfg, model, requests: list[Request], max_seq: int,
     launch.shardings.activation_rules(mesh))`; each rank computes its heads
     and channels, its caches hold them, and every rank returns the same
     tokens.  The greedy pick reads each rank's vocab slice of the logits
-    (`models.model.greedy`), so no rank holds the whole vocab's."""
+    (`models.model.greedy`), so no rank holds the whole vocab's.  Every rank
+    captures the same collectives in the same order."""
     dev = resolve_device(device)
     if model.device.type != dev.type:
         raise ValueError(f"model on {model.device}, serving on {dev}")
+    if graph and dev.type != "cuda":
+        raise ValueError(f"graph=True needs a CUDA device; serving on {dev}")
+    use_graph = dev.type == "cuda" if graph is None else graph
     batch = len(requests)
     prompts = torch.from_numpy(np.stack([r.prompt for r in requests])).to(model.device)
     t0 = time.perf_counter()
     logits, caches = prefill(cfg, model, {"tokens": prompts}, max_seq=max_seq,
                              logits_whole=False)
     tok = greedy(cfg, model, logits)[:, None]
-    host_tok = tok.cpu()  # waits for the device
+    tok.cpu()  # waits for the device
     dt = time.perf_counter() - t0
     n = prompts.numel()
     progress(f"prefill: {batch} x {prompts.shape[1]} tokens in {dt:.3f}s "
              f"({n / max(dt, 1e-9):.1f} tok/s)")
-
-    budget = max(r.max_new_tokens for r in requests)
-    t0 = time.perf_counter()
-    for i in range(budget):
-        for r, t in zip(requests, host_tok[:, 0].tolist(), strict=True):
-            if len(r.out) < r.max_new_tokens:
-                r.out.append(t)
-        if i == budget - 1:
-            break
-        logits, caches = decode_step(cfg, model, tok, caches, logits_whole=False)
-        tok = greedy(cfg, model, logits)[:, None]
-        host_tok = tok.cpu()
-    dt = time.perf_counter() - t0
-    # the first token of each request came from prefill; count only decode's
-    decoded = sum(max(len(r.out) - 1, 0) for r in requests)
-    progress(f"decode: {decoded} tokens in {budget - 1} steps, {dt:.3f}s "
-             f"({decoded / max(dt, 1e-9):.1f} tok/s)")
+    ids = decode_loop(cfg, model, caches, tok, [r.max_new_tokens for r in requests],
+                      use_graph, progress)
+    for r, row in zip(requests, ids.tolist(), strict=True):
+        r.out.extend(row[:r.max_new_tokens])
     return {r.rid: r.out for r in requests}
 
 

@@ -6,13 +6,19 @@ The cache protocol is the JAX package's:
 
 Cache layout (one dict per layer): k/v (B, Hkv, S_cache, hd); `slot_pos`
 (S_cache,) int32, the absolute position held by each slot (-1 = empty); `pos`,
-a Python int shared by the whole batch.  Global layers have S_cache = max_seq
-and keep position p at slot p; sliding-window ("local") layers keep a ring
-buffer of `window` slots and write position p at slot p % S_cache.
+a 0-d int32 tensor on the cache's device shared by the whole batch, as the
+reference's `jnp.zeros((), jnp.int32)`.  Global layers have S_cache =
+max_seq and keep position p at slot p; sliding-window ("local") layers keep a
+ring buffer of `window` slots and write position p at slot p % S_cache.
 
-Unlike the JAX version, which returns fresh arrays, the port writes K/V into
-the cache tensors in place (a full-width cache is ~1.4 GB) and returns the
-same dict with `pos` and `slot_pos` advanced.
+Unlike the JAX version, which returns fresh arrays, the port writes every
+leaf in place (a full-width cache is ~1.4 GB) and returns the same dict:
+prefill sets `pos` (`fill_`), a decode step writes the new token's slot at
+the tensor index `pos % S_cache` (`index_copy_`, the reference's
+`dynamic_update_slice`) and advances `pos` (`add_`).  No value is read on
+the host, so one decode step can be captured as a CUDA graph and replayed
+(`launch.serve.CapturedDecode`): each replay reads the position the last
+one left.
 
 MLA (MiniCPM3): the cache holds the *latent* c_kv (B, max_seq, kv_lora_rank)
 and the shared rope key k_rope (B, max_seq, qk_rope), written at `pos`.
@@ -45,7 +51,9 @@ rank's max m_r, sum l_r and unnormalised P V in float32, rescaled by
 exp(m_r - m) and summed; a rank with no valid slot adds zero).  The query
 heads, and the new token's K/V where the KV heads split, are gathered over
 'model' first (B H D a step, against the whole cache for a gather), and the
-new token is written only by the rank whose slots hold it.
+new token is written only by the rank whose slots hold it: every rank
+writes, and a rank whose slots do not hold it writes back the row it held
+(a mask from the position, not a branch on the host).
 """
 from __future__ import annotations
 
@@ -56,6 +64,16 @@ from ..kernels.flash_attention.ops import flash_attention
 from . import layers
 from . import tensor_parallel as tp
 from .config import ArchConfig
+
+
+def _put(leaf, dim: int, at, new, mine=None) -> None:
+    """Write `new` (the leaf's shape with 1 along `dim`) into `leaf` at index
+    `at` (a 0-d integer tensor) along `dim`, in place; where `mine` (a 0-d
+    bool tensor) is False the slot keeps what it held."""
+    idx = at.long().reshape(1)
+    if mine is not None:
+        new = torch.where(mine, new, leaf.index_select(dim, idx))
+    leaf.index_copy_(dim, idx, new.to(leaf.dtype))
 
 
 def _decode_attend(q, k_cache, v_cache, slot_pos, q_pos, window):
@@ -117,10 +135,11 @@ def _decode_sharded(cache, q, k, v, pos, window, split):
     lo, whole = cache["shard"]
     n = cache["k"].shape[2]
     slot = pos % whole             # ring buffer (== pos for global caches)
-    if lo <= slot < lo + n:
-        cache["k"][:, :, slot - lo] = k[:, :, 0]
-        cache["v"][:, :, slot - lo] = v[:, :, 0]
-    cache["slot_pos"][slot] = pos
+    local = slot - lo
+    mine = (local >= 0) & (local < n)
+    _put(cache["k"], 2, local.clamp(0, n - 1), k, mine)
+    _put(cache["v"], 2, local.clamp(0, n - 1), v, mine)
+    _put(cache["slot_pos"], 0, slot, pos.reshape(1))
     slot_pos = cache["slot_pos"][lo:lo + n]
     b, hq, _, hd = q.shape
     hkv = k.shape[1]
@@ -155,7 +174,7 @@ def init_attn_cache(cfg: ArchConfig, batch: int, max_seq: int, kind: str, dtype,
         "k": torch.zeros((batch, hkv, s_cache, hd), dtype=dtype, device=device),
         "v": torch.zeros((batch, hkv, s_cache, hd), dtype=dtype, device=device),
         "slot_pos": torch.full((s_cache,), -1, dtype=torch.int32, device=device),
-        "pos": 0,
+        "pos": torch.zeros((), dtype=torch.int32, device=device),
     }
 
 
@@ -176,8 +195,9 @@ def _kv_weights(cfg: ArchConfig, p):
     if heads == list(range(heads[0], heads[-1] + 1)):
         cols = slice(heads[0] * hd, (heads[-1] + 1) * hd)
         return wk[:, cols], wv[:, cols]
-    cols = torch.tensor([h * hd + i for h in heads for i in range(hd)], device=wk.device)
-    return wk[:, cols], wv[:, cols]
+    # slices, not an index built on the host: a decode step copies nothing from it
+    return (torch.cat([wk[:, h * hd:(h + 1) * hd] for h in heads], dim=1),
+            torch.cat([wv[:, h * hd:(h + 1) * hd] for h in heads], dim=1))
 
 
 def attention_block(cfg: ArchConfig, p, x, positions, *, kind: str, cache=None,
@@ -203,16 +223,16 @@ def attention_block(cfg: ArchConfig, p, x, positions, *, kind: str, cache=None,
         kv_split = tp.is_split(p, "wk")
         out = _decode_sharded(cache, _heads(q, split), _heads(k, kv_split),
                               _heads(v, kv_split), cache["pos"], window, split)
-        cache["pos"] += 1
+        cache["pos"].add_(1)
     elif cache is not None and s == 1:  # decode: one token
         pos = cache["pos"]
         slot = pos % cache["k"].shape[2]  # ring buffer (== pos for global caches)
-        cache["k"][:, :, slot] = k[:, :, 0]
-        cache["v"][:, :, slot] = v[:, :, 0]
-        cache["slot_pos"][slot] = pos
+        _put(cache["k"], 2, slot, k)
+        _put(cache["v"], 2, slot, v)
+        _put(cache["slot_pos"], 0, slot, pos.reshape(1))
         out = _decode_attend(q, cache["k"], cache["v"], cache["slot_pos"], pos,
                              window)
-        cache["pos"] = pos + 1
+        pos.add_(1)
     else:  # training / plain forward / prefill
         out = flash_attention(q, k, v, not bidirectional, window)
         if cache is not None:  # prefill: stash the tail of k/v
@@ -231,8 +251,8 @@ def attention_block(cfg: ArchConfig, p, x, positions, *, kind: str, cache=None,
                 cache["k"].copy_(k[:, :, s - keep:][:, :, idx])
                 cache["v"].copy_(v[:, :, s - keep:][:, :, idx])
                 slot = (s - keep) + idx.to(torch.int32)
-            cache["slot_pos"] = slot
-            cache["pos"] = s
+            cache["slot_pos"].copy_(slot)
+            cache["pos"].fill_(s)
 
     y = out.transpose(1, 2).reshape(b, s, hq * hd)
     return layers.row_parallel(y, p["wo"], split).to(x.dtype), cache
@@ -267,7 +287,7 @@ def init_mla_cache(cfg: ArchConfig, batch: int, max_seq: int, dtype, device):
         "c_kv": torch.zeros((batch, max_seq, m.kv_lora_rank), dtype=dtype, device=device),
         "k_rope": torch.zeros((batch, max_seq, m.qk_rope_head_dim), dtype=dtype,
                               device=device),
-        "pos": 0,
+        "pos": torch.zeros((), dtype=torch.int32, device=device),
     }
 
 
@@ -303,14 +323,18 @@ def mla_block(cfg: ArchConfig, p, x, positions, *, cache=None):
         if cache is not None:
             cache["c_kv"][:, :s] = c_kv
             cache["k_rope"][:, :s] = k_rope
-            cache["pos"] = s
+            cache["pos"].fill_(s)
     else:  # decode with weight absorption: attend in latent space
         pos = cache["pos"]
         sharded = "shard" in cache
         lo, n = cache["shard"][0] if sharded else 0, cache["c_kv"].shape[1]  # this rank's slots
-        if lo <= pos < lo + n:
-            cache["c_kv"][:, pos - lo] = c_kv[:, 0]
-            cache["k_rope"][:, pos - lo] = k_rope[:, 0]
+        if sharded:  # only the rank holding the position's slot writes it
+            local = pos - lo
+            at, mine = local.clamp(0, n - 1), (local >= 0) & (local < n)
+        else:
+            at, mine = pos, None
+        _put(cache["c_kv"], 1, at, c_kv, mine)
+        _put(cache["k_rope"], 1, at, k_rope, mine)
         c_all, kr_all = cache["c_kv"].float(), cache["k_rope"].float()
         w_uk = p["w_uk"].reshape(m.kv_lora_rank, h, nope).float()
         # absorb: q_abs[b,h,r] = sum_n q_nope[b,h,n] * w_uk[r,h,n]
@@ -330,7 +354,7 @@ def mla_block(cfg: ArchConfig, p, x, positions, *, cache=None):
             lat = torch.einsum("bhls,bsr->bhlr", w, c_all)
         w_uv = p["w_uv"].reshape(m.kv_lora_rank, h, vd).float()
         out = torch.einsum("bhlr,rhv->bhlv", lat, w_uv).to(x.dtype)
-        cache["pos"] = pos + 1
+        pos.add_(1)
 
     y = out.transpose(1, 2).reshape(b, s, h * vd)
     return layers.row_parallel(y, p["wo"], split).to(x.dtype), cache

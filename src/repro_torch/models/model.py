@@ -362,14 +362,25 @@ def _apply_block(cfg, p, kind, x, positions, cache, enc_out, bidirectional):
     else:
         y, aux = _apply_ffn(cfg, p["ffn"], h)
     if cache is not None:
-        cache["mix"] = new_mix
+        _keep(cache["mix"], new_mix)
         if kind == "rwkv6":
-            cache["cmix"] = new_cmix
+            cache["cmix"].copy_(new_cmix)
         if cut:
             cache = sharding.uncut_cache(cache, cut, tp.group())
         if cache is not held:
             sharding.keep_shards(held, cache, local)
     return sharding.shard(x + y, "act"), held, aux
+
+
+def _keep(held: dict, new: dict) -> None:
+    """A block's new state copied into the tensors its cache holds (the
+    recurrent blocks return fresh ones; the attention blocks return the
+    held dict itself, written in place), so that every cache leaf keeps its
+    storage from step to step, as a captured decode step needs."""
+    if new is held:
+        return
+    for k, t in new.items():
+        held[k].copy_(t)
 
 
 # --- selective remat ---------------------------------------------------------------------
@@ -476,9 +487,11 @@ def forward(cfg: ArchConfig, params: Model, batch: dict, *, caches=None,
     x, positions = _embed_inputs(cfg, params, batch, seq)
     b, s = positions.shape
     if caches is not None and mode == "decode":
-        # single-token step: positions come from the cache pointer
-        positions = torch.full((b, s), _cache_pos(caches), dtype=torch.int32,
-                               device=x.device)
+        # single-token step: positions come from the caches' device counter,
+        # a new tensor (no view of it), since each attention block advances
+        # its own in place
+        positions = torch.zeros((b, s), dtype=torch.int32, device=x.device) \
+            + _cache_pos(caches, x.device)
     remat = (mode == "train" and cfg.remat and cfg.remat_policy != "none"
              and torch.is_grad_enabled())
     # as in the reference, a policy other than "dots" (and "none") is full remat
@@ -498,21 +511,23 @@ def forward(cfg: ArchConfig, params: Model, batch: dict, *, caches=None,
     with sharding.sequence(seq):
         x = _norm(params["final_norm"], x)
         logits = sharding.shard(layers.unembed(head, x, gather=logits_whole), "logits")
-    return ModelOutput(logits=logits, caches=caches,
-                       aux_loss=torch.as_tensor(total_aux, dtype=torch.float32,
-                                                device=x.device))
+    # a dense stack's is a zero made on the device, never copied from the host
+    aux = (torch.as_tensor(total_aux, dtype=torch.float32, device=x.device)
+           if isinstance(total_aux, torch.Tensor)
+           else torch.zeros((), dtype=torch.float32, device=x.device))
+    return ModelOutput(logits=logits, caches=caches, aux_loss=aux)
 
 
-def _cache_pos(caches) -> int:
-    """Current decode position from the first attention cache found (all
-    attention caches advance together).
+def _cache_pos(caches, device) -> torch.Tensor:
+    """Current decode position, a 0-d int32 tensor: the first attention
+    cache's `pos` (all attention caches advance together).
 
     Pure-recurrent stacks (rwkv6) have no positional cache, and no use for
-    positions (token shift only), so 0 is returned."""
+    positions (token shift only), so a zero on `device` is returned."""
     for c in caches:
         if "pos" in c["mix"]:
             return c["mix"]["pos"]
-    return 0
+    return torch.zeros((), dtype=torch.int32, device=device)
 
 
 def last_logits(cfg: ArchConfig, params: Model, logits, whole: bool = True):

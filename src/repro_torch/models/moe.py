@@ -212,7 +212,10 @@ def _moe_groups(p, xg, m: MoEConfig, experts_group=None):
     yg = torch.matmul(combine, ye)                                      # (n, G, d)
 
     # Switch aux loss terms: fraction routed per expert x mean router prob
-    frac = F.one_hot(top_i, e).float().sum(dim=(1, 2)) / (g * k)       # (n, E)
+    # a comparison with the expert ids, as `route`'s: `one_hot` checks its ids
+    # on the host off the card
+    hits = top_i[..., None] == torch.arange(e, device=top_i.device)
+    frac = hits.float().sum(dim=(1, 2)) / (g * k)                        # (n, E)
     aux = e * torch.sum(frac * probs.mean(dim=1), dim=-1)
     return yg, aux
 

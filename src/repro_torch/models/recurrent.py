@@ -26,8 +26,10 @@ RWKV-6 block (Finch, arXiv:2404.05892), time-mix + channel-mix pair:
   norm, gated output.  State: last token (B, d), wkv state (B, H, dk, dv) f32;
   the channel mix keeps its own last-token shift state.
 
-A new state's last-token and conv-tail tensors are copies, not views of the
-block's input, so that a cache does not hold the whole prompt's activations.
+A block returns its new state (the last-token and conv-tail states as views
+of its input); `models.model` copies it into the tensors the cache holds,
+which keep their storage from step to step (a captured decode step replays
+on them), so a cache never holds the prompt's activations.
 
 Tensor parallelism (`tensor_parallel`): where the RG-LRU width divides by
 the 'model' size each rank runs W / tp channels (its columns of w_gate,
@@ -98,7 +100,7 @@ def _causal_conv(p, v, tail):
     ext = torch.cat([tail, v], dim=1)
     out = sum(ext[:, i:i + v.shape[1], :] * p["conv"][kk - 1 - i][None, None, :]
               for i in range(kk))
-    return out.to(v.dtype), ext[:, -(kk - 1):, :].clone()
+    return out.to(v.dtype), ext[:, -(kk - 1):, :]
 
 
 def rglru_block(cfg: ArchConfig, p, x, *, state=None):
@@ -216,7 +218,7 @@ def rwkv6_block(cfg: ArchConfig, p, x, *, state=None):
     y = _group_norm(mine(p["ln_scale"], 0), mine(p["ln_bias"], 0), y.float())
     y = y.transpose(1, 2).reshape(b, s, dl)
     out = layers.row_parallel((F.silu(g) * y).to(x.dtype), p["w_o"], split).to(x.dtype)
-    return out, {"last": xi[:, -1, :].clone(), "wkv": s_last}
+    return out, {"last": xi[:, -1, :], "wkv": s_last}
 
 
 # --- RWKV channel mix ------------------------------------------------------------
@@ -247,4 +249,4 @@ def rwkv_cmix(cfg: ArchConfig, p, x, *, state=None):
     k = torch.square(F.relu(layers.dot(xk, p["w_k"]))).to(x.dtype)
     r = tp.leave(torch.sigmoid(layers.dot(mix(1), p["w_r"])), False)
     out = (r * layers.row_parallel(k, p["w_v"], split)).to(x.dtype)
-    return out, xw[:, -1, :].clone()
+    return out, xw[:, -1, :]

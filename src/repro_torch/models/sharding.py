@@ -232,8 +232,10 @@ def gathered_cache(cache: dict | None, fresh: bool = False, seq_dims: dict | Non
 def keep_shards(held: dict, whole: dict, local: set = frozenset(), prefix: str = "") -> None:
     """Write back what a block did to the whole cache `whole`: into `held`'s
     DTensor leaves this rank's shard of each (a local cut, no
-    communication), every other entry as it is; the leaves `local` names
-    were written in place, and the `"shard"` entries are dropped."""
+    communication), into its plain leaves their new values (the leaf keeps
+    its storage; the 0-d `pos` is the same tensor on both sides, advanced in
+    place by attention); the leaves `local` names were written in place, and
+    the `"shard"` entries are dropped."""
     for k, v in whole.items():
         old = held.get(k)
         if k == "shard" or f"{prefix}{k}" in local:
@@ -247,6 +249,8 @@ def keep_shards(held: dict, whole: dict, local: set = frozenset(), prefix: str =
                     mesh = old.device_mesh
                     part = part.chunk(mesh.size(i), dim=pl.dim)[mesh.get_local_rank(i)]
             old.to_local().copy_(part)
+        elif isinstance(old, torch.Tensor) and old is not v:
+            old.copy_(v)             # a plain leaf keeps its storage
         else:
             held[k] = v
 

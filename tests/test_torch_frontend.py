@@ -100,7 +100,7 @@ def test_internvl2_prefill_decode_matches_jax():
         got_p, caches = prefill(model.cfg, model, {"tokens": _t(tok[:, :seq - 2]),
                                                    "patches": _t(patches)}, max_seq=max_seq)
         np.testing.assert_allclose(_np(got_p), np.asarray(want_p), **MODEL_TOL)
-        assert caches[0]["mix"]["pos"] == cfg.frontend_seq + seq - 2
+        assert int(caches[0]["mix"]["pos"]) == cfg.frontend_seq + seq - 2
         for t in range(seq - 2, seq):
             want_d, jc = jax_decode_step(cfg, jp, jnp.asarray(tok[:, t:t + 1]), jc)
             got_d, caches = decode_step(model.cfg, model, _t(tok[:, t:t + 1]), caches)

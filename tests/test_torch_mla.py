@@ -172,7 +172,7 @@ def test_mla_block_prefill_matches_jax():
     got, cache = attention.mla_block(port_cfg(cfg), tp, torch.from_numpy(x),
                                      torch.from_numpy(pos), cache=cache)
     np.testing.assert_allclose(_np(got), np.asarray(want), **BLOCK_TOL)
-    assert cache["pos"] == int(jcache["pos"]) == 10
+    assert int(cache["pos"]) == int(jcache["pos"]) == 10
     for key in ("c_kv", "k_rope"):
         np.testing.assert_allclose(_np(cache[key]), np.asarray(jcache[key]), err_msg=key,
                                    **BLOCK_TOL)
@@ -198,7 +198,7 @@ def test_mla_block_absorbed_decode_matches_jax():
                                          torch.from_numpy(pos[:, t:t + 1]), cache=cache)
         np.testing.assert_allclose(_np(got), np.asarray(want), err_msg=f"step {t}",
                                    **BLOCK_TOL)
-        assert cache["pos"] == t + 1
+        assert int(cache["pos"]) == t + 1
     np.testing.assert_allclose(_np(cache["c_kv"]), np.asarray(jcache["c_kv"]), **BLOCK_TOL)
 
 
