@@ -1,0 +1,5 @@
+"""mfu.train_dp4: `mfu.train` of the four-card cell, which moves its own end-to-end
+rate (`train_tokens_per_s.dp4`): the same reading of the same record."""
+from harness import spec
+
+read = spec.reader("mfu.train")
