@@ -1206,7 +1206,7 @@ def served_run(cfg, model, prompts, extra: dict, new_tokens: int, max_seq: int,
             designs_at_prefill.update(read_designs())
             if prof is not None:
                 prof.start()
-        elif prof is not None:  # decode is done, its last ids read on the host
+        elif prof is not None and len(messages) == 1:  # decode is done, its ids read
             prof.stop()
         messages.append(msg)
         print(f"{label}: {msg}", flush=True)

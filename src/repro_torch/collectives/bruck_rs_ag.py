@@ -45,15 +45,23 @@ def _global_rank(group, rank: int) -> int:
 
 def shift(val: torch.Tensor, offset: int, group=None) -> torch.Tensor:
     """Send `val` to rank (i + offset) % n and return what rank
-    (i - offset) % n sent: one collective permute at ring offset `offset`."""
+    (i - offset) % n sent: one collective permute at ring offset `offset`.
+    The one point-to-point exchange of the ring, Bruck's collectives and the
+    pipeline: `shift.calls` counts its calls, `shift.bytes` the bytes sent."""
     n, i = _world(group)
     val = val.contiguous()
     out = torch.empty_like(val)
     ops = [dist.P2POp(dist.isend, val, _global_rank(group, (i + offset) % n), group),
            dist.P2POp(dist.irecv, out, _global_rank(group, (i - offset) % n), group)]
+    shift.calls += 1
+    shift.bytes += val.numel() * val.element_size()
     for req in dist.batch_isend_irecv(ops):
         req.wait()
     return out
+
+
+shift.calls = 0  # calls, each one send and one receive on this rank
+shift.bytes = 0  # bytes this rank sent over them
 
 
 def _permute_hops(val: torch.Tensor, group, offset: int,

@@ -7,6 +7,13 @@ port captures its step once as a CUDA graph and replays it per token
 (`CapturedDecode`), and on the CPU (or with `graph=False`) runs the same
 step as an eager Python loop.
 
+Each batch prints a `prefill:` and a `decode:` line on the host clock, then a
+`decode spans:` line (`decode_spans_line`): each replay timed on the device
+by CUDA events (`spans.Marks`), the gaps between the host's reads of the ids,
+the warm-up and the capture.  Under a profiler the phases are the spans
+`serve.prefill`, `serve.decode.warmup`, `serve.decode.capture`,
+`serve.decode.replay` and `serve.decode.read` (`spans.span`).
+
 Run on the card (random weights from a seed, scaled-down config):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-3b
 Run on the CPU with the plain versions of the kernels:
@@ -20,6 +27,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import functools
+import math
 import time
 
 import numpy as np
@@ -30,6 +38,7 @@ from repro_torch import configs
 from repro_torch._device import resolve_device
 from repro_torch.models import decode_step, init_params, prefill
 from repro_torch.models.model import greedy
+from repro_torch.spans import Marks, span
 
 
 @functools.cache
@@ -38,6 +47,13 @@ def _warmup_stream(index: int) -> torch.cuda.Stream:
     workspace for each stream it has run on (32 MiB on the H100), so a new
     stream a capture would hold one more workspace for each capture."""
     return torch.cuda.Stream(torch.device("cuda", index))
+
+
+@functools.cache
+def _replay_marks(index: int) -> Marks:
+    """The events of every decode on card `index` (each replay's start and
+    end), reused from batch to batch."""
+    return Marks()
 
 
 @dataclasses.dataclass
@@ -63,7 +79,7 @@ class CapturedDecode:
     `token`.  Every cache leaf is written in place and the position is a
     device tensor, so each replay continues where the last one stopped.
     Capture or replay errors propagate; nothing falls back to the eager
-    loop."""
+    loop.  `warmup_s` and `capture_s` are the two parts' host seconds."""
 
     def __init__(self, cfg, model, caches, token):
         if token.device.type != "cuda":
@@ -72,18 +88,21 @@ class CapturedDecode:
         self.cfg, self.model, self.caches = cfg, model, caches
         self.token = token.clone()
         dev = token.device
+        t0 = time.perf_counter()
         side = _warmup_stream(dev.index)
         side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
+        with span("serve.decode.warmup"), torch.cuda.stream(side):
             self._step()
         torch.cuda.current_stream(dev).wait_stream(side)
         torch.cuda.synchronize(dev)  # no collective of the warm-up is left in flight
+        t1 = time.perf_counter()
         self.graph = torch.cuda.CUDAGraph()
         # on a mesh the NCCL watchdog's thread queries events while this one
         # captures: only this thread's calls must be capture-safe
         mode = "thread_local" if dist.is_available() and dist.is_initialized() else "global"
-        with torch.cuda.graph(self.graph, capture_error_mode=mode):
+        with span("serve.decode.capture"), torch.cuda.graph(self.graph, capture_error_mode=mode):
             self.logits = self._step()
+        self.warmup_s, self.capture_s = t1 - t0, time.perf_counter() - t1
         self.replays = 0
 
     def _step(self):
@@ -108,33 +127,75 @@ def decode_loop(cfg, model, caches, tok, budgets: list[int], graph: bool,
     and the next is captured once (`CapturedDecode`), where a replay follows,
     and every later step replays it; else every step runs eagerly.  The host
     reads each step's ids once, outside the graph, as the reference's
-    `np.asarray(tok)`.  Prints one progress line: the decoded tokens, steps,
+    `np.asarray(tok)`.  Prints two progress lines: the decoded tokens, steps,
     seconds and tok/s, and how the steps ran (the graph's warm-up and capture
-    seconds and its replays)."""
+    seconds and its replays); then `decode_spans_line`'s."""
     steps = max(budgets) - 1
-    captured, capture_s = None, 0.0
+    captured, eager = None, 0
+    marks = _replay_marks(tok.device.index) if tok.device.type == "cuda" else Marks()
+    marks.reset()
     t0 = time.perf_counter()
-    host = [tok.cpu()]  # waits for the device
+    with span("serve.decode.read"):
+        host = [tok.cpu()]  # waits for the device
+    reads = [time.perf_counter()]
     for i in range(steps):
         if captured is not None:
-            tok = captured.step()
+            with span("serve.decode.replay"):
+                marks.mark(tok.device)
+                tok = captured.step()
+                marks.mark(tok.device)
         elif graph and i + 1 < steps:  # a replay follows: warm up and capture
-            t1 = time.perf_counter()
             captured = CapturedDecode(cfg, model, caches, tok)
-            capture_s = time.perf_counter() - t1
             tok = captured.token
+            eager += 1
         else:
             logits, caches = decode_step(cfg, model, tok, caches, logits_whole=False)
             tok = greedy(cfg, model, logits)[:, None]
-        host.append(tok.cpu())
+            eager += 1
+        with span("serve.decode.read"):
+            host.append(tok.cpu())
+        reads.append(time.perf_counter())
     dt = time.perf_counter() - t0
     # the first id of each row came from prefill; count only decode's
     decoded = sum(max(n - 1, 0) for n in budgets)
     how = ("eager" if captured is None else
-           f"CUDA graph: warm-up and capture {capture_s:.3f}s, {captured.replays} replays")
+           f"CUDA graph: warm-up and capture {captured.warmup_s + captured.capture_s:.3f}s, "
+           f"{captured.replays} replays")
     progress(f"decode: {decoded} tokens in {steps} steps, {dt:.3f}s "
              f"({decoded / max(dt, 1e-9):.1f} tok/s), {how}")
+    progress(decode_spans_line(captured, eager, marks, reads, tok.device))
     return torch.cat(host, dim=1)
+
+
+def decode_spans_line(captured: CapturedDecode | None, eager: int, marks: Marks,
+                      reads: list[float], device: torch.device) -> str:
+    """One batch's decode, as sums and counts that pool over batches: its
+    replays, captures and eager steps; the replays' device seconds (each
+    from an event just before `graph.replay()` to one just after), the
+    device seconds between one replay's end and the next one's start (the
+    ids' read, the host loop, the next launch) and the stretch from the first
+    replay's start to the last one's end (on the card, with replays); the
+    host-clock gaps between consecutive reads of the ids (nearest-rank
+    percentiles; the first gap holds the warm-up step and the capture); and
+    the warm-up's and the capture's host seconds."""
+    replays = 0 if captured is None else captured.replays
+    parts = [f"decode spans: {replays} replays, {int(captured is not None)} captures, "
+             f"{eager} eager"]
+    got = marks.intervals()
+    if got is None:
+        parts.append(f"device not timed ({'no replays' if device.type == 'cuda' else 'cpu'})")
+    else:
+        parts.append(f"replays {sum(got[0::2]):.6f} s device, between replays "
+                     f"{sum(got[1::2]):.6f} s device, stretch {marks.elapsed():.6f} s device")
+    gaps = sorted(b - a for a, b in zip(reads, reads[1:]))
+    if gaps:
+        def at(q):
+            return 1e3 * gaps[math.ceil(q * len(gaps)) - 1]
+        parts.append(f"token gap ms p50 {at(0.5):.3f} p95 {at(0.95):.3f} max {at(1.0):.3f} "
+                     f"(host, {len(gaps)} gaps)")
+    if captured is not None:
+        parts.append(f"warm-up {captured.warmup_s:.6f} s, capture {captured.capture_s:.6f} s")
+    return "; ".join(parts)
 
 
 @torch.inference_mode()
@@ -174,10 +235,11 @@ def serve_requests(cfg, model, requests: list[Request], max_seq: int,
     batch = len(requests)
     prompts = torch.from_numpy(np.stack([r.prompt for r in requests])).to(model.device)
     t0 = time.perf_counter()
-    logits, caches = prefill(cfg, model, {"tokens": prompts}, max_seq=max_seq,
-                             logits_whole=False)
-    tok = greedy(cfg, model, logits)[:, None]
-    tok.cpu()  # waits for the device
+    with span("serve.prefill"):
+        logits, caches = prefill(cfg, model, {"tokens": prompts}, max_seq=max_seq,
+                                 logits_whole=False)
+        tok = greedy(cfg, model, logits)[:, None]
+        tok.cpu()  # waits for the device
     dt = time.perf_counter() - t0
     n = prompts.numel()
     progress(f"prefill: {batch} x {prompts.shape[1]} tokens in {dt:.3f}s "

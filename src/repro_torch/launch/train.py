@@ -52,6 +52,10 @@ in the reference's unsharded train-state layout (sharded leaves are gathered
 by every rank, rank 0 writes), so a checkpoint of either package resumes in
 the other.
 
+Each step prints `step N loss L gnorm G dt Ts` on the host clock, then the
+step's device seconds a phase (`make_train_step`'s CUDA events; "not timed"
+off the card) and its gradient sync's `collectives.shift` calls and bytes.
+
 Run (random weights from a seed, scaled-down config unless --scale full):
   PYTHONPATH=src python -m repro_torch.launch.train            # rwkv6-3b
   PYTHONPATH=src python -m repro_torch.launch.train --scale full --arch stablelm-3b
@@ -64,6 +68,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import os
 import time
 
@@ -77,12 +82,13 @@ from repro_torch._device import resolve_device
 from repro_torch.checkpoint import latest_step, restore_into, save
 from repro_torch.collectives import (bruck_all_reduce, compressed_all_reduce,
                                      gradient_sync_plan, make_error_feedback_state,
-                                     ring_all_reduce)
+                                     ring_all_reduce, shift)
 from repro_torch.core.cost_model import H100_NVLINK
 from repro_torch.data import SyntheticLM
 from repro_torch.models.model import Model, init_params, loss_fn
 from repro_torch.models.sharding import TokenSplit, activation_sharding
 from repro_torch.optim import AdamWState, adamw_init, adamw_update, cosine_warmup_schedule
+from repro_torch.spans import Marks, span
 
 from .mesh import axis_sizes, batch_axes, make_mesh
 from .shardings import activation_rules, local_shard, shard_model
@@ -187,6 +193,11 @@ def batch_world(mesh) -> World:
     return World(sub.size(), sub.get_local_rank(), sub.get_group())
 
 
+def _library_sum(g: torch.Tensor, group=None) -> torch.Tensor:
+    dist.all_reduce(g, op=dist.ReduceOp.SUM, group=group)
+    return g
+
+
 def sync_gradients(grads: list[torch.Tensor], grad_sync: str, world: World,
                    ef_state: list[torch.Tensor] | None = None):
     """Sum gradient leaves across the world and divide by its size.  Returns
@@ -200,21 +211,20 @@ def sync_gradients(grads: list[torch.Tensor], grad_sync: str, world: World,
         return grads, ef_state
     if n == 1:
         return grads, ef_state
-    if grad_sync == "gspmd":
-        for g in grads:
-            dist.all_reduce(g, op=dist.ReduceOp.SUM, group=group)
-    else:
+    reduce = functools.partial(_library_sum, group=group)
+    if grad_sync != "gspmd":
         plan = gradient_sync_plan(
             n, sum(g.numel() * g.element_size() for g in grads), H100_NVLINK)
         if plan.impl == "bruck":
-            grads = [bruck_all_reduce(g, plan.rs_schedule, plan.ag_schedule, group)
-                     for g in grads]
+            reduce = functools.partial(bruck_all_reduce, rs_schedule=plan.rs_schedule,
+                                       ag_schedule=plan.ag_schedule, group=group)
         elif plan.impl == "ring":
-            grads = [ring_all_reduce(g, group) for g in grads]
-        else:
-            for g in grads:
-                dist.all_reduce(g, op=dist.ReduceOp.SUM, group=group)
-    return [g / n for g in grads], ef_state
+            reduce = functools.partial(ring_all_reduce, group=group)
+    out = []
+    for g in grads:
+        with span("train.sync.leaf"):
+            out.append(reduce(g))
+    return [g / n for g in out], ef_state
 
 
 def _pmean(x: torch.Tensor, world: World) -> torch.Tensor:
@@ -225,38 +235,82 @@ def _pmean(x: torch.Tensor, world: World) -> torch.Tensor:
     return x
 
 
+PHASES = ("forward", "backward", "sync", "metrics", "optimizer")
+
+
 def make_train_step(tc: TrainConfig, lay: Layout, mesh=None, seq_parallel: bool = False):
     """step(model, opt_state, batch, ef) -> (opt_state, metrics, ef): the
     loss of the model's own config (`model.cfg`); the model's parameters are
     updated in place, and `ef` is the error feedback state of
     `bridge-compressed` (None for the other modes).  `seq_parallel`: the
     reference's `build_train_step(cfg, mesh, seq_parallel)`, the residual
-    stream sharded on its sequence over 'model' (`activation_rules`)."""
+    stream sharded on its sequence over 'model' (`activation_rules`).
+
+    The step's phases (`PHASES`) are the spans `train.forward`,
+    `train.backward`, `train.sync` (a `train.sync.leaf` a leaf inside),
+    `train.metrics` and `train.optimizer`, and end in a CUDA event each on
+    the card.  Once the host has read a result of the step,
+    `step.phase_seconds()` gives the last step's device seconds a phase, idle
+    time inside it included (None off the card); `step.shifts` is the last
+    step's `collectives.shift` calls and bytes sent."""
     lr = cosine_warmup_schedule(tc.lr, tc.warmup, tc.steps)
     rules = {} if mesh is None else activation_rules(mesh, seq_parallel)
+    marks = Marks()
 
     def step(model: Model, opt_state, batch: dict, ef=None):
         params = list(model.parameters())
         for p in params:
             p.grad = None
+        dev = model.device
+        marks.reset()
+        marks.mark(dev)
         # the backward too: the remat recompute reads the split
         with activation_sharding(mesh, rules, lay.split):
-            loss, metrics = loss_fn(model.cfg, model, batch)
-            loss.backward()
+            with span("train.forward"):
+                loss, metrics = loss_fn(model.cfg, model, batch)
+            marks.mark(dev)
+            with span("train.backward"):
+                loss.backward()
+            marks.mark(dev)
         grads = [p.grad for p in params]
-        if lay.sync is not None:
-            grads, ef = sync_gradients(grads, tc.grad_sync, lay.sync, ef)
-        elif lay.sharded and lay.rows.size > 1:
-            # the shards came back summed over the ranks that hold distinct
-            # rows (a 'model' peer's part of a leaf counted once)
-            grads = [g / lay.rows.size for g in grads]
-        metrics = {k: _pmean(m, lay.rows) for k, m in metrics.items()}
-        _, opt_state, om = adamw_update(grads, opt_state, params, lr)
+        calls, sent = shift.calls, shift.bytes
+        with span("train.sync"):
+            if lay.sync is not None:
+                grads, ef = sync_gradients(grads, tc.grad_sync, lay.sync, ef)
+            elif lay.sharded and lay.rows.size > 1:
+                # the shards came back summed over the ranks that hold distinct
+                # rows (a 'model' peer's part of a leaf counted once)
+                grads = [g / lay.rows.size for g in grads]
+        marks.mark(dev)
+        step.shifts = (shift.calls - calls, shift.bytes - sent)
+        with span("train.metrics"):
+            metrics = {k: _pmean(m, lay.rows) for k, m in metrics.items()}
+            mean_loss = _pmean(loss, lay.rows)
+        marks.mark(dev)
+        with span("train.optimizer"):
+            _, opt_state, om = adamw_update(grads, opt_state, params, lr)
+        marks.mark(dev)
         metrics.update(om)
-        metrics["loss"] = _pmean(loss, lay.rows)
+        metrics["loss"] = mean_loss
         return opt_state, metrics, ef
 
+    def phase_seconds() -> dict | None:
+        got = marks.intervals()
+        return None if got is None else dict(zip(PHASES, got, strict=True))
+
+    step.phase_seconds = phase_seconds
+    step.shifts = (0, 0)
     return step
+
+
+def _step_spans_text(step_fn) -> str:
+    """`train()`'s account of the last step, after its `dt`: each phase's
+    device seconds and the sync's shifts."""
+    phases = step_fn.phase_seconds()
+    timed = ("device s not timed (cpu)" if phases is None else
+             "device s " + " ".join(f"{k} {v:.4f}" for k, v in phases.items()))
+    calls, sent = step_fn.shifts
+    return f"; {timed}; {calls} shifts, {sent} bytes"
 
 
 def state_tree(model: Model, opt_state: AdamWState, params=None) -> dict:
@@ -413,7 +467,8 @@ def train(tc: TrainConfig, progress=print, device=None, model: Model | None = No
         dt = time.perf_counter() - t0
         losses.append(loss)
         progress(f"step {step:5d} loss {loss:.4f} "
-                 f"gnorm {float(metrics['grad_norm']):.3f} dt {dt:.4f}s")
+                 f"gnorm {float(metrics['grad_norm']):.3f} dt {dt:.4f}s"
+                 + _step_spans_text(step_fn))
         if tc.checkpoint_dir and (step + 1) % tc.checkpoint_every == 0:
             t0 = time.perf_counter()
             if lay.sharded:  # every rank gathers, rank 0 writes

@@ -42,6 +42,13 @@ Modes:
                     on (4,); with JAXDIR (a JAX checkpoint of step 2) it also
                     resumes that one on (2, 2).  Rank 0 writes the loss lists
                     to the JSON file OUT.
+  spans OUT         `collectives.shift`'s counters over ring_all_reduce and
+                    bruck_all_reduce of a (7, 11) f32 and a (5,) bf16 leaf,
+                    and one bridge training step of stablelm-3b smoke
+                    (batch 2 a rank, seq 16) under the CPU profiler: its
+                    `train.*` spans, `step.shifts`, `step.phase_seconds()`
+                    and its parameters' sizes; rank 0 writes them to the
+                    JSON file OUT.
   a2a_grad OUT      the differentiable bruck_all_to_all on a seeded (n, 3, 5)
                     input per rank: its output against dist.all_to_all_single
                     and the gradient of sum(out * w) against the plain
@@ -809,6 +816,49 @@ def _tp_restart(n: int, rank: int, ckpt_dir: str, out_path: str) -> None:
     torch.distributed.barrier()
 
 
+def _spans(n: int, rank: int, out_path: str) -> None:
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.collectives import bruck_all_reduce, ring_all_reduce, shift
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch.train import (TrainConfig, current_world, layout, make_train_step,
+                                          model_config)
+    from repro_torch.models import init_params
+    from repro_torch.optim import adamw_init
+
+    gen = torch.Generator().manual_seed(rank)
+    leaves = [torch.randn((7, 11), generator=gen),
+              torch.randn((5,), generator=gen).to(torch.bfloat16)]
+    counts = {}
+    for name, reduce in (("ring", ring_all_reduce), ("bruck", bruck_all_reduce)):
+        calls, sent = shift.calls, shift.bytes
+        for x in leaves:
+            reduce(x)
+        counts[name] = [shift.calls - calls, shift.bytes - sent]
+
+    tc = TrainConfig(arch="stablelm-3b", batch_size=2 * n, seq_len=16, grad_sync="bridge")
+    cfg = model_config(tc)
+    model = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    params = list(model.parameters())
+    step = make_train_step(tc, layout(tc, current_world(), None))
+    rows = slice(2 * rank, 2 * rank + 2)
+    batch = {k: torch.from_numpy(v[rows])
+             for k, v in SyntheticLM(cfg.vocab_size, 16).global_batch(0, 2 * n, 1).items()}
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with torch.profiler.record_function("outer"):
+            _, metrics, _ = step(model, adamw_init(params), batch)
+            float(metrics["loss"])
+    spans = [[e.name, e.time_range.start, e.time_range.end, e.is_user_annotation]
+             for e in prof.events() if e.name.startswith("train.") or e.name == "outer"]
+    if rank == 0:
+        Path(out_path).write_text(json.dumps({
+            "leaves": counts, "spans": spans, "shifts": list(step.shifts),
+            "phases": step.phase_seconds(),
+            "params": [[p.numel(), p.element_size()] for p in params]}))
+    torch.distributed.barrier()
+
+
 def _a2a_grad(n: int, rank: int, out_path: str) -> None:
     import numpy as np
     import torch
@@ -925,6 +975,8 @@ def main() -> None:
             _mesh(world, rank, *sys.argv[5:])
         elif mode == "elastic":
             _elastic(world, rank, *sys.argv[5:])
+        elif mode == "spans":
+            _spans(world, rank, sys.argv[5])
         elif mode == "a2a_grad":
             _a2a_grad(world, rank, sys.argv[5])
         elif mode == "adamw":
